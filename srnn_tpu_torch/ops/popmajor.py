@@ -1,0 +1,155 @@
+"""Population-major (P, N) weightwise ops in plain torch; port of the
+weightwise part of ``srnn_tpu/ops/popmajor.py``.
+
+Row p of a (P, N) matrix holds weight p of every particle, so every op of
+the tiny MLP is elementwise over the particle axis.  The batch-1 SGD chain
+here (``_ww_seq_sgd_flat``, behind ``ww_train_epochs_popmajor`` and
+``ww_learn_epochs_popmajor``) takes its gradients from autograd, like the
+JAX package's ``jax.grad`` chain; it is the independent oracle the tests
+hold the hand-derived backward of ``cuda_ww_train`` against, and no route
+of the soup runs it.
+
+The dispatchers at the bottom are the surface the soup calls.  The train
+and learn_from chains go to the SGD kernel's wrapper, where the tensor's
+device picks the route: a CUDA tensor launches the kernel, a CPU tensor
+runs its plain chain.  Only the weightwise variant and the sequential
+(batch-1) train mode are ported; anything else raises.
+"""
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..topology import Topology, normalized_weight_coords
+from .cuda_ww_train import ww_learn_epochs, ww_train_epochs
+from .mlp import mlp_rows_plain, point_features
+
+DEFAULT_LR = 0.01  # keras SGD default
+
+
+def _check_weightwise(topo: Topology) -> None:
+    if topo.variant != "weightwise":
+        raise ValueError(
+            f"variant {topo.variant!r} is not ported yet; only 'weightwise' "
+            "runs in srnn_tpu_torch")
+
+
+def ww_forward_popmajor(topo: Topology, wT: torch.Tensor,
+                        xT: torch.Tensor) -> torch.Tensor:
+    """f_w(points(x)) for every particle, population-major.
+
+    ``wT`` (P, N) holds the nets' parameters, ``xT`` (P, N) the weight
+    feature of each duplex point (the coordinate features are constants of
+    the topology).  Returns (P, N).  Self-application is
+    ``ww_forward_popmajor(topo, wT, wT)``; an attack by a permuted
+    population is ``ww_forward_popmajor(topo, wT[:, att], wT)``.
+    """
+    coords = normalized_weight_coords(topo)
+    p, n = xT.shape
+    feats = [xT] + [
+        torch.as_tensor(coords[:, k], dtype=xT.dtype,
+                        device=xT.device)[:, None].expand(p, n)
+        for k in range(3)
+    ]
+    return mlp_rows_plain(topo, wT.unbind(0), feats)[-1][0]
+
+
+def _ww_seq_sgd_flat(topo: Topology, wT: torch.Tensor, epochs: int,
+                     lr: float, fixed_xyT: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``epochs`` passes of batch-1 SGD over the P samples, in enumeration
+    order, gradients from autograd.
+
+    ``fixed_xyT is None`` is self-training: the sample set (x = y = weights)
+    is re-snapshotted from the CURRENT weights at the top of every epoch
+    (``network.py:613-618``).  Otherwise ``fixed_xyT`` (P, N) is a fixed
+    imitation target (``learn_from``, ``network.py:620-626``).  Returns
+    (new_wT, last epoch's mean pre-update loss (N,)).
+    """
+    p, n = wT.shape
+    coords = normalized_weight_coords(topo)
+    refresh = fixed_xyT is None
+    w = wT.detach()
+    snap = w if refresh else fixed_xyT.detach()
+    last = torch.zeros(n, dtype=wT.dtype, device=wT.device)
+    for _ in range(max(epochs, 0)):
+        if refresh:
+            snap = w
+        accum = torch.zeros_like(last)
+        for s in range(p):
+            x_s = snap[s]
+            wi = w.detach().requires_grad_(True)
+            with torch.enable_grad():
+                pred = mlp_rows_plain(topo, wi.unbind(0),
+                                      point_features(coords, s, x_s))[-1][0]
+                per_particle = (pred - x_s) ** 2
+                (grads,) = torch.autograd.grad(per_particle.sum(), wi)
+            w = w - lr * grads
+            accum = accum + per_particle.detach()
+        last = accum / p
+    return w, last
+
+
+def _check_train_mode(mode: str) -> None:
+    if mode == "full_batch":
+        raise ValueError(
+            "train_mode='full_batch' is not ported yet; srnn_tpu_torch runs "
+            "the sequential (batch-1) chain only")
+    if mode != "sequential":
+        raise ValueError(f"unknown train mode {mode!r}")
+
+
+def ww_train_epochs_popmajor(topo: Topology, wT: torch.Tensor, epochs: int,
+                             lr: float = DEFAULT_LR,
+                             mode: str = "sequential"):
+    """``epochs`` self-training calls (samples recomputed from the current
+    weights before every epoch).  Returns (new_wT, last epoch loss (N,))."""
+    _check_train_mode(mode)
+    if epochs <= 0:
+        return wT, torch.zeros(wT.shape[1], dtype=wT.dtype, device=wT.device)
+    return _ww_seq_sgd_flat(topo, wT, epochs, lr)
+
+
+def ww_learn_epochs_popmajor(topo: Topology, wT: torch.Tensor,
+                             otherT: torch.Tensor, severity: int,
+                             lr: float = DEFAULT_LR,
+                             mode: str = "sequential"):
+    """``severity`` imitation epochs toward the counterparts' samples
+    (x = y = other's weights, fixed across the call)."""
+    _check_train_mode(mode)
+    if severity <= 0:
+        return wT, torch.zeros(wT.shape[1], dtype=wT.dtype, device=wT.device)
+    return _ww_seq_sgd_flat(topo, wT, severity, lr, otherT)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: the population-major surface the soup calls.
+# ---------------------------------------------------------------------------
+
+
+def apply_popmajor(topo: Topology, selfT: torch.Tensor,
+                   targetT: torch.Tensor) -> torch.Tensor:
+    """Population-major attack: particle n's net (parameters ``selfT[:, n]``)
+    rewrites ``targetT[:, n]``.  Plain torch: the JAX package has an attack
+    kernel only for the recurrent variant (``pallas_rnn_apply``)."""
+    _check_weightwise(topo)
+    return ww_forward_popmajor(topo, selfT, targetT)
+
+
+def train_epochs_popmajor(topo: Topology, wT: torch.Tensor, epochs: int,
+                          lr: float = DEFAULT_LR, mode: str = "sequential"):
+    """``epochs`` self-training calls on the SGD kernel (its plain chain
+    for a CPU tensor).  Returns (new_wT, last epoch loss (N,))."""
+    _check_weightwise(topo)
+    _check_train_mode(mode)
+    return ww_train_epochs(topo, wT, epochs, lr)
+
+
+def learn_epochs_popmajor(topo: Topology, wT: torch.Tensor,
+                          otherT: torch.Tensor, severity: int,
+                          lr: float = DEFAULT_LR, mode: str = "sequential"):
+    """``severity`` imitation epochs toward ``otherT`` on the SGD kernel
+    (its plain chain for a CPU tensor)."""
+    _check_weightwise(topo)
+    _check_train_mode(mode)
+    return ww_learn_epochs(topo, wT, otherT, severity, lr)

@@ -1,0 +1,142 @@
+"""The slice as a whole: the port's soup against the JAX package's
+popmajor soup, fed the JAX package's own draws.
+
+The JAX ``evolve_step`` runs with ``layout='popmajor'`` in both
+``generation_impl`` spellings (on the CPU its fused spelling is the phase
+chain).  The draws are replayed from the JAX state's key exactly as
+``soup._evolve_parallel_popmajor`` makes them and handed to the port as
+numpy.  Integer state must be equal; weights and loss match within the
+generation tolerance of tests/test_fused_generation.py.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from srnn_tpu import Topology as JTopology
+from srnn_tpu import engine as jengine
+from srnn_tpu import soup as jsoup
+from srnn_tpu.init import fresh_lanes as j_fresh_lanes
+import srnn_tpu_torch as st
+from srnn_tpu_torch import convert
+
+GENERATIONS = 3
+JCFG = jsoup.SoupConfig(
+    topo=JTopology("weightwise", width=2, depth=2), size=64,
+    attacking_rate=0.3, learn_from_rate=0.3, learn_from_severity=1, train=2,
+    remove_divergent=True, remove_zero=True, layout="popmajor")
+
+
+def _jax_draws(cfg, key) -> st.SoupDraws:
+    """The draws of one JAX popmajor generation (soup.py:553-614)."""
+    n = cfg.size
+    _, k_ag, k_at, k_lg, k_lt, k_re = jax.random.split(key, 6)
+    return st.SoupDraws(
+        np.asarray(jax.random.uniform(k_ag, (n,)) < cfg.attacking_rate),
+        np.asarray(jax.random.randint(k_at, (n,), 0, n)),
+        np.asarray(jax.random.uniform(k_lg, (n,)) < cfg.learn_from_rate),
+        np.asarray(jax.random.randint(k_lt, (n,), 0, n)),
+        np.asarray(j_fresh_lanes(cfg.topo, k_re, n, cfg.respawn_draws)))
+
+
+def _port_config(jcfg, **kw):
+    fields = jcfg._asdict()
+    fields["topo"] = dataclasses.asdict(jcfg.topo)
+    return convert.soup_config_from_fields(fields)._replace(**kw)
+
+
+def _port_state(js):
+    return convert.soup_state_from_arrays(
+        np.asarray(js.weights), np.asarray(js.uids), int(js.next_uid),
+        int(js.time), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """Three JAX generations per spelling: [(state_before, state_after,
+    events)] per generation."""
+    runs = {}
+    for impl in ("phases", "fused"):
+        cfg = JCFG._replace(generation_impl=impl)
+        s = jsoup.seed(cfg, jax.random.key(3))
+        steps = []
+        for _ in range(GENERATIONS):
+            s2, ev = jsoup.evolve_step(cfg, s)
+            steps.append((s, s2, ev))
+            s = s2
+        runs[impl] = (cfg, steps)
+    return runs
+
+
+@pytest.mark.parametrize("port_impl", [
+    dict(generation_impl="phases", train_impl="plain"),
+    dict(generation_impl="phases", train_impl="kernel"),
+    dict(generation_impl="fused")], ids=["phases", "phases-kernel", "fused"])
+@pytest.mark.parametrize("jax_impl", ["phases", "fused"])
+def test_soup_matches_jax(jax_run, jax_impl, port_impl):
+    jcfg, steps = jax_run[jax_impl]
+    cfg = _port_config(jcfg, **port_impl)
+    state = _port_state(steps[0][0])
+    for g, (before, after, jev) in enumerate(steps):
+        state, ev = st.evolve_step(cfg, state, _jax_draws(jcfg, before.key))
+        for field in ("uids", "next_uid", "time"):
+            np.testing.assert_array_equal(
+                getattr(state, field).numpy(), np.asarray(getattr(after, field)),
+                err_msg=f"generation {g}: {field}")
+        np.testing.assert_array_equal(ev.action.numpy(), np.asarray(jev.action))
+        np.testing.assert_array_equal(ev.counterpart.numpy(),
+                                      np.asarray(jev.counterpart))
+        np.testing.assert_allclose(state.weights.numpy(),
+                                   np.asarray(after.weights), rtol=2e-5,
+                                   atol=1e-6, err_msg=f"generation {g}")
+        np.testing.assert_allclose(ev.loss.numpy(), np.asarray(jev.loss),
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_counts_and_fixpoint_engine_match_jax(jax_run):
+    jcfg, steps = jax_run["phases"]
+    js = steps[-1][1]
+    cfg = _port_config(jcfg)
+    state = _port_state(js)
+    np.testing.assert_array_equal(st.count(cfg, state).numpy(),
+                                  np.asarray(jsoup.count(jcfg, js)))
+    rng = np.random.default_rng(12)
+    lim = st.init.glorot_limit_rows(cfg.topo)
+    pop = (rng.uniform(-1, 1, (200, 14)) * lim).astype(np.float32)
+    ref = jengine.run_fixpoint(jcfg.topo, jax.numpy.asarray(pop),
+                               step_limit=40)
+    got = st.run_fixpoint(cfg.topo, torch.from_numpy(pop), step_limit=40)
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(ref.counts))
+    np.testing.assert_array_equal(got.classes.numpy(), np.asarray(ref.classes))
+    np.testing.assert_array_equal(got.steps.numpy(), np.asarray(ref.steps))
+
+
+def test_port_soup_own_draws_and_fences():
+    cfg = _port_config(JCFG, respawn_draws="fused")
+    s0 = st.seed(cfg, 5, device="cpu")
+    a = st.evolve(cfg, s0, 2)
+    b = st.evolve(cfg._replace(generation_impl="fused"), s0, 2)
+    # same seed, same draws: the two spellings agree, and s0 is untouched
+    assert torch.equal(a.uids, b.uids)
+    torch.testing.assert_close(a.weights, b.weights, rtol=2e-5, atol=1e-6)
+    assert int(a.time) == 2 and int(s0.time) == 0
+    assert int(torch.unique(a.uids).numel()) == cfg.size
+    for bad in (dict(layout="rowmajor"), dict(population_dtype="bf16"),
+                dict(mode="sequential"), dict(attack_impl="compact"),
+                dict(apply_impl="kernel"), dict(train_mode="full_batch"),
+                dict(train_impl="pallas"),
+                dict(topo=st.Topology("weightwise", activation="elu")),
+                dict(topo=st.Topology("recurrent"))):
+        with pytest.raises(ValueError):
+            st.evolve_step(cfg._replace(**bad), s0)
+    n = cfg.size
+    out_of_range = st.SoupDraws(np.ones(n, bool), np.full(n, n),
+                                np.zeros(n, bool), np.zeros(n, int),
+                                np.zeros((14, n), np.float32))
+    with pytest.raises(ValueError, match="outside"):
+        st.evolve_step(cfg, s0, out_of_range)
+    with pytest.raises(ValueError, match="state.weights"):
+        st.evolve_step(cfg._replace(size=n // 2), s0)
