@@ -10,22 +10,30 @@ Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from ``srnn_tpu_torch/csrc`` (one nvcc per source, all
    at once) and print ptxas' register and spill report;
-3. each kernel against its plain version on the same inputs at N = 1M,
-   P = 14 (the weightwise 4-2-2-1 net), plus every instantiated activation at
-   a small N; max abs / max rel difference, integer outputs equal, median
-   times of kernel and plain version (CUDA events) beside the kernel's bound;
-4. the main path through the public entry points, each of its three runs
-   with the launch counts set to 0 just before it and checked just after
-   against the launches that run must make: the N = 1M full-dynamics soup
-   (attack 0.1, learn_from 0.1, severity 1, train 10, both removals, fused
-   respawn draws), 20 generations with generation_impl='fused' (generation
-   kernel only), then 20 with 'phases' (SGD kernel only); generations/s,
-   class counts, unique uids; then the applications/s program, N = 1M,
-   steps = 2000 (self-application kernel only);
-5. a small soup on the card against the same soup on the CPU, fed the same
-   draws, over 3 generations on both routes;
-6. one JSON line listing every kernel, then the card's name and power limit,
-   then the result line ``{"ok": true, "device": {...}}``.
+3. each kernel against its plain version on the same inputs at N = 1M:
+   the weightwise kernels (K1-K3, P = 14, the 4-2-2-1 net), the k-vector
+   SGD chain (K4, aggregating 4-2-2-4, P = 20), the recurrent BPTT chain and
+   attack (K5, K6, the 1-2-2-1 stack, P = 17) and K3's aggregating, fft and
+   recurrent bodies; every other instantiated activation, aggregator and fft
+   mode at a small N; max abs / max rel difference, integer outputs equal,
+   median times of kernel and plain version (CUDA events) beside the
+   kernel's bound;
+4. the main path through the public entry points, each of its runs with
+   the launch counts set to 0 just before it and checked just after against
+   the launches that run must make: the N = 1M full-dynamics soup (attack
+   0.1, learn_from 0.1, severity 1, train 10, both removals, fused respawn
+   draws) of the weightwise, aggregating and recurrent particles, 20
+   generations with generation_impl='fused' (the variant's generation
+   kernel only), then 20 with 'phases' (its SGD kernel, and the recurrent
+   attack kernel); generations/s, class counts, unique uids; then the
+   applications/s program, N = 1M, steps = 2000 (self-application kernel
+   only); then, to inform, ``run_fixpoint`` class counts of fresh
+   aggregating and recurrent nets;
+5. a small soup of each variant on the card against the same soup on the
+   CPU, fed the same draws, over 3 generations on both routes;
+6. one JSON line listing every kernel (K3 once per variant body), then the
+   card's name and power limit, then the result line
+   ``{"ok": true, "device": {...}}``.
 
 It imports neither jax nor the JAX package.  Without a CUDA card, or outside
 a checkout, it exits non-zero and prints no result.
@@ -78,6 +86,62 @@ def sgd_ops_per_epoch(topo) -> int:
     return topo.num_weights * per_sample + 1
 
 
+def kvec_reduce_ops(topo) -> int:
+    """Operations of one reduce of P weights to k values, as the kernel
+    does it: the average's poison chains, segment sums and scale; the max
+    compares; the DFT basis' multiplies and adds."""
+    from srnn_tpu_torch.ops.cuda_kvec_train import kvec_tables
+
+    p, k = topo.num_weights, topo.aggregates
+    if topo.variant == "fft":
+        kinds = kvec_tables(topo)[2 * k * p:3 * k * p].reshape(k, p)
+        terms = (kinds != 0).sum(axis=1)
+        return int((kinds == 2).sum() + (terms - 1).clip(min=0).sum())
+    if topo.aggregator == "average":
+        return 4 * p + (p - k) + 3 * k
+    return (p - k) * (2 if topo.aggregator == "max_buggy" else 1)
+
+
+def kvec_sgd_ops_per_epoch(topo, refresh: bool) -> int:
+    """Operations of one full-batch epoch of the k-vector chain: the
+    reduce (self-training), the forward, the error, loss and its
+    gradient, the weight gradients, the back-propagated gradients above the
+    first layer and the update."""
+    shapes, k = topo.layer_shapes, topo.aggregates
+    back = sum(a * b for a, b in shapes)
+    back += sum(a * (2 * b - 1) for a, b in shapes[1:])
+    fwd = apply_ops_per_point(topo)
+    return ((kvec_reduce_ops(topo) if refresh else 0) + fwd + k + 2 * k
+            + k + back + 2 * topo.num_weights)
+
+
+def kvec_apply_ops(topo) -> int:
+    """One k-vector transform: reduce, forward, expand (P rows of k
+    products and k - 1 adds)."""
+    p, k = topo.num_weights, topo.aggregates
+    return kvec_reduce_ops(topo) + apply_ops_per_point(topo) + p * (2 * k - 1)
+
+
+def rnn_forward_ops(topo, t_len: int) -> int:
+    """One stacked-SimpleRNN forward over ``t_len`` steps."""
+    return t_len * sum(u * (2 * i - 1 + 2 * u) for i, u in
+                       topo.rnn_layer_dims)
+
+
+def rnn_sgd_ops_per_epoch(topo) -> int:
+    """One BPTT epoch: forward, loss, its gradient, per layer and step the
+    carries, the weight gradients, the input gradients (above layer 0) and
+    the recurrent carry; then the update."""
+    t = p = topo.num_weights
+    ops = rnn_forward_ops(topo, t) + t + 2 * t + t
+    for layer, (i, u) in enumerate(topo.rnn_layer_dims):
+        per_step = u + 2 * u * (i + u) + u * (2 * u - 1)
+        if layer > 0:
+            per_step += i * (2 * u - 1)
+        ops += t * per_step
+    return ops + 2 * p
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
@@ -87,9 +151,11 @@ def bound_ms(nbytes: float, ops: float):
 # ---------------------------------------------------------------- helpers
 
 
-def timed_ms(torch, fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up."""
-    fn()
+def timed_ms(torch, fn, reps: int, warm: bool = True) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up
+    run unless ``warm`` is false (``fn`` ran just before, in a check)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -138,12 +204,17 @@ def equal_ints(torch, what: str, got, ref) -> None:
 
 
 def build_kernels():
+    """Build every kernel source, one nvcc each, all at once; print each
+    one's finish time (its log's last write) and ptxas' report."""
     from srnn_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
+    t0, wall0 = time.perf_counter(), time.time()
     _build.build()
     log(f"build: {len(_build.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {_build.nvcc_path()})")
+    for name in _build.SOURCES:
+        done = os.path.getmtime(_build.log_path(name)) - wall0
+        log(f"  {name}: nvcc done after {done:.1f} s")
     for name in _build.SOURCES:
         for line in _build.resource_usage(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -151,17 +222,18 @@ def build_kernels():
 
 
 def population(topo, n, gen, scale=1.0):
-    from srnn_tpu_torch.init import init_popmajor_fused
+    """(P, n) population on the card: the glorot lane draw, or the
+    kernel-by-kernel draw with orthogonal kernels for the recurrent
+    variant."""
+    from srnn_tpu_torch.init import fresh_lanes
 
-    return (init_popmajor_fused(topo, gen, n, "cuda") * scale).contiguous()
+    return (fresh_lanes(topo, gen, n, "fused", "cuda") * scale).contiguous()
 
 
 def gen_operands(torch, topo, wT, gen, rate=0.1):
     """Kernel operands as the soup builds them: attacked lanes with their
     attacker's column, learners with their target's pre-attack column and
     that target's attacker."""
-    from srnn_tpu_torch.init import init_popmajor_fused
-
     n = wT.shape[1]
     dev = wT.device
     has_attacker = torch.rand(n, generator=gen, device=dev) < rate
@@ -169,7 +241,7 @@ def gen_operands(torch, topo, wT, gen, rate=0.1):
     learn_gate = torch.rand(n, generator=gen, device=dev) < rate
     tgt = torch.randint(0, n, (n,), generator=gen, device=dev)
     attackerT = wT[:, atk_idx]
-    return dict(freshT=init_popmajor_fused(topo, gen, n, "cuda"),
+    return dict(freshT=population(topo, n, gen),
                 attackerT=attackerT, has_attacker=has_attacker,
                 otherT=wT[:, tgt], other_attackerT=attackerT[:, tgt],
                 other_attacked=has_attacker[tgt], learn_gate=learn_gate)
@@ -197,7 +269,7 @@ def check_kernels(torch, rows):
     k1_ms = timed_ms(torch, lambda: cuda_ww.ww_apply_population(
         topo, w_damped, BENCH_STEPS), 5)
     k1_plain = timed_ms(torch, lambda: cuda_ww.ww_apply_population_plain(
-        topo, w_damped, BENCH_STEPS), 1)
+        topo, w_damped, BENCH_STEPS), 1, warm=False)
     b, by = bound_ms(2 * p * N * 4, BENCH_STEPS * N * p * pts)
     log(f"  steps={BENCH_STEPS}: kernel {k1_ms:.3f} ms, plain "
         f"{k1_plain:.3f} ms, bound {b:.3f} ms ({by})")
@@ -222,49 +294,23 @@ def check_kernels(torch, rows):
     k2_ms = timed_ms(torch, lambda: cuda_ww_train.ww_train_epochs(
         topo, w, 10), 10)
     k2_plain = timed_ms(torch, lambda: cuda_ww_train.ww_sgd_plain(
-        topo, w, None, 10, 0.01), 3)
+        topo, w, None, 10, 0.01), 1, warm=False)
     b, by = bound_ms((2 * p + 1) * N * 4, N * 10 * epoch_ops)
     log(f"  train epochs=10: kernel {k2_ms:.3f} ms, plain {k2_plain:.3f} ms,"
         f" bound {b:.3f} ms ({by})")
     rows["ww_sgd"].update(max_abs_err=max(errs), ms=k2_ms, plain_ms=k2_plain,
                           bound_ms=b, bound_by=by)
 
-    # K3: all phases on, both removals; lanes 0..99 forced divergent,
-    # 100..199 forced zero (their gates off so that nothing rewrites them)
+    # K3: all phases on, both removals
     log(f"K3 generation N={N}")
-    wT = w.clone()
-    wT[3, :100] = float("inf")
-    wT[:, 100:200] = 0.0
-    ops = gen_operands(torch, topo, wT, gen)
-    for k in ("has_attacker", "learn_gate"):
-        ops[k][:200] = False
-    kw = dict(severity=1, train=10, lr=0.01, remove_divergent=True,
-              remove_zero=True, epsilon=1e-4)
-    got = cg.generation_popmajor(topo, wT, **ops, **kw)
-    ref = cg.generation_popmajor_plain(topo, wT, **ops, **kw)
-    errs = [compare(torch, "weights", got[0], ref[0]),
-            compare(torch, "loss", got[1], ref[1])]
-    equal_ints(torch, "dead_div", got[2], ref[2])
-    equal_ints(torch, "dead_zero", got[3], ref[3])
-    if not (bool(got[2][:100].all()) and bool(got[3][100:200].all())):
-        raise AssertionError("forced divergent/zero lanes were not respawned")
-    log(f"  deaths: divergent {int(got[2].sum())}, zero {int(got[3].sum())}")
-    k3_ms = timed_ms(torch, lambda: cg.generation_popmajor(
-        topo, wT, **ops, **kw), 10)
-    k3_plain = timed_ms(torch, lambda: cg.generation_popmajor_plain(
-        topo, wT, **ops, **kw), 3)
-    n_att = int(ops["has_attacker"].sum())
-    n_learn = int(ops["learn_gate"].sum())
-    n_re = int((ops["learn_gate"] & ops["other_attacked"]).sum())
-    k3_ops = ((n_att + n_re) * p * pts + n_learn * 1 * epoch_ops
-              + N * 10 * epoch_ops + N * 3 * p)
-    k3_bytes = (3 * N + 5 * p * N + p * N + N + 2 * N) * 4
-    b, by = bound_ms(k3_bytes, k3_ops)
+    err, k3_ms, k3_plain, ops, kw, n_dead = check_generation_body(
+        torch, topo, cg.GENERATION, w, gen)
+    b, by = gen_body_bound(topo, ops, kw, n_dead, p * pts, epoch_ops,
+                           epoch_ops)
     log(f"  kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound "
-        f"{b:.3f} ms ({by}); attacked {n_att}, learners {n_learn}, "
-        f"recomputed {n_re}")
-    rows["generation"].update(max_abs_err=max(errs), ms=k3_ms,
-                              plain_ms=k3_plain, bound_ms=b, bound_by=by)
+        f"{b:.3f} ms ({by})")
+    rows["generation"].update(max_abs_err=err, ms=k3_ms, plain_ms=k3_plain,
+                              bound_ms=b, bound_by=by)
 
     # every instantiated activation, small N
     n = 65536
@@ -279,13 +325,228 @@ def check_kernels(torch, rows):
         compare(torch, "K2 train=3 weights", gw, rw)
         compare(torch, "K2 train=3 loss", gl, rl)
         o = gen_operands(torch, t, ws, gen, rate=0.5)
-        kw2 = dict(kw, train=2)
+        kw2 = dict(severity=1, train=2, lr=0.01, remove_divergent=True,
+                   remove_zero=True, epsilon=1e-4)
         got = cg.generation_popmajor(t, ws, **o, **kw2)
         ref = cg.generation_popmajor_plain(t, ws, **o, **kw2)
         compare(torch, "K3 weights", got[0], ref[0])
         compare(torch, "K3 loss", got[1], ref[1])
         equal_ints(torch, "K3 dead", torch.stack(got[2:]),
                    torch.stack(ref[2:]))
+
+
+def check_generation_body(torch, topo, kernel, w, gen, train=10, reps=10):
+    """One K3 body against its plain version at all phases, both removals,
+    lanes 0..99 forced divergent and 100..199 forced zero (their gates off);
+    returns (max abs error, kernel ms, plain ms, operands, kwargs, number
+    of dead lanes)."""
+    from srnn_tpu_torch.ops import cuda_generation as cg
+
+    wT = w.clone()
+    wT[3, :100] = float("inf")
+    wT[:, 100:200] = 0.0
+    ops = gen_operands(torch, topo, wT, gen)
+    for k in ("has_attacker", "learn_gate"):
+        ops[k][:200] = False
+    kw = dict(severity=1, train=train, lr=0.01, remove_divergent=True,
+              remove_zero=True, epsilon=1e-4)
+    got = cg.generation_popmajor(topo, wT, **ops, **kw)
+    ref = cg.generation_popmajor_plain(topo, wT, **ops, **kw)
+    errs = [compare(torch, "weights", got[0], ref[0]),
+            compare(torch, "loss", got[1], ref[1])]
+    equal_ints(torch, "dead_div", got[2], ref[2])
+    equal_ints(torch, "dead_zero", got[3], ref[3])
+    if not (bool(got[2][:100].all()) and bool(got[3][100:200].all())):
+        raise AssertionError("forced divergent/zero lanes were not respawned")
+    n_dead = int((got[2] | got[3]).sum())
+    log(f"  deaths: divergent {int(got[2].sum())}, zero {int(got[3].sum())}")
+    if not reps:
+        return max(errs), None, None, ops, kw, n_dead
+    before = kernel.launches
+    ms = timed_ms(torch, lambda: cg.generation_popmajor(topo, wT, **ops,
+                                                        **kw), reps)
+    plain = timed_ms(torch, lambda: cg.generation_popmajor_plain(
+        topo, wT, **ops, **kw), 1, warm=False)
+    if kernel.launches == before:
+        raise AssertionError(f"{kernel.name} was not launched")
+    return max(errs), ms, plain, ops, kw, n_dead
+
+
+def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops):
+    """Bound of one K3 launch from this run's gates: every lane trains,
+    the attacked lanes and recomputed targets apply once, the learners run
+    their imitation chain.  Bytes as the kernel's gates need them, counted
+    by element (not by 32-byte sector): the population, two gates a lane
+    and the third for learners, an attacker column for each attacked lane,
+    a target column for each learner, its attacker's column for each
+    recomputed target, a fresh column for each dead lane; the population,
+    loss and both dead masks written."""
+    p = topo.num_weights
+    n_att = int(ops["has_attacker"].sum())
+    n_learn = int(ops["learn_gate"].sum())
+    n_re = int((ops["learn_gate"] & ops["other_attacked"]).sum())
+    total = ((n_att + n_re) * apply_ops + n_learn * learn_ops
+             + N * kw["train"] * train_ops + N * 3 * p)
+    reads = (2 * N + n_learn + p * (N + n_att + n_learn + n_re + n_dead))
+    nbytes = (reads + p * N + N + 2 * N) * 4
+    log(f"  attacked {n_att}, learners {n_learn}, recomputed {n_re}, "
+        f"dead {n_dead}; {nbytes / 1e6:.1f} MB, {total / 1e9:.3f} Gop")
+    return bound_ms(nbytes, total)
+
+
+def check_sgd(torch, what, fn, fn_plain):
+    (gw, gl), (rw, rl) = fn(), fn_plain()
+    return max(compare(torch, what + " weights", gw, rw),
+               compare(torch, what + " loss", gl, rl))
+
+
+def check_variant_kernels(torch, rows):
+    """Phase 3, the aggregating, fft and recurrent kernels: K4, K5, K6 and
+    K3's k-vector and recurrent bodies against their plain versions."""
+    from srnn_tpu_torch import Topology
+    from srnn_tpu_torch.ops import cuda_generation as cg
+    from srnn_tpu_torch.ops import cuda_kvec_train as ck
+    from srnn_tpu_torch.ops import cuda_rnn_apply as cra
+    from srnn_tpu_torch.ops import cuda_rnn_train as crt
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    agg = Topology("aggregating", width=2, depth=2, aggregates=4)
+    fft = Topology("fft", width=2, depth=2, aggregates=4)
+    rnn = Topology("recurrent", width=2, depth=2)
+
+    # K4: aggregating average, train 10 and learn 1, with a non-finite
+    # weight inside and outside a segment
+    p = agg.num_weights
+    log(f"K4 kvec_sgd N={N} (aggregating, P={p})")
+    w = population(agg, N, gen)
+    other = population(agg, N, gen)
+    w[3, 0] = float("inf")
+    w[10, 1] = float("nan")
+    err = max(check_sgd(torch, "train epochs=10",
+                        lambda: ck.kvec_train_epochs(agg, w, 10),
+                        lambda: ck.kvec_sgd_plain(agg, w, None, 10, 0.01)),
+              check_sgd(torch, "learn severity=1",
+                        lambda: ck.kvec_learn_epochs(agg, w, other, 1),
+                        lambda: ck.kvec_sgd_plain(agg, w, other, 1, 0.01)))
+    ms = timed_ms(torch, lambda: ck.kvec_train_epochs(agg, w, 10), 10)
+    plain = timed_ms(torch, lambda: ck.kvec_sgd_plain(agg, w, None, 10,
+                                                      0.01), 1, warm=False)
+    b, by = bound_ms((2 * p + 1) * N * 4,
+                     N * 10 * kvec_sgd_ops_per_epoch(agg, True))
+    log(f"  train epochs=10: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"bound {b:.3f} ms ({by})")
+    rows["kvec_sgd"].update(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=b, bound_by=by)
+
+    # K5: train 10 and learn 1
+    p = rnn.num_weights
+    log(f"K5 rnn_sgd N={N} (recurrent, P={p})")
+    w = population(rnn, N, gen, 0.5)
+    other = population(rnn, N, gen, 0.5)
+    w[16, 0] = float("inf")
+    err = max(check_sgd(torch, "train epochs=10",
+                        lambda: crt.rnn_train_epochs(rnn, w, 10),
+                        lambda: crt.rnn_sgd_plain(rnn, w, None, 10, 0.01)),
+              check_sgd(torch, "learn severity=1",
+                        lambda: crt.rnn_learn_epochs(rnn, w, other, 1),
+                        lambda: crt.rnn_sgd_plain(rnn, w, other, 1, 0.01)))
+    ms = timed_ms(torch, lambda: crt.rnn_train_epochs(rnn, w, 10), 10)
+    plain = timed_ms(torch, lambda: crt.rnn_sgd_plain(rnn, w, None, 10,
+                                                      0.01), 1, warm=False)
+    b, by = bound_ms((2 * p + 1) * N * 4, N * 10 * rnn_sgd_ops_per_epoch(rnn))
+    log(f"  train epochs=10: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"bound {b:.3f} ms ({by})")
+    rows["rnn_sgd"].update(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=b, bound_by=by)
+
+    # K6: the attack, T = P
+    log(f"K6 rnn_apply N={N}")
+    err = compare(torch, "attack", cra.rnn_apply(rnn, other, w),
+                  cra.rnn_apply_plain(rnn, other, w))
+    ms = timed_ms(torch, lambda: cra.rnn_apply(rnn, other, w), 10)
+    plain = timed_ms(torch, lambda: cra.rnn_apply_plain(rnn, other, w), 1,
+                     warm=False)
+    b, by = bound_ms(3 * p * N * 4, N * rnn_forward_ops(rnn, p))
+    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
+        f"({by})")
+    rows["rnn_apply"].update(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=b, bound_by=by)
+    try:
+        cra.rnn_apply(rnn, other, w[:10].contiguous())
+    except ValueError:
+        log("  T != P raises ValueError on the card, as documented")
+    else:
+        raise AssertionError("rnn_apply took a victim length it has no "
+                             "instantiation for")
+
+    # K3 bodies at N = 1M
+    for topo, kernel, key, scale in ((agg, cg.GENERATION_KVEC,
+                                      "generation_kvec", 1.0),
+                                     (fft, cg.GENERATION_KVEC, None, 1.0),
+                                     (rnn, cg.GENERATION_RNN,
+                                      "generation_rnn", 0.5)):
+        log(f"K3 {kernel.name} N={N} ({topo.variant})")
+        w = population(topo, N, gen, scale)
+        err, ms, plain, ops, kw, n_dead = check_generation_body(
+            torch, topo, kernel, w, gen, reps=10 if key else 0)
+        if key is None:
+            continue
+        if topo.variant == "recurrent":
+            apply_ops = rnn_forward_ops(topo, topo.num_weights)
+            learn_ops = epoch_ops = rnn_sgd_ops_per_epoch(topo)
+        else:
+            apply_ops = kvec_apply_ops(topo)
+            learn_ops = kvec_reduce_ops(topo) + kvec_sgd_ops_per_epoch(
+                topo, False)
+            epoch_ops = kvec_sgd_ops_per_epoch(topo, True)
+        b, by = gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops,
+                               epoch_ops)
+        log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
+            f"({by})")
+        rows[key].update(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                         bound_by=by)
+
+    # every other instantiation at a small N
+    n = 65536
+    small = [Topology("aggregating", aggregator=a) for a in ("max",
+                                                             "max_buggy")]
+    small += [Topology("fft", fft_mode=m) for m in ("fft", "rfft")]
+    small += [Topology("fft", fft_use_target=True)]
+    small += [Topology("aggregating", activation=a)
+              for a in ("sigmoid", "tanh", "relu")]
+    small += [Topology("recurrent", activation=a)
+              for a in ("sigmoid", "tanh", "relu")]
+    for t in small:
+        log(f"{t.variant} aggregator={t.aggregator} fft_mode={t.fft_mode} "
+            f"fft_use_target={t.fft_use_target} activation={t.activation} "
+            f"N={n}")
+        ws = population(t, n, gen, 0.5)
+        os_ = population(t, n, gen, 0.5)
+        if t.variant == "recurrent":
+            check_sgd(torch, "K5 train=3", lambda: crt.rnn_train_epochs(
+                t, ws, 3), lambda: crt.rnn_sgd_plain(t, ws, None, 3, 0.01))
+            check_sgd(torch, "K5 learn=2", lambda: crt.rnn_learn_epochs(
+                t, ws, os_, 2), lambda: crt.rnn_sgd_plain(t, ws, os_, 2,
+                                                         0.01))
+            compare(torch, "K6", cra.rnn_apply(t, os_, ws),
+                    cra.rnn_apply_plain(t, os_, ws))
+        else:
+            check_sgd(torch, "K4 train=3", lambda: ck.kvec_train_epochs(
+                t, ws, 3), lambda: ck.kvec_sgd_plain(t, ws, None, 3, 0.01))
+            check_sgd(torch, "K4 learn=2", lambda: ck.kvec_learn_epochs(
+                t, ws, os_, 2), lambda: ck.kvec_sgd_plain(t, ws, os_, 2,
+                                                         0.01))
+        o = gen_operands(torch, t, ws, gen, rate=0.5)
+        kw = dict(severity=1, train=2, lr=0.01, remove_divergent=True,
+                  remove_zero=True, epsilon=1e-4)
+        got = cg.generation_popmajor(t, ws, **o, **kw)
+        ref = cg.generation_popmajor_plain(t, ws, **o, **kw)
+        compare(torch, "K3 weights", got[0], ref[0])
+        compare(torch, "K3 loss", got[1], ref[1])
+        equal_ints(torch, "K3 dead", torch.stack(got[2:]),
+                   torch.stack(ref[2:]))
+
+
 
 
 def check_launches(kernels, what: str, expect: dict) -> dict:
@@ -299,25 +560,20 @@ def check_launches(kernels, what: str, expect: dict) -> dict:
     return got
 
 
-def main_path(torch, kernels):
-    """Phase 4: the soup and the applications/s program at N = 1M through
-    the public entry points, each run with its own launch counts; returns
-    the launch counts summed over the three runs."""
+def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases):
+    """The N = 1M full-dynamics soup of ``topo``, 20 generations on each
+    route after a warm-up generation, each run's own launch counts checked
+    exactly and added to ``totals``."""
     import srnn_tpu_torch as st
-    from srnn_tpu_torch.ops import cuda_ww
 
-    topo = st.Topology("weightwise", width=2, depth=2)
     cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
                         learn_from_rate=0.1, learn_from_severity=1, train=10,
                         remove_divergent=True, remove_zero=True,
                         respawn_draws="fused")
-    totals = {k.name: 0 for k in kernels}
     state = st.seed(cfg, 0, device="cuda")
-    # one warm-up generation per route, one warm-up call of the program
     for impl, c, expect in (
-            ("fused", cfg._replace(generation_impl="fused"),
-             {"generation": GENERATIONS + 1}),
-            ("phases", cfg, {"ww_sgd": 2 * (GENERATIONS + 1)})):
+            ("fused", cfg._replace(generation_impl="fused"), expect_fused),
+            ("phases", cfg, expect_phases)):
         for k in kernels:
             k.launches = 0
         st.evolve(c, state, 1)  # warm-up generation
@@ -328,19 +584,42 @@ def main_path(torch, kernels):
         dt = time.perf_counter() - t0
         counts = st.count(cfg, state)
         uids = state.uids
+        what = f"{topo.variant} soup {impl}"
         if int(torch.unique(uids).numel()) != N:
-            raise AssertionError(f"{impl}: uids are not unique")
+            raise AssertionError(f"{what}: uids are not unique")
         if int(counts.sum()) != N or not bool(torch.isfinite(
                 state.weights).all()):
-            raise AssertionError(f"{impl}: counts {counts.tolist()} or "
+            raise AssertionError(f"{what}: counts {counts.tolist()} or "
                                  "non-finite weights after respawn")
-        log(f"soup {impl}: {GENERATIONS / dt:.3f} generations/s at N={N} "
-            f"({dt * 1e3 / GENERATIONS:.3f} ms/generation), counts "
-            f"[divergent, fix_zero, fix_other, fix_sec, other] "
-            f"{counts.tolist()}, next_uid {int(state.next_uid)}")
-        for name, n in check_launches(kernels, f"soup {impl}",
-                                      expect).items():
+        log(f"{what}: {GENERATIONS / dt:.3f} generations/s at N={N}, "
+            f"P={topo.num_weights} ({dt * 1e3 / GENERATIONS:.3f} "
+            f"ms/generation), counts [divergent, fix_zero, fix_other, "
+            f"fix_sec, other] {counts.tolist()}, unique uids "
+            f"{int(torch.unique(uids).numel())}, next_uid "
+            f"{int(state.next_uid)}")
+        for name, n in check_launches(kernels, what, expect).items():
             totals[name] += n
+
+
+def main_path(torch, kernels):
+    """Phase 4: the soups and the applications/s program at N = 1M through
+    the public entry points, each run with its own launch counts; returns
+    the launch counts summed over the runs."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.ops import cuda_ww
+
+    runs = GENERATIONS + 1
+    totals = {k.name: 0 for k in kernels}
+    topo = st.Topology("weightwise", width=2, depth=2)
+    soup_runs(torch, kernels, totals, topo, {"generation": runs},
+              {"ww_sgd": 2 * runs})
+    soup_runs(torch, kernels, totals,
+              st.Topology("aggregating", width=2, depth=2, aggregates=4),
+              {"generation_kvec": runs}, {"kvec_sgd": 2 * runs})
+    soup_runs(torch, kernels, totals,
+              st.Topology("recurrent", width=2, depth=2),
+              {"generation_rnn": runs},
+              {"rnn_sgd": 2 * runs, "rnn_apply": runs})
     # applications/s: N particles x BENCH_STEPS chained self-applications
     w = (st.init_population(topo, 1, N, "cuda") * 0.05).t().contiguous()
     for k in kernels:
@@ -360,45 +639,72 @@ def main_path(torch, kernels):
     for name, n in check_launches(kernels, "applications/s program",
                                   {"ww_apply": calls + 1}).items():
         totals[name] += n
+    fixpoint_census(torch)
     return totals
 
 
+def fixpoint_census(torch):
+    """To inform: class counts of fresh aggregating and recurrent nets
+    self-applied to fixpoint (the reference's headline experiment;
+    BASELINE.md has the CPU reference's proportions for 50 trials)."""
+    import srnn_tpu_torch as st
+
+    trials = 500
+    for topo in (st.Topology("aggregating", width=2, depth=2, aggregates=4),
+                 st.Topology("recurrent", width=2, depth=2)):
+        pop = st.init_population(topo, 7, trials, "cuda")
+        t0 = time.perf_counter()
+        res = st.run_fixpoint(topo, pop, step_limit=100)
+        counts = res.counts.tolist()
+        log(f"run_fixpoint {topo.variant}: {trials} trials, 100 steps, "
+            f"counts [divergent, fix_zero, fix_other, fix_sec, other] "
+            f"{counts} ({time.perf_counter() - t0:.1f} s)")
+        if sum(counts) != trials:
+            raise AssertionError(f"run_fixpoint {topo.variant}: counts "
+                                 f"{counts} do not sum to {trials}")
+
+
 def small_soup_vs_cpu(torch):
-    """Phase 5: the card's soup against the CPU's on the same draws."""
+    """Phase 5: each variant's soup on the card against the same soup on
+    the CPU, fed the same draws."""
     import numpy as np
 
     import srnn_tpu_torch as st
-    from srnn_tpu_torch.init import glorot_limit_rows
-
-    topo = st.Topology("weightwise", width=2, depth=2)
-    n, p = 2048, topo.num_weights
-    base = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
-                         learn_from_rate=0.3, learn_from_severity=1, train=2,
-                         remove_divergent=True, remove_zero=True)
-    rng = np.random.default_rng(0)
-    lim = glorot_limit_rows(topo)
-    w0 = (rng.uniform(-1, 1, (n, p)) * lim).astype(np.float32)
-    draws = [st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
-                          rng.random(n) < 0.3, rng.integers(0, n, n),
-                          (rng.uniform(-1, 1, (p, n)) * lim[:, None])
-                          .astype(np.float32)) for _ in range(3)]
     from srnn_tpu_torch.convert import soup_state_from_arrays
+    from srnn_tpu_torch.init import init_population
 
-    for cfg in (base._replace(generation_impl="fused"), base):
-        states = {d: soup_state_from_arrays(w0, np.arange(n), n, 0,
-                                            device=d) for d in ("cuda", "cpu")}
-        for g, dr in enumerate(draws):
-            ev = {}
-            for d in states:
-                states[d], ev[d] = st.evolve_step(cfg, states[d], dr)
-            tag = f"{cfg.generation_impl} gen {g}"
-            for f in ("uids", "next_uid"):
-                equal_ints(torch, f"{tag} {f}", getattr(states["cuda"], f),
-                           getattr(states["cpu"], f))
-            equal_ints(torch, f"{tag} actions", ev["cuda"].action,
-                       ev["cpu"].action)
-            compare(torch, f"{tag} weights", states["cuda"].weights.cpu(),
-                    states["cpu"].weights)
+    n = 2048
+    cpu = torch.Generator().manual_seed(0)
+    for topo in (st.Topology("weightwise", width=2, depth=2),
+                 st.Topology("aggregating", width=2, depth=2, aggregates=4),
+                 st.Topology("fft", width=2, depth=2, aggregates=4),
+                 st.Topology("recurrent", width=2, depth=2)):
+        base = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
+                             learn_from_rate=0.3, learn_from_severity=1,
+                             train=2, remove_divergent=True, remove_zero=True)
+        rng = np.random.default_rng(0)
+        w0 = init_population(topo, cpu, n, "cpu").numpy()
+        draws = [st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
+                              rng.random(n) < 0.3, rng.integers(0, n, n),
+                              init_population(topo, cpu, n, "cpu").t()
+                              .numpy()) for _ in range(3)]
+        for cfg in (base._replace(generation_impl="fused"), base):
+            states = {d: soup_state_from_arrays(w0, np.arange(n), n, 0,
+                                                device=d)
+                      for d in ("cuda", "cpu")}
+            for g, dr in enumerate(draws):
+                ev = {}
+                for d in states:
+                    states[d], ev[d] = st.evolve_step(cfg, states[d], dr)
+                tag = f"{topo.variant} {cfg.generation_impl} gen {g}"
+                for f in ("uids", "next_uid"):
+                    equal_ints(torch, f"{tag} {f}",
+                               getattr(states["cuda"], f),
+                               getattr(states["cpu"], f))
+                equal_ints(torch, f"{tag} actions", ev["cuda"].action,
+                           ev["cpu"].action)
+                compare(torch, f"{tag} weights",
+                        states["cuda"].weights.cpu(), states["cpu"].weights)
 
 
 def main() -> int:
@@ -423,22 +729,35 @@ def main() -> int:
         f"{sys.version.split()[0]}")
     t_start = time.perf_counter()
 
-    from srnn_tpu_torch.ops.cuda_generation import GENERATION
+    from srnn_tpu_torch.ops.cuda_generation import (GENERATION,
+                                                    GENERATION_KVEC,
+                                                    GENERATION_RNN)
+    from srnn_tpu_torch.ops.cuda_kvec_train import KVEC_SGD
+    from srnn_tpu_torch.ops.cuda_rnn_apply import RNN_APPLY
+    from srnn_tpu_torch.ops.cuda_rnn_train import RNN_SGD
     from srnn_tpu_torch.ops.cuda_ww import WW_APPLY
     from srnn_tpu_torch.ops.cuda_ww_train import WW_SGD
 
-    kernels = (WW_APPLY, WW_SGD, GENERATION)
+    kernels = (WW_APPLY, WW_SGD, GENERATION, KVEC_SGD, RNN_SGD, RNN_APPLY,
+               GENERATION_KVEC, GENERATION_RNN)
     rows = {k.name: {"name": k.name, "route": "cuda",
                      "source": f"srnn_tpu_torch/csrc/{k.source}.cu",
                      "replaces": k.replaces, "library_ms": None}
             for k in kernels}
 
-    build_kernels()
+    def phase(what, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {what}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    phase("build", build_kernels)
     log(f"tolerance: floats rtol {RTOL} atol {ATOL} with the non-finite "
         "pattern exact; integer outputs exact")
-    check_kernels(torch, rows)
-    launches = main_path(torch, kernels)
-    small_soup_vs_cpu(torch)
+    phase("weightwise kernels", check_kernels, torch, rows)
+    phase("variant kernels", check_variant_kernels, torch, rows)
+    launches = phase("main path", main_path, torch, kernels)
+    phase("small soups vs cpu", small_soup_vs_cpu, torch)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for k in kernels:

@@ -1,0 +1,76 @@
+// Device code shared by every kernel of srnn_tpu_torch: the activations and
+// their output-expressed derivatives, the population-major lane indexing,
+// the launch shape, the activation dispatch and the error string.
+//
+// Layout: a population is population-major, (P, N) float32, one column per
+// particle.  Every kernel runs ONE THREAD PER PARTICLE: thread n reads
+// wT[p * N + n] for each row p (a warp's 32 loads of one row are
+// contiguous, so they coalesce) and keeps the particle's rows in registers
+// for the whole call.  There is no cross-particle arithmetic anywhere, so
+// no shared memory and no synchronisation.  The sources are built with
+// --fmad=false, so every multiply and every add rounds on its own, as the
+// plain torch versions' separate ops do.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace srnn {
+
+enum Act { LINEAR = 0, SIGMOID = 1, TANH = 2, RELU = 3 };
+
+template <int A>
+__device__ __forceinline__ float act(float z) {
+  if constexpr (A == SIGMOID) {
+    return 1.0f / (1.0f + expf(-z));
+  } else if constexpr (A == TANH) {
+    return tanhf(z);
+  } else if constexpr (A == RELU) {
+    return z < 0.0f ? 0.0f : z;  // NaN passes through, as in torch.relu
+  } else {
+    return z;
+  }
+}
+
+// dh * act'(z), with act'(z) written in terms of the output h = act(z)
+// (ops/activations.py: _OUTPUT_GRADS).
+template <int A>
+__device__ __forceinline__ float act_grad_mul(float dh, float h) {
+  if constexpr (A == SIGMOID) {
+    return dh * (h * (1.0f - h));
+  } else if constexpr (A == TANH) {
+    return dh * (1.0f - h * h);
+  } else if constexpr (A == RELU) {
+    return dh * (h > 0.0f ? 1.0f : 0.0f);
+  } else {
+    return dh;
+  }
+}
+
+// Row r of a (rows, n) population-major array, lane i.
+__device__ __forceinline__ long long lane(int r, long long n, long long i) {
+  return static_cast<long long>(r) * n + i;
+}
+
+constexpr int kThreads = 128;
+
+inline unsigned int blocks_for(long long n) {
+  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace srnn
+
+// Dispatch of the runtime activation code to the template instantiation.
+#define SRNN_DISPATCH_ACT(act_code, ...)                                        \
+  switch (act_code) {                                                           \
+    case srnn::LINEAR: { constexpr int A = srnn::LINEAR; __VA_ARGS__; break; }   \
+    case srnn::SIGMOID: { constexpr int A = srnn::SIGMOID; __VA_ARGS__; break; } \
+    case srnn::TANH: { constexpr int A = srnn::TANH; __VA_ARGS__; break; }       \
+    case srnn::RELU: { constexpr int A = srnn::RELU; __VA_ARGS__; break; }       \
+    default: return static_cast<int>(cudaErrorInvalidValue);                    \
+  }
+
+extern "C" const char* srnn_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

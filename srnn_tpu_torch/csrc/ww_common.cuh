@@ -1,13 +1,7 @@
 // Device code shared by the three weightwise kernels (ww_apply.cu,
 // ww_train.cu, generation.cu): the unrolled weightwise MLP and the
-// hand-derived batch-1 SGD chain.
-//
-// Layout: the population is population-major, (P, N) float32, one column
-// per particle.  Every kernel runs ONE THREAD PER PARTICLE: thread n reads
-// wT[p * N + n] for each row p (a warp's 32 loads of one row are
-// contiguous, so they coalesce) and keeps the particle's P weights in
-// registers for the whole call.  There is no cross-particle arithmetic
-// anywhere on this path, so no shared memory and no synchronisation.
+// hand-derived batch-1 SGD chain.  Layout, threading and rounding rules:
+// lane_common.cuh.
 //
 // The topology is template parameters (W = width, D = depth, A =
 // activation), so every loop below has a compile-time trip count and unrolls
@@ -19,18 +13,13 @@
 // The arithmetic mirrors, operation for operation, the JAX package's
 // ``pallas_generation._mlp_rows`` / ``apply_rows`` and
 // ``pallas_ww_train._sgd_chain``, and this package's plain torch versions of
-// them: products and sums are taken in the same order.  The sources are
-// built with --fmad=false, so every multiply and every add rounds on its
-// own, as the plain torch ops do.
+// them: products and sums are taken in the same order.
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "lane_common.cuh"
 
 namespace srnn {
-
-enum Act { LINEAR = 0, SIGMOID = 1, TANH = 2, RELU = 3 };
 
 // Shapes of the bias-free weightwise MLP 4 -> W -> ... -> W -> 1
 // (topology.py: layer_shapes, offsets).
@@ -50,34 +39,6 @@ template <int P>
 struct Coords {
   float c[P][3];
 };
-
-template <int A>
-__device__ __forceinline__ float act(float z) {
-  if constexpr (A == SIGMOID) {
-    return 1.0f / (1.0f + expf(-z));
-  } else if constexpr (A == TANH) {
-    return tanhf(z);
-  } else if constexpr (A == RELU) {
-    return z < 0.0f ? 0.0f : z;  // NaN passes through, as in torch.relu
-  } else {
-    return z;
-  }
-}
-
-// dh * act'(z), with act'(z) written in terms of the output h = act(z)
-// (ops/activations.py: _OUTPUT_GRADS).
-template <int A>
-__device__ __forceinline__ float act_grad_mul(float dh, float h) {
-  if constexpr (A == SIGMOID) {
-    return dh * (h * (1.0f - h));
-  } else if constexpr (A == TANH) {
-    return dh * (1.0f - h * h);
-  } else if constexpr (A == RELU) {
-    return dh * (h > 0.0f ? 1.0f : 0.0f);
-  } else {
-    return dh;
-  }
-}
 
 // The MLP with weights ``w`` on one duplex point [x, c0, c1, c2].
 template <int W, int D, int A>
@@ -192,17 +153,6 @@ __device__ __forceinline__ float sgd_chain(float (&rows)[WW<W, D>::P],
   return last;
 }
 
-// Row r of a (rows, n) population-major array, lane i.
-__device__ __forceinline__ long long lane(int r, long long n, long long i) {
-  return static_cast<long long>(r) * n + i;
-}
-
-constexpr int kThreads = 128;
-
-inline unsigned int blocks_for(long long n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-}
-
 template <int P>
 inline Coords<P> load_coords(const float* host) {
   Coords<P> co;
@@ -212,19 +162,3 @@ inline Coords<P> load_coords(const float* host) {
 }
 
 }  // namespace srnn
-
-// Dispatch of the runtime activation code to the template instantiation.
-// Only width 2, depth 2 is instantiated; the Python wrappers refuse other
-// topologies before they get here.
-#define SRNN_DISPATCH_ACT(act_code, ...)                                        \
-  switch (act_code) {                                                           \
-    case srnn::LINEAR: { constexpr int A = srnn::LINEAR; __VA_ARGS__; break; }   \
-    case srnn::SIGMOID: { constexpr int A = srnn::SIGMOID; __VA_ARGS__; break; } \
-    case srnn::TANH: { constexpr int A = srnn::TANH; __VA_ARGS__; break; }       \
-    case srnn::RELU: { constexpr int A = srnn::RELU; __VA_ARGS__; break; }       \
-    default: return static_cast<int>(cudaErrorInvalidValue);                    \
-  }
-
-extern "C" const char* srnn_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -4,16 +4,16 @@
 The reference drives each net through a while loop (``experiment.py:70-77``);
 here a whole population of trials steps together with per-trial active
 masks, so every trial retires at the step it would have in the reference.
+Every variant runs through its row-major transform (``nets.dispatch``).
 """
 
 from typing import NamedTuple, Optional
 
 import torch
 
-from .nets.weightwise import apply
+from .nets.dispatch import apply_to_weights
 from .ops.predicates import (DEFAULT_EPSILON, classify, count_classes,
                              is_diverged, is_fixpoint)
-from .ops.popmajor import _check_weightwise
 from .topology import Topology
 
 
@@ -29,8 +29,7 @@ def classify_batch(topo: Topology, w: torch.Tensor,
                    epsilon: float = DEFAULT_EPSILON) -> torch.Tensor:
     """(N, P) -> (N,) int32 class ids (the reference's ``count``,
     ``experiment.py:79-91``)."""
-    _check_weightwise(topo)
-    return classify(lambda t: apply(topo, w, t), w, epsilon)
+    return classify(lambda t: apply_to_weights(topo, w, t), w, epsilon)
 
 
 def run_fixpoint(topo: Topology, pop: torch.Tensor, step_limit: int = 100,
@@ -43,14 +42,14 @@ def run_fixpoint(topo: Topology, pop: torch.Tensor, step_limit: int = 100,
     predicates are evaluated at the top of every iteration.  ``pop`` is
     row-major (N, P); it runs on its own device.
     """
-    _check_weightwise(topo)
     w = pop
     steps = torch.zeros(pop.shape[0], dtype=torch.int32, device=pop.device)
     traj = [pop] if record else None
     for _ in range(step_limit):
-        fix = is_fixpoint(lambda t, w=w: apply(topo, w, t), w, 1, epsilon)
+        fix = is_fixpoint(lambda t, w=w: apply_to_weights(topo, w, t), w, 1,
+                          epsilon)
         active = ~is_diverged(w) & ~fix
-        w = torch.where(active[:, None], apply(topo, w, w), w)
+        w = torch.where(active[:, None], apply_to_weights(topo, w, w), w)
         steps = steps + active.to(torch.int32)
         if record:
             traj.append(w)

@@ -22,8 +22,10 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 #: kernel sources, ``csrc/<name>.cu``
-SOURCES = ("ww_apply", "ww_train", "generation")
-HEADERS = ("ww_common.cuh",)
+SOURCES = ("ww_apply", "ww_train", "generation", "kvec_train", "rnn_train",
+           "rnn_apply", "generation_kvec", "generation_rnn")
+HEADERS = ("lane_common.cuh", "ww_common.cuh", "kvec_common.cuh",
+           "rnn_common.cuh", "generation_common.cuh")
 
 #: --fmad=false: every multiply and add rounds on its own, like the plain
 #: torch versions; -Xptxas -v: registers, shared memory and spills per

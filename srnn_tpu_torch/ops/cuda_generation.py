@@ -1,13 +1,18 @@
 """K3: one whole soup generation (attack, learn_from, self-train, respawn)
-in one launch; port of the weightwise float32 body of
+in one launch; port of the float32 bodies of
 ``srnn_tpu/ops/pallas_generation.py`` (``generation_popmajor``).
 
-``generation_popmajor`` launches ``csrc/generation.cu`` for CUDA tensors and
-runs ``generation_popmajor_plain`` for CPU tensors.  The plain version is
-the phase chain the JAX package's tests use as the kernel's oracle, written
-on the same operands as the kernel: the imitation target arrives as its
-pre-attack column plus its attacker's column, and is re-attacked where
-``other_attacked`` says so.
+``generation_popmajor`` launches the variant's body for CUDA tensors --
+``csrc/generation.cu`` (weightwise), ``csrc/generation_kvec.cu``
+(aggregating, fft), ``csrc/generation_rnn.cu`` (recurrent), one
+``LaneKernel`` each -- and runs ``generation_popmajor_plain`` for CPU
+tensors.  The plain version is the phase chain the JAX package's tests use
+as the kernel's oracle, composed from the plain versions of the variant's
+transform and SGD chain (``pallas_generation.apply_rows`` / ``_chain_for``)
+and written on the same operands as the kernel: the imitation target
+arrives as its pre-attack column plus its attacker's column, and is
+re-attacked where ``other_attacked`` says so; the k-vector imitation sample
+is reduced once.
 
 The gathers that build those operands, the draws and the uid bookkeeping
 stay in plain torch in ``soup.py`` (XLA glue in the JAX package).
@@ -18,30 +23,54 @@ from typing import Tuple
 import torch
 
 from ..topology import Topology
-from .activations import output_grad_activations
+from .activations import KERNEL_ACT_CODES, output_grad_activations
+from .cuda_kvec_train import (REDUCE_CODES, kvec_apply_rows_plain,
+                              kvec_sgd_chain_plain, kvec_tables,
+                              reduce_kind, reduce_rows_plain)
+from .cuda_rnn_train import rnn_apply_rows_plain, rnn_sgd_chain_plain
 from .cuda_sgd_common import (_F, _I, _LL, _P, LaneKernel,
                               check_kernel_topology, check_lanes,
-                              check_weightwise, coords_arg, is_cpu, ptr,
+                              check_variant, coords_arg, is_cpu, ptr,
                               stream_arg, topo_args)
 from .cuda_ww_train import apply_rows_plain, sgd_chain_plain
 
+_REPLACES = "srnn_tpu/ops/pallas_generation.py:382"
+#: (gates, wT, fresh, atk, oth, oatk, out, loss, dead, n, severity, train,
+#: lr, eps, remove_divergent, remove_zero): the head of every body's entry
+_HEAD = [_P] * 9 + [_LL, _I, _I, _F, _F, _I, _I]
+
 GENERATION = LaneKernel(
     "generation", "generation", "srnn_ww_generation",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _F, _I, _I, _I, _I,
-     _I, _P, _P],
-    replaces="srnn_tpu/ops/pallas_generation.py:382")
+    _HEAD + [_I, _I, _I, _P, _P], replaces=_REPLACES)
+GENERATION_KVEC = LaneKernel(
+    "generation_kvec", "generation_kvec", "srnn_kvec_generation",
+    _HEAD + [_I, _I, _I, _I, _I, _P, _P], replaces=_REPLACES)
+GENERATION_RNN = LaneKernel(
+    "generation_rnn", "generation_rnn", "srnn_rnn_generation",
+    _HEAD + [_I, _I, _I, _P], replaces=_REPLACES)
+
+#: variant -> (plain transform, plain SGD chain, imitation-sample reduce)
+_PLAIN_BODIES = {
+    "weightwise": (apply_rows_plain, sgd_chain_plain, None),
+    "aggregating": (kvec_apply_rows_plain, kvec_sgd_chain_plain,
+                    reduce_rows_plain),
+    "fft": (kvec_apply_rows_plain, kvec_sgd_chain_plain, reduce_rows_plain),
+    "recurrent": (rnn_apply_rows_plain, rnn_sgd_chain_plain, None),
+}
 
 
 def fused_kernel_supported(topo: Topology, train_mode: str) -> bool:
     """Can this topology's generation run as the fused generation?  The
-    JAX package's envelope (output-expressible activation, up to 64
-    weights, sequential train mode, no random shuffler), narrowed to the
-    variant this package has ported (weightwise)."""
-    return (topo.variant == "weightwise"
-            and topo.activation in output_grad_activations()
-            and topo.num_weights <= 64
-            and train_mode == "sequential"
-            and topo.shuffler != "random")
+    JAX package's envelope (``pallas_generation.fused_kernel_supported``):
+    an output-expressible activation, up to 64 weights, no random
+    shuffler, and the sequential train mode for the weightwise variant."""
+    if topo.activation not in output_grad_activations():
+        return False
+    if topo.num_weights > 64:
+        return False
+    if topo.variant == "weightwise" and train_mode != "sequential":
+        return False
+    return topo.shuffler != "random"
 
 
 def _where_rows(mask, new, old):
@@ -58,19 +87,20 @@ def generation_popmajor_plain(topo: Topology, wT, freshT, attackerT=None,
                               epsilon: float = 1e-4):
     """Plain torch version of :func:`generation_popmajor` (same arguments,
     same results)."""
+    apply_rows, chain, snap_fn = _PLAIN_BODIES[topo.variant]
     rows = list(wT.unbind(0))
     if attackerT is not None:
-        attacked = apply_rows_plain(topo, list(attackerT.unbind(0)), rows)
+        attacked = apply_rows(topo, list(attackerT.unbind(0)), rows)
         rows = _where_rows(has_attacker, attacked, rows)
     if otherT is not None and severity > 0:
         oth = list(otherT.unbind(0))
         if other_attackerT is not None:
-            oth_att = apply_rows_plain(topo, list(other_attackerT.unbind(0)),
-                                       oth)
+            oth_att = apply_rows(topo, list(other_attackerT.unbind(0)), oth)
             oth = _where_rows(other_attacked, oth_att, oth)
-        learned, _ = sgd_chain_plain(topo, rows, oth, severity, lr, False)
+        snap = snap_fn(topo, oth) if snap_fn is not None else oth
+        learned, _ = chain(topo, rows, snap, severity, lr, False)
         rows = _where_rows(learn_gate, learned, rows)
-    rows, loss = sgd_chain_plain(topo, rows, None, train, lr, True)
+    rows, loss = chain(topo, rows, None, train, lr, True)
     w = torch.stack(rows)
     n = w.shape[1]
     div = torch.zeros(n, dtype=torch.bool, device=w.device)
@@ -110,7 +140,7 @@ def generation_popmajor(topo: Topology, wT, freshT, attackerT=None,
     replacements.  Returns ``(new_wT, last-train-loss (N,), dead_div (N,)
     bool, dead_zero (N,) bool)``.
     """
-    check_weightwise(topo)
+    check_variant(topo, "weightwise", "aggregating", "fft", "recurrent")
     if severity < 0 or train < 0:
         raise ValueError("severity and train must be >= 0")
     learn = otherT is not None and severity > 0
@@ -140,13 +170,24 @@ def generation_popmajor(topo: Topology, wT, freshT, attackerT=None,
     loss = torch.empty(n, dtype=torch.float32, device=dev)
     dead = torch.empty((2, n), dtype=torch.int32, device=dev)
     if n:
-        coords = coords_arg(topo)
-        GENERATION.launch(
-            ptr(gates), ptr(wT), ptr(freshT), ptr(attackerT),
-            ptr(otherT if learn else None),
-            ptr(other_attackerT if recompute else None),
-            ptr(out), ptr(loss), ptr(dead), n, severity if learn else 0,
-            int(train), float(lr), float(epsilon), int(remove_divergent),
-            int(remove_zero), *topo_args(topo), coords.ctypes.data,
-            stream_arg(wT))
+        head = (ptr(gates), ptr(wT), ptr(freshT), ptr(attackerT),
+                ptr(otherT if learn else None),
+                ptr(other_attackerT if recompute else None),
+                ptr(out), ptr(loss), ptr(dead), n, severity if learn else 0,
+                int(train), float(lr), float(epsilon), int(remove_divergent),
+                int(remove_zero))
+        act = KERNEL_ACT_CODES[topo.activation]
+        if topo.variant == "weightwise":
+            coords = coords_arg(topo)
+            GENERATION.launch(*head, *topo_args(topo), coords.ctypes.data,
+                              stream_arg(wT))
+        elif topo.variant == "recurrent":
+            GENERATION_RNN.launch(*head, topo.width, topo.depth, act,
+                                  stream_arg(wT))
+        else:
+            tables = kvec_tables(topo)
+            GENERATION_KVEC.launch(*head, topo.width, topo.depth,
+                                   topo.aggregates, act,
+                                   REDUCE_CODES[reduce_kind(topo)],
+                                   tables.ctypes.data, stream_arg(wT))
     return out, loss, dead[0] != 0, dead[1] != 0

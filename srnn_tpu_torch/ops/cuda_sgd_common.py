@@ -4,9 +4,9 @@
 ``LaneKernel`` is one hand-written kernel: the ``csrc/`` source it builds
 from, its C entry point, and its launch count (``launches`` goes up by one
 where the kernel is launched, and nowhere else).  ``lane_call`` is the one
-launcher of the SGD chains, the counterpart of ``lane_call``: it allocates
-the outputs and launches one thread per particle.  Unlike the Pallas
-launcher it pads nothing: the kernels guard the ragged edge.
+launcher of the SGD chains (K2, K4, K5), the counterpart of ``lane_call``:
+it allocates the outputs and launches one thread per particle.  Unlike the
+Pallas launcher it pads nothing: the kernels guard the ragged edge.
 
 Rules every wrapper follows: a CPU tensor runs the plain torch version; a
 CUDA tensor launches the kernel or raises -- never a fallback.  A topology,
@@ -24,9 +24,11 @@ from ..topology import Topology, normalized_weight_coords
 from . import _build
 from .activations import KERNEL_ACT_CODES
 
-#: the topologies the kernel templates are instantiated for
+#: the topologies the kernel templates are instantiated for (every variant;
+#: ``aggregates`` for the aggregating and fft variants)
 KERNEL_WIDTHS = (2,)
 KERNEL_DEPTHS = (2,)
+KERNEL_AGGREGATES = (4,)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,31 +70,44 @@ def is_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def check_weightwise(topo: Topology) -> None:
-    if topo.variant != "weightwise":
+def check_variant(topo: Topology, *variants: str) -> None:
+    """Raise unless ``topo`` is one of ``variants`` with an activation the
+    hand-derived chains can differentiate, and with the options the port
+    has (no random shuffler, the serial RNN scan)."""
+    if topo.variant not in variants:
         raise ValueError(
-            f"variant {topo.variant!r} has no kernel in srnn_tpu_torch yet; "
-            "only 'weightwise' is ported")
+            f"variant {topo.variant!r} does not run on this kernel; it takes "
+            f"{list(variants)}")
     if topo.activation not in KERNEL_ACT_CODES:
         raise ValueError(
             f"activation {topo.activation!r} has no output-expressible "
             f"derivative; the kernels take {sorted(KERNEL_ACT_CODES)}")
+    if topo.shuffler != "not":
+        raise ValueError(f"shuffler={topo.shuffler!r} is not ported")
+    if topo.variant == "recurrent" and topo.rnn_scan != "sequential":
+        raise ValueError(f"rnn_scan={topo.rnn_scan!r} is not ported")
 
 
 def check_kernel_topology(topo: Topology) -> None:
     """Raise unless the CUDA templates are instantiated for ``topo``."""
-    check_weightwise(topo)
+    check_variant(topo, "weightwise", "aggregating", "fft", "recurrent")
     if topo.width not in KERNEL_WIDTHS or topo.depth not in KERNEL_DEPTHS:
         raise ValueError(
             f"the CUDA kernels are instantiated for width in {KERNEL_WIDTHS}"
             f" and depth in {KERNEL_DEPTHS}; Topology(width={topo.width}, "
             f"depth={topo.depth}) has no instantiation")
+    if topo.variant in ("aggregating", "fft") and \
+            topo.aggregates not in KERNEL_AGGREGATES:
+        raise ValueError(
+            f"the k-vector kernels are instantiated for aggregates in "
+            f"{KERNEL_AGGREGATES}; aggregates={topo.aggregates} has no "
+            "instantiation")
 
 
-def check_lanes(topo: Topology, *arrays: torch.Tensor) -> int:
-    """Every array is a contiguous float32 (P, N) population on one device;
-    returns N."""
-    p = topo.num_weights
+def check_lanes(topo: Topology, *arrays: torch.Tensor, rows=None) -> int:
+    """Every array is a contiguous float32 (P, N) population on one device
+    (``rows`` rows instead of P where given); returns N."""
+    p = topo.num_weights if rows is None else rows
     first = arrays[0]
     for a in arrays:
         if a.dtype != torch.float32:
@@ -128,14 +143,19 @@ def topo_args(topo: Topology) -> Sequence:
     return (topo.width, topo.depth, KERNEL_ACT_CODES[topo.activation])
 
 
-SGD_ARGTYPES = [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P, _P]
+#: (wT, otherT, out, loss, n, epochs, lr): the head of every SGD entry
+SGD_HEAD = [_P, _P, _P, _P, _LL, _I, _F]
+#: K2's entry: the head, then width, depth, activation, coords
+SGD_ARGTYPES = SGD_HEAD + [_I, _I, _I, _P, _P]
 
 
 def lane_call(kernel: LaneKernel, topo: Topology, arrays, epochs: int,
-              lr: float):
+              lr: float, *tail):
     """Launch an SGD-chain kernel over the lane axis: ``arrays`` is
     ``[wT]`` (self-training) or ``[wT, otherT]`` (imitation), CUDA float32
-    (P, N).  Returns (new (P, N) population, (N,) last-epoch loss)."""
+    (P, N); ``tail`` the kernel's topology arguments (host pointers in it
+    are kept alive by the caller).  Returns (new (P, N) population, (N,)
+    last-epoch loss)."""
     check_kernel_topology(topo)
     n = check_lanes(topo, *arrays)
     w = arrays[0]
@@ -143,9 +163,9 @@ def lane_call(kernel: LaneKernel, topo: Topology, arrays, epochs: int,
     loss = torch.empty(n, dtype=w.dtype, device=w.device)
     if n == 0:
         return out, loss
+    if epochs < 0:
+        raise ValueError("epochs must be >= 0")
     other = arrays[1] if len(arrays) > 1 else None
-    coords = coords_arg(topo)
     kernel.launch(ptr(w), ptr(other), ptr(out), ptr(loss), n, int(epochs),
-                  float(lr), *topo_args(topo), coords.ctypes.data,
-                  stream_arg(w))
+                  float(lr), *tail, stream_arg(w))
     return out, loss

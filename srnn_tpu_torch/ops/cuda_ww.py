@@ -10,7 +10,7 @@ import torch
 
 from ..topology import Topology
 from .cuda_sgd_common import (LaneKernel, _I, _LL, _P, check_kernel_topology,
-                              check_lanes, check_weightwise, coords_arg,
+                              check_lanes, check_variant, coords_arg,
                               is_cpu, ptr, stream_arg, topo_args)
 from .popmajor import ww_forward_popmajor
 
@@ -32,7 +32,7 @@ def ww_apply_population(topo: Topology, wT: torch.Tensor,
                         steps: int = 1) -> torch.Tensor:
     """Self-apply every particle of a (P, N) float32 population ``steps``
     times, the whole chain in registers on the card."""
-    check_weightwise(topo)
+    check_variant(topo, "weightwise")
     n = check_lanes(topo, wT)
     if steps < 0:
         raise ValueError("steps must be >= 0")

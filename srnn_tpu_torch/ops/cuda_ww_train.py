@@ -25,7 +25,8 @@ import torch
 from ..topology import Topology, normalized_weight_coords
 from .activations import resolve_output_grad
 from .cuda_sgd_common import (SGD_ARGTYPES, LaneKernel, check_lanes,
-                              check_weightwise, is_cpu, lane_call)
+                              check_variant, coords_arg, is_cpu, lane_call,
+                              topo_args)
 from .mlp import mlp_rows_plain, point_features
 
 WW_SGD = LaneKernel(
@@ -43,6 +44,33 @@ def apply_rows_plain(topo: Topology, self_rows: Sequence[torch.Tensor],
             for s in range(topo.num_weights)]
 
 
+def mlp_backward_plain(topo: Topology, rows: Sequence[torch.Tensor],
+                       acts: Sequence[Sequence[torch.Tensor]],
+                       dh: List[torch.Tensor], act_grad) -> List[torch.Tensor]:
+    """The hand-derived backward of the lane MLP: ``acts`` every layer's
+    activations (``mlp_rows_plain``), ``dh`` dL/d(output); returns
+    dL/d(rows), in the kernels' operation order."""
+    shapes = topo.layer_shapes
+    offs = topo.offsets
+    grads = [None] * topo.num_weights
+    for li in range(len(shapes) - 1, -1, -1):
+        a, b = shapes[li]
+        o = offs[li]
+        prev = acts[li]
+        if act_grad is not None:
+            dh = [dh[j] * act_grad(acts[li + 1][j]) for j in range(b)]
+        dprev = []
+        for i in range(a):
+            acc = dh[0] * rows[o + i * b + 0]
+            for j in range(1, b):
+                acc = acc + dh[j] * rows[o + i * b + j]
+            dprev.append(acc)
+            for j in range(b):
+                grads[o + i * b + j] = dh[j] * prev[i]
+        dh = dprev
+    return grads
+
+
 def sgd_chain_plain(topo: Topology, rows0: Sequence[torch.Tensor],
                     snap_rows: Optional[Sequence[torch.Tensor]], epochs: int,
                     lr: float, refresh: bool
@@ -51,8 +79,6 @@ def sgd_chain_plain(topo: Topology, rows0: Sequence[torch.Tensor],
     ``snap_rows`` is the fixed imitation target when ``refresh`` is False.
     Returns (rows, last-epoch loss (N,))."""
     p = topo.num_weights
-    shapes = topo.layer_shapes
-    offs = topo.offsets
     coords = normalized_weight_coords(topo)
     act_grad = resolve_output_grad(topo.activation)
     rows = list(rows0)
@@ -65,23 +91,8 @@ def sgd_chain_plain(topo: Topology, rows0: Sequence[torch.Tensor],
             acts = mlp_rows_plain(topo, rows, point_features(coords, s, x))
             pred = acts[-1][0]
             loss_acc = loss_acc + (pred - x) * (pred - x)
-            dh = [2.0 * (pred - x)]
-            grads = [None] * p
-            for li in range(len(shapes) - 1, -1, -1):
-                a, b = shapes[li]
-                o = offs[li]
-                prev = acts[li]
-                if act_grad is not None:
-                    dh = [dh[j] * act_grad(acts[li + 1][j]) for j in range(b)]
-                dprev = []
-                for i in range(a):
-                    acc = dh[0] * rows[o + i * b + 0]
-                    for j in range(1, b):
-                        acc = acc + dh[j] * rows[o + i * b + j]
-                    dprev.append(acc)
-                    for j in range(b):
-                        grads[o + i * b + j] = dh[j] * prev[i]
-                dh = dprev
+            grads = mlp_backward_plain(topo, rows, acts, [2.0 * (pred - x)],
+                                       act_grad)
             for r in range(p):
                 rows[r] = rows[r] - lr * grads[r]
         last = loss_acc / p
@@ -102,19 +113,23 @@ def ww_train_epochs(topo: Topology, wT: torch.Tensor, epochs: int,
                     lr: float = 0.01):
     """``epochs`` of batch-1 sequential self-training.  Returns (new_wT,
     last epoch per-particle loss (N,))."""
-    check_weightwise(topo)
+    check_variant(topo, "weightwise")
     check_lanes(topo, wT)
     if is_cpu(wT):
         return ww_sgd_plain(topo, wT, None, epochs, lr)
-    return lane_call(WW_SGD, topo, [wT], epochs, lr)
+    coords = coords_arg(topo)
+    return lane_call(WW_SGD, topo, [wT], epochs, lr, *topo_args(topo),
+                     coords.ctypes.data)
 
 
 def ww_learn_epochs(topo: Topology, wT: torch.Tensor, otherT: torch.Tensor,
                     severity: int, lr: float = 0.01):
     """``severity`` imitation epochs toward the counterparts' fixed samples
     ``otherT`` (P, N)."""
-    check_weightwise(topo)
+    check_variant(topo, "weightwise")
     check_lanes(topo, wT, otherT)
     if is_cpu(wT):
         return ww_sgd_plain(topo, wT, otherT, severity, lr)
-    return lane_call(WW_SGD, topo, [wT, otherT], severity, lr)
+    coords = coords_arg(topo)
+    return lane_call(WW_SGD, topo, [wT, otherT], severity, lr,
+                     *topo_args(topo), coords.ctypes.data)

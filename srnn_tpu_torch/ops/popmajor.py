@@ -1,5 +1,6 @@
-"""Population-major (P, N) weightwise ops in plain torch; port of the
-weightwise part of ``srnn_tpu/ops/popmajor.py``.
+"""Population-major (P, N) weightwise ops in plain torch, and the
+population-major dispatch of every variant; port of
+``srnn_tpu/ops/popmajor.py``.
 
 Row p of a (P, N) matrix holds weight p of every particle, so every op of
 the tiny MLP is elementwise over the particle axis.  The batch-1 SGD chain
@@ -10,10 +11,14 @@ hold the hand-derived backward of ``cuda_ww_train`` against, and no route
 of the soup runs it.
 
 The dispatchers at the bottom are the surface the soup calls.  The train
-and learn_from chains go to the SGD kernel's wrapper, where the tensor's
-device picks the route: a CUDA tensor launches the kernel, a CPU tensor
-runs its plain chain.  Only the weightwise variant and the sequential
-(batch-1) train mode are ported; anything else raises.
+and learn_from chains always go to the variant's SGD kernel wrapper (K2
+weightwise, K4 aggregating/fft, K5 recurrent), and the recurrent attack to
+K6's, where the tensor's device picks the route: a CUDA tensor launches the
+kernel, a CPU tensor runs its plain chain.  The weightwise and k-vector
+attacks are plain torch, as in the JAX package (it has no kernel for
+them).  The weightwise chain takes only the sequential (batch-1) train
+mode; the other variants have one sample per epoch, so 'sequential' and
+'full_batch' are one program there and both are accepted.
 """
 
 from typing import Optional, Tuple
@@ -21,17 +26,14 @@ from typing import Optional, Tuple
 import torch
 
 from ..topology import Topology, normalized_weight_coords
+from .cuda_kvec_train import kvec_learn_epochs, kvec_train_epochs
+from .cuda_rnn_apply import rnn_apply
+from .cuda_rnn_train import rnn_learn_epochs, rnn_train_epochs
 from .cuda_ww_train import ww_learn_epochs, ww_train_epochs
 from .mlp import mlp_rows_plain, point_features
+from .popmajor_kvec import kvec_apply_popmajor
 
 DEFAULT_LR = 0.01  # keras SGD default
-
-
-def _check_weightwise(topo: Topology) -> None:
-    if topo.variant != "weightwise":
-        raise ValueError(
-            f"variant {topo.variant!r} is not ported yet; only 'weightwise' "
-            "runs in srnn_tpu_torch")
 
 
 def ww_forward_popmajor(topo: Topology, wT: torch.Tensor,
@@ -90,21 +92,12 @@ def _ww_seq_sgd_flat(topo: Topology, wT: torch.Tensor, epochs: int,
     return w, last
 
 
-def _check_train_mode(mode: str) -> None:
-    if mode == "full_batch":
-        raise ValueError(
-            "train_mode='full_batch' is not ported yet; srnn_tpu_torch runs "
-            "the sequential (batch-1) chain only")
-    if mode != "sequential":
-        raise ValueError(f"unknown train mode {mode!r}")
-
-
 def ww_train_epochs_popmajor(topo: Topology, wT: torch.Tensor, epochs: int,
                              lr: float = DEFAULT_LR,
                              mode: str = "sequential"):
     """``epochs`` self-training calls (samples recomputed from the current
     weights before every epoch).  Returns (new_wT, last epoch loss (N,))."""
-    _check_train_mode(mode)
+    check_train_mode(topo, mode)
     if epochs <= 0:
         return wT, torch.zeros(wT.shape[1], dtype=wT.dtype, device=wT.device)
     return _ww_seq_sgd_flat(topo, wT, epochs, lr)
@@ -116,7 +109,7 @@ def ww_learn_epochs_popmajor(topo: Topology, wT: torch.Tensor,
                              mode: str = "sequential"):
     """``severity`` imitation epochs toward the counterparts' samples
     (x = y = other's weights, fixed across the call)."""
-    _check_train_mode(mode)
+    check_train_mode(topo, mode)
     if severity <= 0:
         return wT, torch.zeros(wT.shape[1], dtype=wT.dtype, device=wT.device)
     return _ww_seq_sgd_flat(topo, wT, severity, lr, otherT)
@@ -126,30 +119,53 @@ def ww_learn_epochs_popmajor(topo: Topology, wT: torch.Tensor,
 # Dispatch: the population-major surface the soup calls.
 # ---------------------------------------------------------------------------
 
+#: variant -> (train wrapper, learn wrapper) of its SGD kernel
+_SGD = {
+    "weightwise": (ww_train_epochs, ww_learn_epochs),
+    "aggregating": (kvec_train_epochs, kvec_learn_epochs),
+    "fft": (kvec_train_epochs, kvec_learn_epochs),
+    "recurrent": (rnn_train_epochs, rnn_learn_epochs),
+}
+
+
+def check_train_mode(topo: Topology, mode: str) -> None:
+    """'sequential' for every variant; 'full_batch' too where an epoch has
+    one sample (every variant but weightwise), since there it is the same
+    program."""
+    if mode not in ("sequential", "full_batch"):
+        raise ValueError(f"unknown train mode {mode!r}")
+    if mode == "full_batch" and topo.variant == "weightwise":
+        raise ValueError(
+            "train_mode='full_batch' is not ported for the weightwise "
+            "variant; srnn_tpu_torch runs its sequential (batch-1) chain")
+
 
 def apply_popmajor(topo: Topology, selfT: torch.Tensor,
                    targetT: torch.Tensor) -> torch.Tensor:
     """Population-major attack: particle n's net (parameters ``selfT[:, n]``)
-    rewrites ``targetT[:, n]``.  Plain torch: the JAX package has an attack
-    kernel only for the recurrent variant (``pallas_rnn_apply``)."""
-    _check_weightwise(topo)
-    return ww_forward_popmajor(topo, selfT, targetT)
+    rewrites ``targetT[:, n]``.  The recurrent variant goes to K6's wrapper
+    (``pallas_rnn_apply``'s port); the others are plain torch, as in the
+    JAX package."""
+    if topo.variant == "weightwise":
+        return ww_forward_popmajor(topo, selfT, targetT)
+    if topo.variant == "recurrent":
+        return rnn_apply(topo, selfT, targetT)
+    return kvec_apply_popmajor(topo, selfT, targetT)
 
 
 def train_epochs_popmajor(topo: Topology, wT: torch.Tensor, epochs: int,
                           lr: float = DEFAULT_LR, mode: str = "sequential"):
-    """``epochs`` self-training calls on the SGD kernel (its plain chain
-    for a CPU tensor).  Returns (new_wT, last epoch loss (N,))."""
-    _check_weightwise(topo)
-    _check_train_mode(mode)
-    return ww_train_epochs(topo, wT, epochs, lr)
+    """``epochs`` self-training calls on the variant's SGD kernel (its
+    plain chain for a CPU tensor).  Returns (new_wT, last epoch loss
+    (N,))."""
+    check_train_mode(topo, mode)
+    return _SGD[topo.variant][0](topo, wT, epochs, lr)
 
 
 def learn_epochs_popmajor(topo: Topology, wT: torch.Tensor,
                           otherT: torch.Tensor, severity: int,
                           lr: float = DEFAULT_LR, mode: str = "sequential"):
-    """``severity`` imitation epochs toward ``otherT`` on the SGD kernel
-    (its plain chain for a CPU tensor)."""
-    _check_weightwise(topo)
-    _check_train_mode(mode)
-    return ww_learn_epochs(topo, wT, otherT, severity, lr)
+    """``severity`` imitation epochs toward ``otherT`` on the variant's SGD
+    kernel (its plain chain for a CPU tensor)."""
+    check_train_mode(topo, mode)
+    return _SGD[topo.variant][1](topo, wT, otherT, severity, lr)

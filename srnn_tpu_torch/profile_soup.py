@@ -2,14 +2,16 @@
 
     python -m srnn_tpu_torch.profile_soup [--size 1000000] [--generations 10]
 
-Runs the full-dynamics weightwise soup (attack 0.1, learn_from 0.1,
-severity 1, train 10, both removals, fused respawn draws) on each route --
-``fused`` (the generation kernel) and ``phases`` (phase chain, SGD
-kernel) -- under
-``torch.profiler`` after a warm-up, and prints one JSON line per route:
-wall time per generation, the device's busy share (summed device time of
-all kernels over wall time), and the device time by kernel, largest first.
-Needs a CUDA card.
+Runs the full-dynamics soup (attack 0.1, learn_from 0.1, severity 1,
+train 10, both removals, fused respawn draws) of the weightwise,
+aggregating and recurrent standard particles (width 2, depth 2,
+aggregates 4) on each route -- ``fused`` (the
+variant's generation kernel) and ``phases`` (phase chain: its SGD kernel,
+and the recurrent attack kernel) -- under ``torch.profiler`` after a
+warm-up, and prints one JSON line per variant and route: wall time per
+generation, the device's busy share (summed device time of all kernels
+over wall time), and the device time by kernel, largest first.  Needs a
+CUDA card.
 """
 
 import argparse
@@ -66,18 +68,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_soup: needs a CUDA card", file=sys.stderr)
         return 1
-    base = SoupConfig(topo=Topology("weightwise", width=2, depth=2),
-                      size=args.size, attacking_rate=0.1,
-                      learn_from_rate=0.1, learn_from_severity=1, train=10,
-                      remove_divergent=True, remove_zero=True,
-                      respawn_draws="fused")
-    for name, cfg in (("fused", base._replace(generation_impl="fused")),
-                      ("phases", base)):
-        row = {"route": name, "size": args.size,
-               "generations": args.generations,
-               "device": torch.cuda.get_device_name(0)}
-        row.update(profile_route(cfg, args.generations))
-        print(json.dumps(row), flush=True)
+    for variant in ("weightwise", "aggregating", "recurrent"):
+        base = SoupConfig(topo=Topology(variant, width=2, depth=2,
+                                        aggregates=4),
+                          size=args.size, attacking_rate=0.1,
+                          learn_from_rate=0.1, learn_from_severity=1,
+                          train=10, remove_divergent=True, remove_zero=True,
+                          respawn_draws="fused")
+        for name, cfg in (("fused", base._replace(generation_impl="fused")),
+                          ("phases", base)):
+            row = {"variant": variant, "route": name, "size": args.size,
+                   "generations": args.generations,
+                   "device": torch.cuda.get_device_name(0)}
+            row.update(profile_route(cfg, args.generations))
+            print(json.dumps(row), flush=True)
     return 0
 
 

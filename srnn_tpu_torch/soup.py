@@ -10,17 +10,20 @@ epochs; run ``train`` self-training epochs; respawn dead particles in place
 phase.  All particles step together from the start-of-phase state; attack
 collisions resolve last-attacker-wins, as in the JAX package.
 
-Scope of this port: the weightwise variant, float32, ``layout='popmajor'``,
-``mode='parallel'``, the sequential (batch-1) train mode, full-width phases.
-Any other setting raises.  ``layout`` defaults to 'popmajor' here, the only
+Scope of this port: all four variants (weightwise, aggregating, fft,
+recurrent), float32, ``layout='popmajor'``, ``mode='parallel'``, full-width
+phases; the weightwise variant in the sequential (batch-1) train mode, the
+others in either mode (one sample per epoch makes them one program).  Any
+other setting raises.  ``layout`` defaults to 'popmajor' here, the only
 layout the port has.  ``generation_impl='fused'`` runs the whole
-generation as one launch of the generation kernel; ``generation_impl=
-'phases'`` runs the phases one after another, the train and learn_from
-chains on the SGD kernel.  The population's device picks the route inside
-each kernel's wrapper: CUDA tensors launch the kernels, CPU tensors run
-their plain versions.  ``train_impl`` ('plain' | 'kernel', the JAX
-package's 'xla' | 'pallas') is kept so that the JAX package's configs
-convert; it selects nothing here.
+generation as one launch of the variant's generation kernel;
+``generation_impl='phases'`` runs the phases one after another, the train
+and learn_from chains on the variant's SGD kernel and the recurrent attack
+on its attack kernel.  The population's device picks the route inside each
+kernel's wrapper: CUDA tensors launch the kernels, CPU tensors run their
+plain versions.  ``train_impl`` and ``apply_impl`` ('plain' | 'kernel', the
+JAX package's 'xla' | 'pallas') are kept so that the JAX package's configs
+convert; they select nothing here.
 
 Randomness: the state carries a ``torch.Generator`` (field ``key``), seeded
 from an int.  ``evolve_step`` and ``evolve`` draw from a copy of it and hand
@@ -38,8 +41,8 @@ import torch
 from .engine import classify_batch
 from .init import fresh_lanes, init_population, make_generator
 from .ops.cuda_generation import fused_kernel_supported, generation_popmajor
-from .ops.popmajor import (DEFAULT_LR, apply_popmajor, learn_epochs_popmajor,
-                           train_epochs_popmajor)
+from .ops.popmajor import (DEFAULT_LR, apply_popmajor, check_train_mode,
+                           learn_epochs_popmajor, train_epochs_popmajor)
 from .ops.predicates import (DEFAULT_EPSILON, count_classes, is_diverged,
                              is_zero)
 from .topology import Topology
@@ -71,7 +74,7 @@ class SoupConfig(NamedTuple):
     train_impl: str = "kernel"          # accepted, selects nothing
     attack_impl: str = "full"
     learn_from_impl: str = "full"
-    apply_impl: str = "plain"
+    apply_impl: str = "plain"           # accepted, selects nothing
     generation_impl: str = "phases"     # 'phases' | 'fused'
     population_dtype: str = "f32"
 
@@ -120,8 +123,6 @@ def seed(config: SoupConfig, seed: int, device="cuda") -> SoupState:
 
 def _check_config(config: SoupConfig) -> None:
     """The JAX package's ``_check_popmajor`` plus the limits of this port."""
-    if config.topo.variant != "weightwise":
-        raise ValueError(f"variant {config.topo.variant!r} is not ported yet")
     if config.layout != "popmajor":
         raise ValueError(f"layout={config.layout!r} is not ported; "
                          "srnn_tpu_torch runs layout='popmajor'")
@@ -133,29 +134,29 @@ def _check_config(config: SoupConfig) -> None:
                          "not ported; srnn_tpu_torch runs 'f32'")
     if config.topo.shuffler == "random":
         raise ValueError("layout='popmajor' requires shuffler='not'")
-    if config.train_mode != "sequential":
-        raise ValueError(f"train_mode={config.train_mode!r} is not ported; "
-                         "srnn_tpu_torch runs 'sequential'")
+    if config.topo.variant == "recurrent" and \
+            config.topo.rnn_scan != "sequential":
+        raise ValueError(f"rnn_scan={config.topo.rnn_scan!r} is not ported; "
+                         "srnn_tpu_torch runs the serial scan")
+    check_train_mode(config.topo, config.train_mode)
     if config.respawn_draws not in ("perparticle", "fused"):
         raise ValueError(f"unknown respawn_draws {config.respawn_draws!r}")
     for field in ("attack_impl", "learn_from_impl"):
         if getattr(config, field) != "full":
             raise ValueError(f"{field}={getattr(config, field)!r} is not "
                              "ported; srnn_tpu_torch runs 'full'")
-    if config.train_impl not in ("plain", "kernel"):
-        raise ValueError(f"unknown train_impl {config.train_impl!r}")
-    if config.apply_impl != "plain":
-        raise ValueError(
-            f"apply_impl={config.apply_impl!r}: the attack kernel is the "
-            "recurrent variant's, not ported; use apply_impl='plain'")
+    for field in ("train_impl", "apply_impl"):
+        if getattr(config, field) not in ("plain", "kernel"):
+            raise ValueError(f"unknown {field} {getattr(config, field)!r}")
     if config.generation_impl not in ("phases", "fused"):
         raise ValueError(
             f"unknown generation_impl {config.generation_impl!r}")
     if not fused_kernel_supported(config.topo, config.train_mode):
         raise ValueError(
             "the soup's kernels need an activation with an "
-            "output-expressible derivative (linear/sigmoid/tanh/relu); "
-            f"got {config.topo.activation!r}")
+            "output-expressible derivative (linear/sigmoid/tanh/relu) and "
+            f"at most 64 weights; got {config.topo.activation!r}, "
+            f"P={config.topo.num_weights}")
 
 
 def draw(config: SoupConfig, gen: torch.Generator,

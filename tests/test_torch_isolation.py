@@ -2,6 +2,7 @@
 module of the JAX package, and its entry points run on the card unless told
 otherwise."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -32,8 +33,26 @@ def test_import_loads_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 25  # the new variants' nets and kernel wrappers too
     assert bad == "[]"
+
+
+def test_chip_smoke_imports_no_jax():
+    """Every import statement of chip_smoke.py, at any depth, names neither
+    jax nor the JAX package."""
+    path = os.path.join(REPO, "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "srnn_tpu_torch" in {n.split(".")[0] for n in names}
+    for n in names:
+        top = n.split(".")[0]
+        assert top not in ("jax", "jaxlib", "srnn_tpu"), n
 
 
 def test_default_device_is_cuda(monkeypatch):
@@ -52,11 +71,19 @@ def test_kernel_topology_fence():
     from srnn_tpu_torch import Topology
     from srnn_tpu_torch.ops.cuda_sgd_common import check_kernel_topology
 
-    check_kernel_topology(Topology("weightwise", width=2, depth=2))
+    for variant in ("weightwise", "aggregating", "fft", "recurrent"):
+        check_kernel_topology(Topology(variant, width=2, depth=2))
     for topo, what in ((Topology("weightwise", width=3), "width"),
                        (Topology("weightwise", depth=3), "depth"),
                        (Topology("weightwise", activation="gelu"),
                         "activation"),
-                       (Topology("recurrent"), "variant")):
+                       (Topology("aggregating", width=3), "width"),
+                       (Topology("aggregating", aggregates=5), "aggregates"),
+                       (Topology("fft", aggregates=5), "aggregates"),
+                       (Topology("recurrent", depth=3), "depth"),
+                       (Topology("recurrent", rnn_scan="associative"),
+                        "rnn_scan"),
+                       (Topology("aggregating", shuffler="random"),
+                        "shuffler")):
         with pytest.raises(ValueError, match=what):
             check_kernel_topology(topo)

@@ -3,10 +3,15 @@ popmajor soup, fed the JAX package's own draws.
 
 The JAX ``evolve_step`` runs with ``layout='popmajor'`` in both
 ``generation_impl`` spellings (on the CPU its fused spelling is the phase
-chain).  The draws are replayed from the JAX state's key exactly as
-``soup._evolve_parallel_popmajor`` makes them and handed to the port as
-numpy.  Integer state must be equal; weights and loss match within the
-generation tolerance of tests/test_fused_generation.py.
+chain) for the weightwise particle, and in the phase spelling for the
+aggregating, fft and recurrent particles (the same program as its fused one
+on the CPU).  The recurrent reference runs ``train_impl='pallas'`` (its
+Pallas SGD kernel in interpret mode): the hand BPTT in the operation order
+the port's kernels follow.  The draws are replayed from the JAX state's
+key exactly as ``soup._evolve_parallel_popmajor`` makes them and handed to
+the port as numpy.  Integer state must be equal; weights and loss match within the
+generation tolerance of tests/test_fused_generation.py (weights rtol 2e-5 /
+atol 1e-6, losses rtol 1e-4 / atol 1e-6).
 """
 
 import dataclasses
@@ -71,14 +76,42 @@ def jax_run():
     return runs
 
 
-@pytest.mark.parametrize("port_impl", [
-    dict(generation_impl="phases", train_impl="plain"),
-    dict(generation_impl="phases", train_impl="kernel"),
-    dict(generation_impl="fused")], ids=["phases", "phases-kernel", "fused"])
-@pytest.mark.parametrize("jax_impl", ["phases", "fused"])
-def test_soup_matches_jax(jax_run, jax_impl, port_impl):
-    jcfg, steps = jax_run[jax_impl]
-    cfg = _port_config(jcfg, **port_impl)
+#: the other variants' soups, each with JCFG's dynamics.  The recurrent
+#: particle runs sigmoid, whose slope of at most 1/4 damps rounding noise
+#: along the 17-step chain.  With the other activations no float bound
+#: separates a fault from noise over three generations: linear sequences
+#: grow to ~1e36 within two epochs at the init law; tanh amplifies the
+#: 1-ulp differences of XLA's and torch's tanh to 6.5e-5 relative in one
+#: weight even against the Pallas BPTT; a relu pre-activation within
+#: rounding of 0 flips its gradient.  test_torch_rnn.py holds those chains.
+VARIANT_TOPOS = {
+    "aggregating": JTopology("aggregating", width=2, depth=2, aggregates=4),
+    "fft": JTopology("fft", width=2, depth=2, aggregates=4),
+    "recurrent": JTopology("recurrent", width=2, depth=2, activation="sigmoid"),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_variant_runs():
+    """Three JAX phase-chain generations per variant; the recurrent one
+    through its Pallas SGD kernel."""
+    runs = {}
+    for name, topo in VARIANT_TOPOS.items():
+        cfg = JCFG._replace(topo=topo)
+        if name == "recurrent":
+            cfg = cfg._replace(train_impl="pallas")
+        s = jsoup.seed(cfg, jax.random.key(4))
+        steps = []
+        for _ in range(GENERATIONS):
+            s2, ev = jsoup.evolve_step(cfg, s)
+            steps.append((s, s2, ev))
+            s = s2
+        runs[name] = (cfg, steps)
+    return runs
+
+
+def _replay(jcfg, steps, cfg):
+    """The port's soup over the JAX run's generations, on its draws."""
     state = _port_state(steps[0][0])
     for g, (before, after, jev) in enumerate(steps):
         state, ev = st.evolve_step(cfg, state, _jax_draws(jcfg, before.key))
@@ -94,6 +127,30 @@ def test_soup_matches_jax(jax_run, jax_impl, port_impl):
                                    atol=1e-6, err_msg=f"generation {g}")
         np.testing.assert_allclose(ev.loss.numpy(), np.asarray(jev.loss),
                                    rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("port_impl", [
+    dict(generation_impl="phases", train_impl="plain"),
+    dict(generation_impl="phases", train_impl="kernel"),
+    dict(generation_impl="fused")], ids=["phases", "phases-kernel", "fused"])
+@pytest.mark.parametrize("jax_impl", ["phases", "fused"])
+def test_soup_matches_jax(jax_run, jax_impl, port_impl):
+    jcfg, steps = jax_run[jax_impl]
+    _replay(jcfg, steps, _port_config(jcfg, **port_impl))
+
+
+@pytest.mark.parametrize("port_impl", [
+    dict(generation_impl="phases"),
+    dict(generation_impl="phases", apply_impl="kernel",
+         train_mode="full_batch"),
+    dict(generation_impl="fused")], ids=["phases", "phases-spelled", "fused"])
+@pytest.mark.parametrize("variant", list(VARIANT_TOPOS))
+def test_variant_soup_matches_jax(jax_variant_runs, variant, port_impl):
+    """The aggregating, fft and recurrent soups; 'phases-spelled' converts
+    the JAX spellings apply_impl='pallas' and train_mode='full_batch', which
+    select nothing new here (one sample per epoch)."""
+    jcfg, steps = jax_variant_runs[variant]
+    _replay(jcfg, steps, _port_config(jcfg, **port_impl))
 
 
 def test_counts_and_fixpoint_engine_match_jax(jax_run):
@@ -126,12 +183,16 @@ def test_port_soup_own_draws_and_fences():
     assert int(torch.unique(a.uids).numel()) == cfg.size
     for bad in (dict(layout="rowmajor"), dict(population_dtype="bf16"),
                 dict(mode="sequential"), dict(attack_impl="compact"),
-                dict(apply_impl="kernel"), dict(train_mode="full_batch"),
+                dict(apply_impl="pallas"), dict(train_mode="full_batch"),
                 dict(train_impl="pallas"),
                 dict(topo=st.Topology("weightwise", activation="elu")),
-                dict(topo=st.Topology("recurrent"))):
+                dict(topo=st.Topology("recurrent", rnn_scan="associative")),
+                dict(topo=st.Topology("aggregating", shuffler="random"))):
         with pytest.raises(ValueError):
             st.evolve_step(cfg._replace(**bad), s0)
+    # apply_impl='kernel' is a converted spelling that selects nothing
+    c = st.evolve(cfg._replace(apply_impl="kernel"), s0, 2)
+    assert torch.equal(c.weights, a.weights) and torch.equal(c.uids, a.uids)
     n = cfg.size
     out_of_range = st.SoupDraws(np.ones(n, bool), np.full(n, n),
                                 np.zeros(n, bool), np.zeros(n, int),
