@@ -13,11 +13,12 @@ Phases, each fatal on failure:
 3. each kernel against its plain version on the same inputs at N = 1M:
    the weightwise kernels (K1-K3, P = 14, the 4-2-2-1 net), the k-vector
    SGD chain (K4, aggregating 4-2-2-4, P = 20), the recurrent BPTT chain and
-   attack (K5, K6, the 1-2-2-1 stack, P = 17) and K3's aggregating, fft and
-   recurrent bodies; every other instantiated activation, aggregator and fft
-   mode at a small N; max abs / max rel difference, integer outputs equal,
-   median times of kernel and plain version (CUDA events) beside the
-   kernel's bound;
+   attack (K5, K6, the 1-2-2-1 stack, P = 17; K6 also on the cross-type
+   victims of length T = 14 and T = 20), K3's aggregating, fft and
+   recurrent bodies, and K3's three bfloat16 bodies; every other
+   instantiated activation, aggregator and fft mode at a small N; max abs /
+   max rel difference, integer outputs equal, median times of kernel and
+   plain version (CUDA events) beside the kernel's bound;
 4. the main path through the public entry points, each of its runs with
    the launch counts set to 0 just before it and checked just after against
    the launches that run must make: the N = 1M full-dynamics soup (attack
@@ -26,12 +27,20 @@ Phases, each fatal on failure:
    generations with generation_impl='fused' (the variant's generation
    kernel only), then 20 with 'phases' (its SGD kernel, and the recurrent
    attack kernel); generations/s, class counts, unique uids; then the
-   applications/s program, N = 1M, steps = 2000 (self-application kernel
-   only); then, to inform, ``run_fixpoint`` class counts of fresh
-   aggregating and recurrent nets;
-5. a small soup of each variant on the card against the same soup on the
-   CPU, fed the same draws, over 3 generations on both routes;
-6. one JSON line listing every kernel (K3 once per variant body), then the
+   mixed-type soup at setups/mega_multisoup.py's split (N = 1M as 333,334
+   weightwise, 333,333 aggregating, 333,333 recurrent particles, the same
+   dynamics), 20 generations on each route (fused: one generation kernel
+   per type; phases: the types' SGD kernels; both: the recurrent attack
+   kernel once per victim type); then the weightwise, aggregating and
+   recurrent soups with population_dtype='bf16' on the fused route (K3's
+   bfloat16 bodies); then the applications/s program, N = 1M, steps = 2000
+   (self-application kernel only); then, to inform, ``run_fixpoint`` class
+   counts of fresh aggregating and recurrent nets;
+5. a small soup of each variant, a small mixed soup, and small bf16 and
+   int8 soups, each on the card against the same soup on the CPU, fed the
+   same draws, over 3 generations on both routes;
+6. one JSON line listing every kernel (K3 once per variant body and
+   population dtype, K6 once per victim length), then the
    card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -172,7 +181,10 @@ def timed_ms(torch, fn, reps: int, warm: bool = True) -> float:
 
 def compare(torch, what: str, got, ref):
     """Max abs / max rel difference over finite entries; the non-finite
-    pattern must agree exactly.  Raises when outside RTOL/ATOL."""
+    pattern must agree exactly.  Raises when outside RTOL/ATOL.  Values are
+    compared as float32, so bfloat16 outputs are compared bit for bit where
+    finite and by NaN/Inf position elsewhere (the card's and torch's
+    bfloat16 conversions may give NaNs different payloads)."""
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
@@ -205,7 +217,10 @@ def equal_ints(torch, what: str, got, ref) -> None:
 
 def build_kernels():
     """Build every kernel source, one nvcc each, all at once; print each
-    one's finish time (its log's last write) and ptxas' report."""
+    one's finish time (its log's last write) and ptxas' report summed over
+    the source's instantiations: registers, stack frame, spilled bytes."""
+    import re
+
     from srnn_tpu_torch.ops import _build
 
     t0, wall0 = time.perf_counter(), time.time()
@@ -214,11 +229,16 @@ def build_kernels():
         f"{time.perf_counter() - t0:.1f} s (nvcc {_build.nvcc_path()})")
     for name in _build.SOURCES:
         done = os.path.getmtime(_build.log_path(name)) - wall0
-        log(f"  {name}: nvcc done after {done:.1f} s")
-    for name in _build.SOURCES:
-        for line in _build.resource_usage(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        report = _build.resource_usage(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        stack = [int(b) for b in re.findall(r"(\d+) bytes stack frame",
+                                            report)]
+        spills = sum(int(b) for b in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", report))
+        log(f"  {name}: nvcc done after {done:.1f} s; {len(regs)} kernels, "
+            f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
+            f"stack frame up to {max(stack, default=0)} bytes, spilled "
+            f"bytes {spills}")
 
 
 def population(topo, n, gen, scale=1.0):
@@ -327,11 +347,24 @@ def check_kernels(torch, rows):
         o = gen_operands(torch, t, ws, gen, rate=0.5)
         kw2 = dict(severity=1, train=2, lr=0.01, remove_divergent=True,
                    remove_zero=True, epsilon=1e-4)
-        got = cg.generation_popmajor(t, ws, **o, **kw2)
-        ref = cg.generation_popmajor_plain(t, ws, **o, **kw2)
-        compare(torch, "K3 weights", got[0], ref[0])
-        compare(torch, "K3 loss", got[1], ref[1])
-        equal_ints(torch, "K3 dead", torch.stack(got[2:]),
+        check_small_generation(torch, t, ws, o, kw2)
+
+
+def check_small_generation(torch, topo, ws, o, kw):
+    """K3 against its plain version on a small population, with a float32
+    and with a bfloat16 population (the operand columns rounded too)."""
+    from srnn_tpu_torch.ops import cuda_generation as cg
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cast = {k: v.to(dtype) if k.endswith("T") and k != "freshT" else v
+                for k, v in o.items()}
+        wd = ws.to(dtype)
+        got = cg.generation_popmajor(topo, wd, **cast, **kw)
+        ref = cg.generation_popmajor_plain(topo, wd, **cast, **kw)
+        tag = "K3" if dtype == torch.float32 else "K3 bf16"
+        compare(torch, f"{tag} weights", got[0], ref[0])
+        compare(torch, f"{tag} loss", got[1], ref[1])
+        equal_ints(torch, f"{tag} dead", torch.stack(got[2:]),
                    torch.stack(ref[2:]))
 
 
@@ -372,26 +405,43 @@ def check_generation_body(torch, topo, kernel, w, gen, train=10, reps=10):
     return max(errs), ms, plain, ops, kw, n_dead
 
 
-def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops):
+def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
+                   pop_bytes=4):
     """Bound of one K3 launch from this run's gates: every lane trains,
     the attacked lanes and recomputed targets apply once, the learners run
     their imitation chain.  Bytes as the kernel's gates need them, counted
     by element (not by 32-byte sector): the population, two gates a lane
     and the third for learners, an attacker column for each attacked lane,
     a target column for each learner, its attacker's column for each
-    recomputed target, a fresh column for each dead lane; the population,
-    loss and both dead masks written."""
+    recomputed target (``pop_bytes`` each: 4 for float32, 2 for bfloat16),
+    a fresh column (float32) for each dead lane; the population, loss and
+    both dead masks written."""
     p = topo.num_weights
     n_att = int(ops["has_attacker"].sum())
     n_learn = int(ops["learn_gate"].sum())
     n_re = int((ops["learn_gate"] & ops["other_attacked"]).sum())
     total = ((n_att + n_re) * apply_ops + n_learn * learn_ops
              + N * kw["train"] * train_ops + N * 3 * p)
-    reads = (2 * N + n_learn + p * (N + n_att + n_learn + n_re + n_dead))
-    nbytes = (reads + p * N + N + 2 * N) * 4
+    nbytes = ((2 * N + n_learn) * 4
+              + p * (N + n_att + n_learn + n_re) * pop_bytes
+              + p * n_dead * 4
+              + p * N * pop_bytes + (N + 2 * N) * 4)
     log(f"  attacked {n_att}, learners {n_learn}, recomputed {n_re}, "
         f"dead {n_dead}; {nbytes / 1e6:.1f} MB, {total / 1e9:.3f} Gop")
     return bound_ms(nbytes, total)
+
+
+def gen_body_ops(topo):
+    """(apply, learn, train-epoch) operation counts of a K3 body."""
+    if topo.variant == "weightwise":
+        epoch = sgd_ops_per_epoch(topo)
+        return topo.num_weights * apply_ops_per_point(topo), epoch, epoch
+    if topo.variant == "recurrent":
+        epoch = rnn_sgd_ops_per_epoch(topo)
+        return rnn_forward_ops(topo, topo.num_weights), epoch, epoch
+    return (kvec_apply_ops(topo),
+            kvec_reduce_ops(topo) + kvec_sgd_ops_per_epoch(topo, False),
+            kvec_sgd_ops_per_epoch(topo, True))
 
 
 def check_sgd(torch, what, fn, fn_plain):
@@ -459,48 +509,55 @@ def check_variant_kernels(torch, rows):
     rows["rnn_sgd"].update(max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=b, bound_by=by)
 
-    # K6: the attack, T = P
-    log(f"K6 rnn_apply N={N}")
-    err = compare(torch, "attack", cra.rnn_apply(rnn, other, w),
-                  cra.rnn_apply_plain(rnn, other, w))
-    ms = timed_ms(torch, lambda: cra.rnn_apply(rnn, other, w), 10)
-    plain = timed_ms(torch, lambda: cra.rnn_apply_plain(rnn, other, w), 1,
-                     warm=False)
-    b, by = bound_ms(3 * p * N * 4, N * rnn_forward_ops(rnn, p))
-    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
-        f"({by})")
-    rows["rnn_apply"].update(max_abs_err=err, ms=ms, plain_ms=plain,
-                             bound_ms=b, bound_by=by)
+    # K6: the attack, on victims of the attacker's length T = P and on the
+    # mixed soup's cross victims (weightwise T = 14, aggregating T = 20)
+    victims = {17: w}
+    for t_len, vic in ((14, Topology("weightwise", width=2, depth=2)),
+                       (20, agg)):
+        victims[t_len] = population(vic, N, gen)
+    for t_len, vT in victims.items():
+        kernel = cra.RNN_APPLY_BY_T[t_len]
+        log(f"K6 {kernel.name} N={N} (victims T={t_len})")
+        err = compare(torch, "attack", cra.rnn_apply(rnn, other, vT),
+                      cra.rnn_apply_plain(rnn, other, vT))
+        ms = timed_ms(torch, lambda: cra.rnn_apply(rnn, other, vT), 10)
+        plain = timed_ms(torch, lambda: cra.rnn_apply_plain(rnn, other, vT),
+                         1, warm=False)
+        b, by = bound_ms((p + 2 * t_len) * N * 4,
+                         N * rnn_forward_ops(rnn, t_len))
+        log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
+            f"({by})")
+        rows[kernel.name].update(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=b, bound_by=by)
     try:
         cra.rnn_apply(rnn, other, w[:10].contiguous())
     except ValueError:
-        log("  T != P raises ValueError on the card, as documented")
+        log("  T = 10 raises ValueError on the card, as documented")
     else:
         raise AssertionError("rnn_apply took a victim length it has no "
                              "instantiation for")
 
-    # K3 bodies at N = 1M
-    for topo, kernel, key, scale in ((agg, cg.GENERATION_KVEC,
-                                      "generation_kvec", 1.0),
-                                     (fft, cg.GENERATION_KVEC, None, 1.0),
-                                     (rnn, cg.GENERATION_RNN,
-                                      "generation_rnn", 0.5)):
-        log(f"K3 {kernel.name} N={N} ({topo.variant})")
-        w = population(topo, N, gen, scale)
+    # K3 bodies at N = 1M: the float32 ones and the bfloat16 ones, the
+    # latter on the same population rounded to bfloat16
+    ww = Topology("weightwise", width=2, depth=2)
+    for topo, kernel, key, scale, dtype in (
+            (agg, cg.GENERATION_KVEC, "generation_kvec", 1.0,
+             torch.float32),
+            (fft, cg.GENERATION_KVEC, None, 1.0, torch.float32),
+            (rnn, cg.GENERATION_RNN, "generation_rnn", 0.5, torch.float32),
+            (ww, cg.GENERATION_BF16, "generation_bf16", 1.0, torch.bfloat16),
+            (agg, cg.GENERATION_KVEC_BF16, "generation_kvec_bf16", 1.0,
+             torch.bfloat16),
+            (rnn, cg.GENERATION_RNN_BF16, "generation_rnn_bf16", 0.5,
+             torch.bfloat16)):
+        log(f"K3 {kernel.name} N={N} ({topo.variant}, {dtype})")
+        w = population(topo, N, gen, scale).to(dtype)
         err, ms, plain, ops, kw, n_dead = check_generation_body(
             torch, topo, kernel, w, gen, reps=10 if key else 0)
         if key is None:
             continue
-        if topo.variant == "recurrent":
-            apply_ops = rnn_forward_ops(topo, topo.num_weights)
-            learn_ops = epoch_ops = rnn_sgd_ops_per_epoch(topo)
-        else:
-            apply_ops = kvec_apply_ops(topo)
-            learn_ops = kvec_reduce_ops(topo) + kvec_sgd_ops_per_epoch(
-                topo, False)
-            epoch_ops = kvec_sgd_ops_per_epoch(topo, True)
-        b, by = gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops,
-                               epoch_ops)
+        b, by = gen_body_bound(topo, ops, kw, n_dead, *gen_body_ops(topo),
+                               pop_bytes=w.element_size())
         log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
             f"({by})")
         rows[key].update(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
@@ -530,6 +587,11 @@ def check_variant_kernels(torch, rows):
                                                          0.01))
             compare(torch, "K6", cra.rnn_apply(t, os_, ws),
                     cra.rnn_apply_plain(t, os_, ws))
+            for t_len in (14, 20):
+                vs = population(Topology("weightwise") if t_len == 14
+                                else Topology("aggregating"), n, gen, 0.5)
+                compare(torch, f"K6 T={t_len}", cra.rnn_apply(t, os_, vs),
+                        cra.rnn_apply_plain(t, os_, vs))
         else:
             check_sgd(torch, "K4 train=3", lambda: ck.kvec_train_epochs(
                 t, ws, 3), lambda: ck.kvec_sgd_plain(t, ws, None, 3, 0.01))
@@ -539,12 +601,7 @@ def check_variant_kernels(torch, rows):
         o = gen_operands(torch, t, ws, gen, rate=0.5)
         kw = dict(severity=1, train=2, lr=0.01, remove_divergent=True,
                   remove_zero=True, epsilon=1e-4)
-        got = cg.generation_popmajor(t, ws, **o, **kw)
-        ref = cg.generation_popmajor_plain(t, ws, **o, **kw)
-        compare(torch, "K3 weights", got[0], ref[0])
-        compare(torch, "K3 loss", got[1], ref[1])
-        equal_ints(torch, "K3 dead", torch.stack(got[2:]),
-                   torch.stack(ref[2:]))
+        check_small_generation(torch, t, ws, o, kw)
 
 
 
@@ -560,20 +617,24 @@ def check_launches(kernels, what: str, expect: dict) -> dict:
     return got
 
 
-def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases):
+def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases,
+              population_dtype="f32"):
     """The N = 1M full-dynamics soup of ``topo``, 20 generations on each
-    route after a warm-up generation, each run's own launch counts checked
+    route after a warm-up generation (on the fused route only where
+    ``expect_phases`` is None), each run's own launch counts checked
     exactly and added to ``totals``."""
     import srnn_tpu_torch as st
 
     cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
                         learn_from_rate=0.1, learn_from_severity=1, train=10,
                         remove_divergent=True, remove_zero=True,
-                        respawn_draws="fused")
+                        respawn_draws="fused",
+                        population_dtype=population_dtype)
     state = st.seed(cfg, 0, device="cuda")
-    for impl, c, expect in (
-            ("fused", cfg._replace(generation_impl="fused"), expect_fused),
-            ("phases", cfg, expect_phases)):
+    routes = [("fused", cfg._replace(generation_impl="fused"), expect_fused)]
+    if expect_phases is not None:
+        routes.append(("phases", cfg, expect_phases))
+    for impl, c, expect in routes:
         for k in kernels:
             k.launches = 0
         st.evolve(c, state, 1)  # warm-up generation
@@ -584,11 +645,11 @@ def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases):
         dt = time.perf_counter() - t0
         counts = st.count(cfg, state)
         uids = state.uids
-        what = f"{topo.variant} soup {impl}"
+        what = f"{topo.variant} {population_dtype} soup {impl}"
         if int(torch.unique(uids).numel()) != N:
             raise AssertionError(f"{what}: uids are not unique")
         if int(counts.sum()) != N or not bool(torch.isfinite(
-                state.weights).all()):
+                state.weights.float()).all()):
             raise AssertionError(f"{what}: counts {counts.tolist()} or "
                                  "non-finite weights after respawn")
         log(f"{what}: {GENERATIONS / dt:.3f} generations/s at N={N}, "
@@ -597,6 +658,56 @@ def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases):
             f"fix_sec, other] {counts.tolist()}, unique uids "
             f"{int(torch.unique(uids).numel())}, next_uid "
             f"{int(state.next_uid)}")
+        for name, n in check_launches(kernels, what, expect).items():
+            totals[name] += n
+
+
+def multisoup_runs(torch, kernels, totals, per_generation_fused,
+                   per_generation_phases):
+    """The mixed-type soup at setups/mega_multisoup.py's split and
+    dynamics, N = 1M, 20 generations on each route after a warm-up
+    generation, each run's own launch counts checked exactly and added to
+    ``totals``."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+
+    third = N // 3
+    cfg = ms.MultiSoupConfig(
+        topos=(st.Topology("weightwise", width=2, depth=2),
+               st.Topology("aggregating", width=2, depth=2, aggregates=4),
+               st.Topology("recurrent", width=2, depth=2)),
+        sizes=(N - 2 * third, third, third), attacking_rate=0.1,
+        learn_from_rate=0.1, learn_from_severity=1, train=10,
+        remove_divergent=True, remove_zero=True, respawn_draws="fused")
+    state = ms.seed_multi(cfg, 0, device="cuda")
+    runs = GENERATIONS + 1
+    for impl, per_gen in (("fused", per_generation_fused),
+                          ("phases", per_generation_phases)):
+        c = cfg._replace(generation_impl=impl)
+        for k in kernels:
+            k.launches = 0
+        ms.evolve_multi(c, state, 1)  # warm-up generation
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ms.evolve_multi(c, state, GENERATIONS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = ms.count_multi(c, state)
+        uids = torch.cat(state.uids)
+        what = f"mixed soup {impl}"
+        n_unique = int(torch.unique(uids).numel())
+        if n_unique != N or int(uids.max()) >= int(state.next_uid):
+            raise AssertionError(f"{what}: uids are not globally unique")
+        if counts.sum(dim=1).tolist() != list(cfg.sizes) or not all(
+                bool(torch.isfinite(w).all()) for w in state.weights):
+            raise AssertionError(f"{what}: counts {counts.tolist()} or "
+                                 "non-finite weights after respawn")
+        log(f"{what}: {GENERATIONS / dt:.3f} generations/s at N={N} "
+            f"(sizes {cfg.sizes}; {dt * 1e3 / GENERATIONS:.3f} "
+            f"ms/generation), per-type counts [divergent, fix_zero, "
+            f"fix_other, fix_sec, other] {counts.tolist()}, unique uids "
+            f"{n_unique}, next_uid {int(state.next_uid)}")
+        expect = {name: n * runs for name, n in per_gen.items()}
         for name, n in check_launches(kernels, what, expect).items():
             totals[name] += n
 
@@ -620,6 +731,20 @@ def main_path(torch, kernels):
               st.Topology("recurrent", width=2, depth=2),
               {"generation_rnn": runs},
               {"rnn_sgd": 2 * runs, "rnn_apply": runs})
+    # the mixed soup: every generation attacks each victim type once with
+    # the recurrent kernel (T = 14, 20, 17), whatever the route
+    attacks = {"rnn_apply_t14": 1, "rnn_apply_t20": 1, "rnn_apply": 1}
+    multisoup_runs(torch, kernels, totals,
+                   {"generation": 1, "generation_kvec": 1,
+                    "generation_rnn": 1, **attacks},
+                   {"ww_sgd": 2, "kvec_sgd": 2, "rnn_sgd": 2, **attacks})
+    # bfloat16 populations on the fused route: K3's bfloat16 bodies
+    for variant, kernel in (("weightwise", "generation_bf16"),
+                            ("aggregating", "generation_kvec_bf16"),
+                            ("recurrent", "generation_rnn_bf16")):
+        soup_runs(torch, kernels, totals,
+                  st.Topology(variant, width=2, depth=2, aggregates=4),
+                  {kernel: runs}, None, population_dtype="bf16")
     # applications/s: N particles x BENCH_STEPS chained self-applications
     w = (st.init_population(topo, 1, N, "cuda") * 0.05).t().contiguous()
     for k in kernels:
@@ -666,7 +791,8 @@ def fixpoint_census(torch):
 
 def small_soup_vs_cpu(torch):
     """Phase 5: each variant's soup on the card against the same soup on
-    the CPU, fed the same draws."""
+    the CPU, fed the same draws; then the mixed soup and the bfloat16 and
+    int8 soups the same way."""
     import numpy as np
 
     import srnn_tpu_torch as st
@@ -705,6 +831,114 @@ def small_soup_vs_cpu(torch):
                            ev["cpu"].action)
                 compare(torch, f"{tag} weights",
                         states["cuda"].weights.cpu(), states["cpu"].weights)
+    small_multisoup_vs_cpu(torch, cpu)
+    small_precision_vs_cpu(torch, cpu)
+
+
+def small_multisoup_vs_cpu(torch, cpu):
+    """The mixed soup (weightwise, aggregating and recurrent types) on the
+    card against the same soup on the CPU, fed the same draws, on both
+    routes."""
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+    from srnn_tpu_torch.convert import multisoup_state_from_arrays
+    from srnn_tpu_torch.init import init_population
+
+    topos = (st.Topology("weightwise", width=2, depth=2),
+             st.Topology("aggregating", width=2, depth=2, aggregates=4),
+             st.Topology("recurrent", width=2, depth=2))
+    sizes = (700, 683, 665)
+    n = sum(sizes)
+    base = ms.MultiSoupConfig(topos=topos, sizes=sizes, attacking_rate=0.3,
+                              learn_from_rate=0.3, learn_from_severity=1,
+                              train=2, remove_divergent=True,
+                              remove_zero=True)
+    rng = np.random.default_rng(1)
+    w0 = [init_population(t, cpu, k, "cpu").numpy()
+          for t, k in zip(topos, sizes)]
+    u0 = np.split(np.arange(n), np.cumsum(sizes)[:-1])
+    draws = [ms.MultiSoupDraws(
+        rng.random(n) < 0.3, rng.integers(0, n, n), rng.random(n) < 0.3,
+        tuple(rng.integers(0, k, k) for k in sizes),
+        tuple(init_population(t, cpu, k, "cpu").t().numpy()
+              for t, k in zip(topos, sizes))) for _ in range(3)]
+    for impl in ("fused", "phases"):
+        cfg = base._replace(generation_impl=impl)
+        states = {d: multisoup_state_from_arrays(w0, u0, n, 0, device=d)
+                  for d in ("cuda", "cpu")}
+        for g, dr in enumerate(draws):
+            ev = {}
+            for d in states:
+                states[d], ev[d] = ms.evolve_multi_step(cfg, states[d], dr)
+            equal_ints(torch, f"mixed {impl} gen {g} next_uid",
+                       states["cuda"].next_uid, states["cpu"].next_uid)
+            for t, topo in enumerate(topos):
+                tag = f"mixed {impl} gen {g} {topo.variant}"
+                equal_ints(torch, f"{tag} uids", states["cuda"].uids[t],
+                           states["cpu"].uids[t])
+                equal_ints(torch, f"{tag} actions", ev["cuda"].action[t],
+                           ev["cpu"].action[t])
+                compare(torch, f"{tag} weights",
+                        states["cuda"].weights[t].cpu(),
+                        states["cpu"].weights[t])
+
+
+def small_precision_vs_cpu(torch, cpu):
+    """bfloat16 soups of the three K3 bodies' variants and an int8
+    weightwise soup on the card against the same soups on the CPU, fed the
+    same draws, on both routes."""
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.init import init_population
+
+    n = 2048
+    for topo, dtype in ((st.Topology("weightwise", width=2, depth=2),
+                         "bf16"),
+                        (st.Topology("aggregating", width=2, depth=2,
+                                     aggregates=4), "bf16"),
+                        (st.Topology("recurrent", width=2, depth=2), "bf16"),
+                        (st.Topology("weightwise", width=2, depth=2),
+                         "int8")):
+        base = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
+                             learn_from_rate=0.3, learn_from_severity=1,
+                             train=2, remove_divergent=True, remove_zero=True,
+                             population_dtype=dtype)
+        rng = np.random.default_rng(2)
+        s0 = st.seed(base, 0, device="cpu")
+        draws = [st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
+                              rng.random(n) < 0.3, rng.integers(0, n, n),
+                              init_population(topo, cpu, n, "cpu").t()
+                              .numpy()) for _ in range(3)]
+        for cfg in (base._replace(generation_impl="fused"), base):
+            states = {d: st.SoupState(
+                s0.weights.to(d), s0.uids.to(d), s0.next_uid.to(d),
+                s0.time.to(d), torch.Generator(device=d),
+                None if s0.scales is None else s0.scales.to(d))
+                for d in ("cuda", "cpu")}
+            for g, dr in enumerate(draws):
+                ev = {}
+                for d in states:
+                    states[d], ev[d] = st.evolve_step(cfg, states[d], dr)
+                tag = (f"{topo.variant} {dtype} {cfg.generation_impl} "
+                       f"gen {g}")
+                for f in ("uids", "next_uid"):
+                    equal_ints(torch, f"{tag} {f}",
+                               getattr(states["cuda"], f),
+                               getattr(states["cpu"], f))
+                equal_ints(torch, f"{tag} actions", ev["cuda"].action,
+                           ev["cpu"].action)
+                if dtype == "int8":
+                    equal_ints(torch, f"{tag} int8 codes",
+                               states["cuda"].weights, states["cpu"].weights)
+                    compare(torch, f"{tag} scales",
+                            states["cuda"].scales.cpu(), states["cpu"].scales)
+                else:
+                    compare(torch, f"{tag} bf16 weights",
+                            states["cuda"].weights.cpu(),
+                            states["cpu"].weights)
 
 
 def main() -> int:
@@ -729,17 +963,19 @@ def main() -> int:
         f"{sys.version.split()[0]}")
     t_start = time.perf_counter()
 
-    from srnn_tpu_torch.ops.cuda_generation import (GENERATION,
-                                                    GENERATION_KVEC,
-                                                    GENERATION_RNN)
+    from srnn_tpu_torch.ops.cuda_generation import (
+        GENERATION, GENERATION_BF16, GENERATION_KVEC, GENERATION_KVEC_BF16,
+        GENERATION_RNN, GENERATION_RNN_BF16)
     from srnn_tpu_torch.ops.cuda_kvec_train import KVEC_SGD
-    from srnn_tpu_torch.ops.cuda_rnn_apply import RNN_APPLY
+    from srnn_tpu_torch.ops.cuda_rnn_apply import RNN_APPLY_BY_T
     from srnn_tpu_torch.ops.cuda_rnn_train import RNN_SGD
     from srnn_tpu_torch.ops.cuda_ww import WW_APPLY
     from srnn_tpu_torch.ops.cuda_ww_train import WW_SGD
 
-    kernels = (WW_APPLY, WW_SGD, GENERATION, KVEC_SGD, RNN_SGD, RNN_APPLY,
-               GENERATION_KVEC, GENERATION_RNN)
+    kernels = (WW_APPLY, WW_SGD, GENERATION, KVEC_SGD, RNN_SGD,
+               RNN_APPLY_BY_T[17], GENERATION_KVEC, GENERATION_RNN,
+               RNN_APPLY_BY_T[14], RNN_APPLY_BY_T[20], GENERATION_BF16,
+               GENERATION_KVEC_BF16, GENERATION_RNN_BF16)
     rows = {k.name: {"name": k.name, "route": "cuda",
                      "source": f"srnn_tpu_torch/csrc/{k.source}.cu",
                      "replaces": k.replaces, "library_ms": None}

@@ -6,14 +6,20 @@ use).  The JAX package ``srnn_tpu`` is the reference; this package never
 imports it, nor jax.  Entry points run on the card (``device='cuda'``)
 unless the caller passes ``device='cpu'``.
 
-Ported so far: the weightwise variant's main path -- topology, init, the
-row-major transform, predicates, the fixpoint engine, and the
-population-major parallel soup with its three kernels (chained
-self-application, the batch-1 SGD chain, the fused generation).
+Ported so far: all four variants (weightwise, aggregating, fft,
+recurrent) -- topology, init, the row-major transforms and the
+cross-architecture ones, predicates, the fixpoint engine; the
+population-major parallel soup in float32, bfloat16 and int8 storage; and
+the population-major mixed-type soup (``multisoup``) -- on the kernels of
+``csrc/`` (chained self-application, the SGD chains, the recurrent attack,
+the fused generation).
 """
 
 from .engine import FixpointRunResult, classify_batch, run_fixpoint
 from .init import init_population
+from .multisoup import (MultiSoupConfig, MultiSoupDraws, MultiSoupEvents,
+                        MultiSoupState, count_multi, evolve_multi,
+                        evolve_multi_step, seed_multi)
 from .soup import (SoupConfig, SoupDraws, SoupEvents, SoupState, count,
                    evolve, evolve_step, seed)
 from .topology import Topology
@@ -22,4 +28,7 @@ __all__ = [
     "Topology", "init_population", "run_fixpoint", "classify_batch",
     "FixpointRunResult", "SoupConfig", "SoupState", "SoupEvents",
     "SoupDraws", "seed", "evolve", "evolve_step", "count",
+    "MultiSoupConfig", "MultiSoupState", "MultiSoupEvents",
+    "MultiSoupDraws", "seed_multi", "evolve_multi", "evolve_multi_step",
+    "count_multi",
 ]

@@ -39,15 +39,16 @@ struct WwBody {
 
 }  // namespace
 
-// Pointers as in srnn::GenArgs (device arrays; null disables a phase);
+// Pointers as in srnn::GenArgs<Pop> (device arrays; null disables a phase;
+// Pop is float here, __nv_bfloat16 in the _bf16 entry);
 // coords: (P, 3) float32 host array.  Returns cudaGetLastError().
-extern "C" int srnn_ww_generation(SRNN_GEN_PARAMS, int width, int depth,
-                                  int act_code, const float* coords,
-                                  void* stream) {
+extern "C" int SRNN_GEN_ENTRY(srnn_ww_generation)(
+    SRNN_GEN_PARAMS(SRNN_GEN_POP), int width, int depth, int act_code,
+    const float* coords, void* stream) {
   if (width != 2 || depth != 2 || n <= 0 || severity < 0 || train < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int W = 2, D = 2;
-  const auto g = SRNN_GEN_ARGS;
+  const auto g = SRNN_GEN_ARGS(SRNN_GEN_POP);
   const auto co = srnn::load_coords<srnn::WW<W, D>::P>(coords);
   SRNN_DISPATCH_ACT(act_code,
       return srnn::launch_generation<WwBody<W, D, A>>(g, co, stream));

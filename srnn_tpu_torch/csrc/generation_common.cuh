@@ -6,7 +6,18 @@
 //
 // Replaces the Pallas TPU kernel srnn_tpu/ops/pallas_generation.py,
 // generation_popmajor -> _generation_popmajor (body
-// _make_generation_kernel), float32 bodies.
+// _make_generation_kernel), float32 and bfloat16 populations.
+//
+// Population dtype: the skeleton is a template of the population operands'
+// type Pop (float, or __nv_bfloat16 for population_dtype='bf16'): wT, the
+// attacker, imitation-target and target-attacker columns, and the output.
+// Every load upcasts to float (exact), every phase computes in float, and
+// the store rounds once, to nearest even (__float2bfloat16_rn, as torch's
+// .to(torch.bfloat16) does), the same once-per-generation rounding point as
+// the phase chain (pallas_generation.py's mixed-precision contract).  The
+// fresh replacements, the loss and the dead masks stay float32 / int32.  The
+// bfloat16 instantiations live in their own sources (generation*_bf16.cu),
+// so that the longest nvcc of the build does not grow.
 //
 // Design: one thread per particle, every operand column loaded straight into
 // registers, every phase run on the resident rows, one write back -- the
@@ -31,18 +42,30 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "lane_common.cuh"
 
 namespace srnn {
 
+__device__ __forceinline__ float load_f32(const float* p, long long k) { return p[k]; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, long long k) {
+  return __bfloat162float(p[k]);
+}
+__device__ __forceinline__ void store_pop(float* p, long long k, float v) { p[k] = v; }
+__device__ __forceinline__ void store_pop(__nv_bfloat16* p, long long k, float v) {
+  p[k] = __float2bfloat16_rn(v);
+}
+
+template <class Pop>
 struct GenArgs {
   const int* gates;    // (3, n): has_attacker, learn_gate, other_attacked
-  const float* wT;     // (P, n) start-of-generation population
+  const Pop* wT;       // (P, n) start-of-generation population
   const float* fresh;  // (P, n) respawn replacements
-  const float* atk;    // (P, n) attacker columns, or null: no attack phase
-  const float* oth;    // (P, n) imitation targets (pre-attack), or null
-  const float* oatk;   // (P, n) the targets' attackers, or null
-  float* out;          // (P, n)
+  const Pop* atk;      // (P, n) attacker columns, or null: no attack phase
+  const Pop* oth;      // (P, n) imitation targets (pre-attack), or null
+  const Pop* oatk;     // (P, n) the targets' attackers, or null
+  Pop* out;            // (P, n)
   float* loss;         // (n,) last self-training epoch's loss
   int* dead;           // (2, n): divergent, zero
   long long n;
@@ -54,22 +77,22 @@ struct GenArgs {
   int remove_zero;
 };
 
-template <class B>
+template <class B, class Pop>
 __global__ void __launch_bounds__(kThreads)
-generation_kernel(GenArgs g, typename B::Consts co) {
+generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
   constexpr int P = B::P;
   const long long n = g.n;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float rows[P];
 #pragma unroll
-  for (int r = 0; r < P; ++r) rows[r] = g.wT[lane(r, n, i)];
+  for (int r = 0; r < P; ++r) rows[r] = load_f32(g.wT, lane(r, n, i));
 
   // attack: the gated lanes are rewritten by their attacker's net
   if (g.atk != nullptr && g.gates[lane(0, n, i)] != 0) {
     float a[P], t[P];
 #pragma unroll
-    for (int r = 0; r < P; ++r) a[r] = g.atk[lane(r, n, i)];
+    for (int r = 0; r < P; ++r) a[r] = load_f32(g.atk, lane(r, n, i));
     B::apply(a, rows, t, co);
 #pragma unroll
     for (int r = 0; r < P; ++r) rows[r] = t[r];
@@ -80,11 +103,11 @@ generation_kernel(GenArgs g, typename B::Consts co) {
   if (g.oth != nullptr && g.severity > 0 && g.gates[lane(1, n, i)] != 0) {
     float o[P];
 #pragma unroll
-    for (int r = 0; r < P; ++r) o[r] = g.oth[lane(r, n, i)];
+    for (int r = 0; r < P; ++r) o[r] = load_f32(g.oth, lane(r, n, i));
     if (g.oatk != nullptr && g.gates[lane(2, n, i)] != 0) {
       float a[P], t[P];
 #pragma unroll
-      for (int r = 0; r < P; ++r) a[r] = g.oatk[lane(r, n, i)];
+      for (int r = 0; r < P; ++r) a[r] = load_f32(g.oatk, lane(r, n, i));
       B::apply(a, o, t, co);
 #pragma unroll
       for (int r = 0; r < P; ++r) o[r] = t[r];
@@ -112,31 +135,41 @@ generation_kernel(GenArgs g, typename B::Consts co) {
 #pragma unroll
   for (int r = 0; r < P; ++r) {
     const long long k = lane(r, n, i);
-    g.out[k] = dead ? g.fresh[k] : rows[r];
+    store_pop(g.out, k, dead ? g.fresh[k] : rows[r]);
   }
   g.loss[i] = last;
   g.dead[lane(0, n, i)] = div ? 1 : 0;
   g.dead[lane(1, n, i)] = zero ? 1 : 0;
 }
 
-template <class B>
-inline int launch_generation(const GenArgs& g, const typename B::Consts& co,
-                             void* stream) {
-  generation_kernel<B><<<blocks_for(g.n), kThreads, 0,
+template <class B, class Pop>
+inline int launch_generation(const GenArgs<Pop>& g,
+                             const typename B::Consts& co, void* stream) {
+  generation_kernel<B, Pop><<<blocks_for(g.n), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(g, co);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace srnn
 
-// The C entry points' common head: the GenArgs fields, in order.
-#define SRNN_GEN_PARAMS                                                     \
-  const int *gates, const float *wT, const float *fresh, const float *atk, \
-      const float *oth, const float *oatk, float *out, float *loss,        \
-      int *dead, long long n, int severity, int train, float lr, float eps, \
+// The C entry points' common head: the GenArgs<Pop> fields, in order.
+#define SRNN_GEN_PARAMS(Pop)                                              \
+  const int *gates, const Pop *wT, const float *fresh, const Pop *atk,   \
+      const Pop *oth, const Pop *oatk, Pop *out, float *loss, int *dead, \
+      long long n, int severity, int train, float lr, float eps,         \
       int remove_divergent, int remove_zero
-#define SRNN_GEN_ARGS                                                     \
-  srnn::GenArgs {                                                         \
+#define SRNN_GEN_ARGS(Pop)                                                \
+  srnn::GenArgs<Pop> {                                                    \
     gates, wT, fresh, atk, oth, oatk, out, loss, dead, n, severity, train, \
         lr, eps, remove_divergent, remove_zero                            \
   }
+
+// A body source's population type and entry-point names: float32 unless a
+// generation*_bf16.cu source defines SRNN_GEN_BF16 before including it.
+#ifdef SRNN_GEN_BF16
+#define SRNN_GEN_POP __nv_bfloat16
+#define SRNN_GEN_ENTRY(name) name##_bf16
+#else
+#define SRNN_GEN_POP float
+#define SRNN_GEN_ENTRY(name) name
+#endif

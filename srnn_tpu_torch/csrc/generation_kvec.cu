@@ -41,19 +41,19 @@ struct KvecBody {
 
 }  // namespace
 
-// Pointers as in srnn::GenArgs (device arrays; null disables a phase);
+// Pointers as in srnn::GenArgs<Pop> (device arrays; null disables a phase;
+// Pop is float here, __nv_bfloat16 in the _bf16 entry);
 // tables: the float32 host array of ops/cuda_kvec_train.py, kvec_tables.
 // Only width 2, depth 2, aggregates 4 is instantiated.  Returns
 // cudaGetLastError().
-extern "C" int srnn_kvec_generation(SRNN_GEN_PARAMS, int width, int depth,
-                                    int aggregates, int act_code,
-                                    int reduce_code, const float* tables,
-                                    void* stream) {
+extern "C" int SRNN_GEN_ENTRY(srnn_kvec_generation)(
+    SRNN_GEN_PARAMS(SRNN_GEN_POP), int width, int depth, int aggregates,
+    int act_code, int reduce_code, const float* tables, void* stream) {
   if (width != 2 || depth != 2 || aggregates != 4 || n <= 0 ||
       severity < 0 || train < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int W = 2, D = 2, K = 4;
-  const auto g = SRNN_GEN_ARGS;
+  const auto g = SRNN_GEN_ARGS(SRNN_GEN_POP);
   const auto tb = srnn::load_tables<srnn::KV<W, D, K>::P, K>(tables);
   SRNN_DISPATCH_ACT(act_code, SRNN_DISPATCH_REDUCE(reduce_code,
       return srnn::launch_generation<KvecBody<W, D, K, A, R>>(g, tb, stream)));

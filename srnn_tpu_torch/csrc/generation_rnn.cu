@@ -41,14 +41,16 @@ struct RnnBody {
 
 }  // namespace
 
-// Pointers as in srnn::GenArgs (device arrays; null disables a phase).
+// Pointers as in srnn::GenArgs<Pop> (device arrays; null disables a phase;
+// Pop is float here, __nv_bfloat16 in the _bf16 entry).
 // Only width 2, depth 2 is instantiated.  Returns cudaGetLastError().
-extern "C" int srnn_rnn_generation(SRNN_GEN_PARAMS, int width, int depth,
-                                   int act_code, void* stream) {
+extern "C" int SRNN_GEN_ENTRY(srnn_rnn_generation)(
+    SRNN_GEN_PARAMS(SRNN_GEN_POP), int width, int depth, int act_code,
+    void* stream) {
   if (width != 2 || depth != 2 || n <= 0 || severity < 0 || train < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int W = 2, D = 2;
-  const auto g = SRNN_GEN_ARGS;
+  const auto g = SRNN_GEN_ARGS(SRNN_GEN_POP);
   SRNN_DISPATCH_ACT(act_code,
       return srnn::launch_generation<RnnBody<W, D, A>>(g, NoConsts{}, stream));
   return static_cast<int>(cudaErrorInvalidValue);

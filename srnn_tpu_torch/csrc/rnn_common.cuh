@@ -5,7 +5,8 @@
 // threading and rounding rules: lane_common.cuh.
 //
 // Template parameters: W = width, D = depth, A = activation, T = sequence
-// length (the soup's T is the particle's own P); every loop unrolls into
+// length (the particle's own P for training and the homogeneous soup's
+// attack; the victim's weight count for a cross attack); every loop unrolls into
 // straight-line register code.  The arithmetic mirrors, operation for
 // operation, the JAX package's ``pallas_rnn_train.rnn_forward_rows`` /
 // ``_bptt_epoch`` / ``_sgd_epochs`` and this package's plain versions

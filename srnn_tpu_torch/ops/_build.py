@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` (Hopper) into
 its own shared library with a plain C interface, loaded with ``ctypes``.
 Libraries go into ``srnn_tpu_torch/_build/`` (git-ignored) under a name that
-carries a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.  The build happens at first use; ``build()``
+carries a hash of the flags and of every file of ``csrc/``, so any edit
+rebuilds and an unchanged tree is reused.  The build happens at first use; ``build()``
 starts one ``nvcc`` per missing library, all at once, and waits for them.
 Nothing here runs at import time.
 """
@@ -23,9 +23,8 @@ BUILD_DIR = PKG_DIR / "_build"
 
 #: kernel sources, ``csrc/<name>.cu``
 SOURCES = ("ww_apply", "ww_train", "generation", "kvec_train", "rnn_train",
-           "rnn_apply", "generation_kvec", "generation_rnn")
-HEADERS = ("lane_common.cuh", "ww_common.cuh", "kvec_common.cuh",
-           "rnn_common.cuh", "generation_common.cuh")
+           "rnn_apply", "generation_kvec", "generation_rnn", "generation_bf16",
+           "generation_kvec_bf16", "generation_rnn_bf16")
 
 #: --fmad=false: every multiply and add rounds on its own, like the plain
 #: torch versions; -Xptxas -v: registers, shared memory and spills per
@@ -49,15 +48,17 @@ def nvcc_path() -> str:
         "(nvcc on PATH or under /usr/local/cuda)")
 
 
-def _digest(name: str) -> str:
+def _digest() -> str:
+    """Hash of the flags and of every file of ``csrc/``: the sources, the
+    headers they share, and the body sources the bf16 sources include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (f"{name}.cu",) + HEADERS:
-        h.update((CSRC_DIR / f).read_bytes())
+    for f in sorted(CSRC_DIR.iterdir()):
+        h.update(f.name.encode() + f.read_bytes())
     return h.hexdigest()[:12]
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+    return BUILD_DIR / f"{name}-{_digest()}.so"
 
 
 def log_path(name: str) -> Path:

@@ -1,12 +1,17 @@
 """K3: one whole soup generation (attack, learn_from, self-train, respawn)
-in one launch; port of the float32 bodies of
-``srnn_tpu/ops/pallas_generation.py`` (``generation_popmajor``).
+in one launch; port of ``srnn_tpu/ops/pallas_generation.py``
+(``generation_popmajor``), float32 and bfloat16 populations.
 
 ``generation_popmajor`` launches the variant's body for CUDA tensors --
 ``csrc/generation.cu`` (weightwise), ``csrc/generation_kvec.cu``
 (aggregating, fft), ``csrc/generation_rnn.cu`` (recurrent), one
-``LaneKernel`` each -- and runs ``generation_popmajor_plain`` for CPU
-tensors.  The plain version is the phase chain the JAX package's tests use
+``LaneKernel`` each, and their bfloat16 instantiations
+``csrc/generation*_bf16.cu`` (``GENERATION_BF16`` etc.) -- and runs
+``generation_popmajor_plain`` for CPU tensors.  A bfloat16 population
+(``population_dtype='bf16'``) rides at storage width: its operand columns
+are bfloat16, the kernel upcasts them at load, computes in float32 and
+rounds the result once at store (``fresh`` stays float32); the plain
+version upcasts, runs the float32 plain generation and rounds once.  The plain version is the phase chain the JAX package's tests use
 as the kernel's oracle, composed from the plain versions of the variant's
 transform and SGD chain (``pallas_generation.apply_rows`` / ``_chain_for``)
 and written on the same operands as the kernel: the imitation target
@@ -48,6 +53,23 @@ GENERATION_KVEC = LaneKernel(
 GENERATION_RNN = LaneKernel(
     "generation_rnn", "generation_rnn", "srnn_rnn_generation",
     _HEAD + [_I, _I, _I, _P], replaces=_REPLACES)
+#: the bfloat16 instantiations, each from a source of its own
+GENERATION_BF16 = LaneKernel(
+    "generation_bf16", "generation_bf16", "srnn_ww_generation_bf16",
+    GENERATION.argtypes, replaces=_REPLACES)
+GENERATION_KVEC_BF16 = LaneKernel(
+    "generation_kvec_bf16", "generation_kvec_bf16",
+    "srnn_kvec_generation_bf16", GENERATION_KVEC.argtypes,
+    replaces=_REPLACES)
+GENERATION_RNN_BF16 = LaneKernel(
+    "generation_rnn_bf16", "generation_rnn_bf16", "srnn_rnn_generation_bf16",
+    GENERATION_RNN.argtypes, replaces=_REPLACES)
+#: population dtype -> the (weightwise, k-vector, recurrent) bodies
+_BODIES = {
+    torch.float32: (GENERATION, GENERATION_KVEC, GENERATION_RNN),
+    torch.bfloat16: (GENERATION_BF16, GENERATION_KVEC_BF16,
+                     GENERATION_RNN_BF16),
+}
 
 #: variant -> (plain transform, plain SGD chain, imitation-sample reduce)
 _PLAIN_BODIES = {
@@ -87,6 +109,16 @@ def generation_popmajor_plain(topo: Topology, wT, freshT, attackerT=None,
                               epsilon: float = 1e-4):
     """Plain torch version of :func:`generation_popmajor` (same arguments,
     same results)."""
+    pop_dtype = wT.dtype
+    if pop_dtype != torch.float32:
+        up = lambda t: None if t is None else t.float()
+        out, loss, div, zero = generation_popmajor_plain(
+            topo, up(wT), freshT, up(attackerT), has_attacker, up(otherT),
+            up(other_attackerT), other_attacked, learn_gate,
+            severity=severity, train=train, lr=lr,
+            remove_divergent=remove_divergent, remove_zero=remove_zero,
+            epsilon=epsilon)
+        return out.to(pop_dtype), loss, div, zero
     apply_rows, chain, snap_fn = _PLAIN_BODIES[topo.variant]
     rows = list(wT.unbind(0))
     if attackerT is not None:
@@ -130,7 +162,9 @@ def generation_popmajor(topo: Topology, wT, freshT, attackerT=None,
                         remove_zero: bool = False, epsilon: float = 1e-4
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
-    """One fused generation over a (P, N) float32 population.
+    """One fused generation over a (P, N) float32 or bfloat16 population
+    (the attacker and imitation columns in the population's dtype,
+    ``freshT`` float32).
 
     ``attackerT``/``has_attacker`` enable the attack phase (``attackerT[:,
     n]`` rewrites lane n where ``has_attacker``).  ``otherT``/``learn_gate``
@@ -145,14 +179,20 @@ def generation_popmajor(topo: Topology, wT, freshT, attackerT=None,
         raise ValueError("severity and train must be >= 0")
     learn = otherT is not None and severity > 0
     recompute = learn and other_attackerT is not None
-    operands = [wT, freshT]
+    operands = [wT]
     if attackerT is not None:
         operands.append(attackerT)
     if learn:
         operands.append(otherT)
         if recompute:
             operands.append(other_attackerT)
-    n = check_lanes(topo, *operands)
+    if wT.dtype not in _BODIES:
+        raise ValueError(f"the generation kernel takes float32 or bfloat16 "
+                         f"populations, got {wT.dtype}")
+    n = check_lanes(topo, *operands, dtype=wT.dtype)
+    if check_lanes(topo, freshT) != n or freshT.device != wT.device:
+        raise ValueError(f"freshT must be float32 ({topo.num_weights}, {n})"
+                         f" on {wT.device}")
     if is_cpu(wT):
         return generation_popmajor_plain(
             topo, wT, freshT, attackerT, has_attacker,
@@ -169,6 +209,7 @@ def generation_popmajor(topo: Topology, wT, freshT, attackerT=None,
     out = torch.empty_like(wT)
     loss = torch.empty(n, dtype=torch.float32, device=dev)
     dead = torch.empty((2, n), dtype=torch.int32, device=dev)
+    ww_body, kvec_body, rnn_body = _BODIES[wT.dtype]
     if n:
         head = (ptr(gates), ptr(wT), ptr(freshT), ptr(attackerT),
                 ptr(otherT if learn else None),
@@ -179,15 +220,15 @@ def generation_popmajor(topo: Topology, wT, freshT, attackerT=None,
         act = KERNEL_ACT_CODES[topo.activation]
         if topo.variant == "weightwise":
             coords = coords_arg(topo)
-            GENERATION.launch(*head, *topo_args(topo), coords.ctypes.data,
-                              stream_arg(wT))
+            ww_body.launch(*head, *topo_args(topo), coords.ctypes.data,
+                           stream_arg(wT))
         elif topo.variant == "recurrent":
-            GENERATION_RNN.launch(*head, topo.width, topo.depth, act,
-                                  stream_arg(wT))
+            rnn_body.launch(*head, topo.width, topo.depth, act,
+                            stream_arg(wT))
         else:
             tables = kvec_tables(topo)
-            GENERATION_KVEC.launch(*head, topo.width, topo.depth,
-                                   topo.aggregates, act,
-                                   REDUCE_CODES[reduce_kind(topo)],
-                                   tables.ctypes.data, stream_arg(wT))
+            kvec_body.launch(*head, topo.width, topo.depth,
+                             topo.aggregates, act,
+                             REDUCE_CODES[reduce_kind(topo)],
+                             tables.ctypes.data, stream_arg(wT))
     return out, loss, dead[0] != 0, dead[1] != 0

@@ -104,15 +104,16 @@ def check_kernel_topology(topo: Topology) -> None:
             "instantiation")
 
 
-def check_lanes(topo: Topology, *arrays: torch.Tensor, rows=None) -> int:
-    """Every array is a contiguous float32 (P, N) population on one device
-    (``rows`` rows instead of P where given); returns N."""
+def check_lanes(topo: Topology, *arrays: torch.Tensor, rows=None,
+                dtype=torch.float32) -> int:
+    """Every array is a contiguous (P, N) population of ``dtype`` on one
+    device (``rows`` rows instead of P where given); returns N."""
     p = topo.num_weights if rows is None else rows
     first = arrays[0]
     for a in arrays:
-        if a.dtype != torch.float32:
-            raise ValueError(f"the kernels take float32 populations, got "
-                             f"{a.dtype}")
+        if a.dtype != dtype:
+            raise ValueError(f"the kernels take {dtype} populations here, "
+                             f"got {a.dtype}")
         if a.dim() != 2 or a.shape[0] != p or a.shape[1] != first.shape[1]:
             raise ValueError(f"expected ({p}, {first.shape[1]}) population, "
                              f"got {tuple(a.shape)}")

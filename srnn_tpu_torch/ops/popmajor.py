@@ -37,16 +37,18 @@ DEFAULT_LR = 0.01  # keras SGD default
 
 
 def ww_forward_popmajor(topo: Topology, wT: torch.Tensor,
-                        xT: torch.Tensor) -> torch.Tensor:
+                        xT: torch.Tensor,
+                        coords_of: Optional[Topology] = None) -> torch.Tensor:
     """f_w(points(x)) for every particle, population-major.
 
-    ``wT`` (P, N) holds the nets' parameters, ``xT`` (P, N) the weight
-    feature of each duplex point (the coordinate features are constants of
-    the topology).  Returns (P, N).  Self-application is
+    ``wT`` (P, N) holds the nets' parameters, ``xT`` (R, N) the weight
+    feature of each duplex point; the coordinate features are the constants
+    of ``coords_of`` (R weights; ``topo`` itself by default, a victim of
+    another type in a cross attack).  Returns (R, N).  Self-application is
     ``ww_forward_popmajor(topo, wT, wT)``; an attack by a permuted
     population is ``ww_forward_popmajor(topo, wT[:, att], wT)``.
     """
-    coords = normalized_weight_coords(topo)
+    coords = normalized_weight_coords(coords_of or topo)
     p, n = xT.shape
     feats = [xT] + [
         torch.as_tensor(coords[:, k], dtype=xT.dtype,

@@ -41,7 +41,7 @@ def segment_bounds(topo: Topology):
     return starts, starts + counts
 
 
-def _onehot_rows(onehot: np.ndarray, xT: torch.Tensor) -> torch.Tensor:
+def onehot_rows(onehot: np.ndarray, xT: torch.Tensor) -> torch.Tensor:
     """``onehot`` (B, A) times ``xT`` (A, N) as the chain
     sum_i onehot[:, i] * xT[i] in order i = 0..A-1 -> (B, N)."""
     oh = torch.as_tensor(onehot, dtype=xT.dtype, device=xT.device)
@@ -68,7 +68,7 @@ def kvec_reduce_popmajor(topo: Topology,
     if topo.aggregator == "average":
         cnt = torch.as_tensor(counts, dtype=targetT.dtype,
                               device=targetT.device)
-        return _onehot_rows(segment_onehot(topo).T, targetT) / cnt[:, None]
+        return onehot_rows(segment_onehot(topo).T, targetT) / cnt[:, None]
     starts, ends = segment_bounds(topo)
     if topo.aggregator == "max":
         return torch.stack([targetT[s:e].amax(dim=0)
@@ -94,7 +94,7 @@ def kvec_expand_popmajor(topo: Topology, aggs: torch.Tensor) -> torch.Tensor:
         else:
             out = torch.fft.ifft(aggs, n=p, dim=0).real
         return out.to(aggs.dtype).contiguous()
-    return _onehot_rows(segment_onehot(topo), aggs)
+    return onehot_rows(segment_onehot(topo), aggs)
 
 
 def mlp_forward_lanes(topo: Topology, wT: torch.Tensor,

@@ -11,8 +11,9 @@ phase.  All particles step together from the start-of-phase state; attack
 collisions resolve last-attacker-wins, as in the JAX package.
 
 Scope of this port: all four variants (weightwise, aggregating, fft,
-recurrent), float32, ``layout='popmajor'``, ``mode='parallel'``, full-width
-phases; the weightwise variant in the sequential (batch-1) train mode, the
+recurrent), ``layout='popmajor'``, ``mode='parallel'``, full-width phases,
+the three population dtypes (``population_dtype`` 'f32' | 'bf16' |
+'int8'); the weightwise variant in the sequential (batch-1) train mode, the
 others in either mode (one sample per epoch makes them one program).  Any
 other setting raises.  ``layout`` defaults to 'popmajor' here, the only
 layout the port has.  ``generation_impl='fused'`` runs the whole
@@ -25,6 +26,17 @@ plain versions.  ``train_impl`` and ``apply_impl`` ('plain' | 'kernel', the
 JAX package's 'xla' | 'pallas') are kept so that the JAX package's configs
 convert; they select nothing here.
 
+Population precision (``soup.py:133-148``, ``:175-247`` of the JAX
+package): a 'bf16' population stores bfloat16 weights, an 'int8' one int8
+codes with a per-particle float32 scale (``SoupState.scales``).  Every phase
+computes in float32 and the stored weights round exactly once per
+generation, at its exit.  The phase route upcasts at entry and rounds at
+exit; on the fused route a bfloat16 population rides the generation kernel
+at storage width (its columns gathered as bfloat16, upcast at load, rounded
+at store), and an int8 one is dequantized before the gathers and
+re-quantized at the same exit point.  So the two routes round at the same
+points and agree bitwise wherever their float32 arithmetic does.
+
 Randomness: the state carries a ``torch.Generator`` (field ``key``), seeded
 from an int.  ``evolve_step`` and ``evolve`` draw from a copy of it and hand
 the advanced copy back in the new state, so a state, like the JAX package's,
@@ -33,7 +45,7 @@ hand ``evolve_step`` the generation's draws (``SoupDraws``) -- the tests
 hand over the JAX package's own draws.
 """
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,12 +93,14 @@ class SoupConfig(NamedTuple):
 
 class SoupState(NamedTuple):
     """Population as struct-of-arrays."""
-    weights: torch.Tensor   # (N, P) float32
+    weights: torch.Tensor   # (N, P) in the storage dtype (float32,
+    #                         bfloat16, or int8 codes)
     uids: torch.Tensor      # (N,) int32 -- stable identity across respawns
     next_uid: torch.Tensor  # () int32
     time: torch.Tensor      # () int32 generation counter
     key: torch.Generator    # the soup's random stream
-    scales: Optional[torch.Tensor] = None  # int8 populations only (unported)
+    scales: Optional[torch.Tensor] = None  # (N,) float32, int8 populations
+    #                                        only (None otherwise)
 
 
 class SoupEvents(NamedTuple):
@@ -106,19 +120,95 @@ class SoupDraws(NamedTuple):
     fresh: object        # (P, N) float32 respawn replacements
 
 
+_POP_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "int8": torch.int8}
+
+
+def _pop_dtype(config) -> torch.dtype:
+    """Storage dtype of the population (``population_dtype`` field)."""
+    dtype = _POP_DTYPES.get(config.population_dtype)
+    if dtype is None:
+        raise ValueError(
+            f"unknown population_dtype {config.population_dtype!r}; "
+            "expected 'f32', 'bf16' or 'int8'")
+    return dtype
+
+
+def _upcast(config, w: torch.Tensor, scales: Optional[torch.Tensor] = None,
+            paxis: int = 0) -> torch.Tensor:
+    """Storage -> float32 compute view (no-op for float32 populations).
+    bfloat16 upcasts exactly; int8 dequantizes ``codes * scale``, the
+    per-particle ``scales`` broadcast along the particle axis ``paxis`` (0
+    for row-major (N, P), -1 for population-major (P, N)).  A diverged
+    particle's scale is +inf and its codes 127, so it dequantizes to +inf
+    and stays divergent."""
+    if config.population_dtype == "bf16":
+        return w.float()
+    if config.population_dtype == "int8":
+        shape = [1] * w.dim()
+        shape[paxis] = -1
+        return w.float() * scales.reshape(shape)
+    return w
+
+
+def _downcast(config, w: torch.Tensor, paxis: int = 0
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Float32 compute result -> ``(storage, scales or None)``: the
+    reduced-precision modes' one rounding point per generation.
+
+    int8 quantizes symmetrically per particle: ``scale = amax / 127``
+    (floored at the smallest normal float32), ``codes = clip(round(w /
+    scale), -127, 127)``, rounding half to even as ``jnp.round`` does.  An
+    all-zero particle keeps ``scale = 1``; a particle with any non-finite
+    weight (its amax is NaN or +inf: ``amax`` propagates NaN) stores
+    ``scale = +inf`` and codes 127."""
+    if config.population_dtype == "bf16":
+        return w.to(torch.bfloat16), None
+    if config.population_dtype != "int8":
+        return w, None
+    paxis = paxis % w.dim()
+    dims = tuple(a for a in range(w.dim()) if a != paxis)
+    amax = w.abs().amax(dim=dims)
+    div = ~torch.isfinite(amax)
+    # a tensor divisor: torch divides a CUDA tensor by a Python scalar as a
+    # multiply by its reciprocal, which can round the scale differently
+    step = amax / torch.full_like(amax, 127.0)
+    safe = torch.where((amax > 0) & ~div,
+                       step.clamp_min(torch.finfo(torch.float32).tiny),
+                       torch.ones_like(amax))
+    shape = [1] * w.dim()
+    shape[paxis] = -1
+    q = torch.clamp(torch.round(w / safe.reshape(shape)), -127.0, 127.0)
+    q = torch.where(div.reshape(shape), 127.0, q).to(torch.int8)
+    scales = torch.where(div, torch.full_like(safe, float("inf")), safe)
+    return q, scales
+
+
+def _stored_view(config, w: torch.Tensor, scales: Optional[torch.Tensor],
+                 paxis: int = 0) -> torch.Tensor:
+    """What consumers of stored weights read (classification): the
+    dequantized float32 view of int8 codes; float32 and bfloat16 weights as
+    they are stored."""
+    if config.population_dtype == "int8":
+        return _upcast(config, w, scales, paxis)
+    return w
+
+
 def seed(config: SoupConfig, seed: int, device="cuda") -> SoupState:
     """Create the initial population (``Soup.seed``, ``soup.py:45-49``) on
-    ``device``; ``seed`` seeds the generator the soup then carries."""
+    ``device``, in the storage dtype; ``seed`` seeds the generator the soup
+    then carries."""
     _check_config(config)
     gen = make_generator(seed, device)
     w = init_population(config.topo, gen, config.size, gen.device)
     dev = w.device
+    w, scales = _downcast(config, w)
     return SoupState(
         weights=w,
         uids=torch.arange(config.size, dtype=torch.int32, device=dev),
         next_uid=torch.tensor(config.size, dtype=torch.int32, device=dev),
         time=torch.tensor(0, dtype=torch.int32, device=dev),
-        key=gen)
+        key=gen, scales=scales)
 
 
 def _check_config(config: SoupConfig) -> None:
@@ -129,9 +219,7 @@ def _check_config(config: SoupConfig) -> None:
     if config.mode != "parallel":
         raise ValueError(f"mode={config.mode!r} is not ported; "
                          "srnn_tpu_torch runs mode='parallel'")
-    if config.population_dtype != "f32":
-        raise ValueError(f"population_dtype={config.population_dtype!r} is "
-                         "not ported; srnn_tpu_torch runs 'f32'")
+    _pop_dtype(config)
     if config.topo.shuffler == "random":
         raise ValueError("layout='popmajor' requires shuffler='not'")
     if config.topo.variant == "recurrent" and \
@@ -240,38 +328,76 @@ def _gates(config: SoupConfig, d: SoupDraws, n: int, dev):
     return attack_gate, attack_tgt, att_idx, learn_gate, learn_tgt
 
 
-def _finish(config: SoupConfig, state: SoupState, gates, wT, train_loss,
-            dead_div, dead_zero):
-    """Uids of the respawned, the event record and the new state."""
-    n = config.size
-    attack_gate, attack_tgt, _, learn_gate, learn_tgt = gates
+def _respawn_uids(uids, base, dead_div, dead_zero):
+    """Fresh uids ``base, base + 1, ...`` for the dead lanes in lane order
+    (the ``cumsum`` rank); returns (uids, deaths, death action, death
+    counterpart)."""
     dead = dead_div | dead_zero
     rank = torch.cumsum(dead.to(torch.int64), 0) - 1
-    uids = torch.where(dead, state.next_uid + rank.to(torch.int32),
-                       state.uids).to(torch.int32)
-    deaths = dead.sum().to(torch.int32)
-    action = torch.full((n,), ACT_NONE, dtype=torch.int32, device=wT.device)
+    uids = torch.where(dead, base + rank.to(torch.int32), uids).to(
+        torch.int32)
+    action = torch.full_like(uids, ACT_NONE)
     action = torch.where(dead_div, ACT_DIV_DEAD, action)
     action = torch.where(dead_zero, ACT_ZERO_DEAD, action)
-    death_cp = torch.where(dead, uids, -1)
+    return (uids, dead.sum().to(torch.int32), action,
+            torch.where(dead, uids, -1))
+
+
+def _finish(config: SoupConfig, state: SoupState, gates, wT, train_loss,
+            dead_div, dead_zero):
+    """The stored population (rounded once, here), the uids of the
+    respawned, the event record and the new state."""
+    wT, scales = _downcast(config, wT, paxis=-1)
+    attack_gate, attack_tgt, _, learn_gate, learn_tgt = gates
+    uids, deaths, action, death_cp = _respawn_uids(
+        state.uids, state.next_uid, dead_div, dead_zero)
     act, cp = _event_record(
-        n, attack_gate, state.uids[attack_tgt], learn_gate,
+        config.size, attack_gate, state.uids[attack_tgt], learn_gate,
         state.uids[learn_tgt], config.train > 0, action, death_cp)
     new_state = SoupState(state.weights, uids, state.next_uid + deaths,
-                          state.time + 1, state.key, state.scales)
+                          state.time + 1, state.key, scales)
     return new_state, SoupEvents(act, cp, train_loss), wT
+
+
+def _learn_train_respawn(config, topo: Topology, wT, fresh, learn_gate,
+                         learn_tgt):
+    """The phase chain after the attack (``soup.py:62-86``): learn_from
+    toward the (post-attack) counterparts, train, the respawn predicates
+    and the fresh select.  ``config`` is a ``SoupConfig`` or a mixed
+    soup's config (the same dynamics fields).  Returns (wT, last train
+    loss, dead_div, dead_zero)."""
+    n = wT.shape[1]
+    dev = wT.device
+    if config.learn_from_rate > 0 and config.learn_from_severity > 0:
+        learned, _ = learn_epochs_popmajor(
+            topo, wT, wT[:, learn_tgt], config.learn_from_severity,
+            config.lr, config.train_mode)
+        wT = torch.where(learn_gate[None, :], learned, wT)
+    if config.train > 0:
+        wT, train_loss = train_epochs_popmajor(
+            topo, wT, config.train, config.lr, config.train_mode)
+    else:
+        train_loss = torch.zeros(n, dtype=wT.dtype, device=dev)
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    dead_div = is_diverged(wT, axis=0) if config.remove_divergent else none
+    dead_zero = (is_zero(wT, config.epsilon, axis=0) & ~dead_div) \
+        if config.remove_zero else none
+    wT = torch.where((dead_div | dead_zero)[None, :], fresh, wT)
+    return wT, train_loss, dead_div, dead_zero
 
 
 def _evolve_parallel_popmajor(config: SoupConfig, state: SoupState,
                               wT: torch.Tensor,
                               draws: Optional[SoupDraws] = None):
-    """One generation on the (P, N) population ``wT`` (``state.weights`` is
-    carried only for metadata).  Returns (new_state, events, new_wT)."""
+    """One generation on the stored (P, N) population ``wT``
+    (``state.weights`` is carried only for metadata).  Returns (new_state,
+    events, new stored wT)."""
     if config.generation_impl == "fused":
         return _evolve_fused_popmajor(config, state, wT, draws)
     n = config.size
     topo = config.topo
     dev = wT.device
+    wT = _upcast(config, wT, state.scales, paxis=-1)
     d = _resolve_draws(config, state, dev, draws)
     gates = _gates(config, d, n, dev)
     _, _, att_idx, learn_gate, learn_tgt = gates
@@ -282,26 +408,9 @@ def _evolve_parallel_popmajor(config: SoupConfig, state: SoupState,
         attacked = apply_popmajor(topo, wT[:, att_idx.clamp(min=0)], wT)
         wT = torch.where(has_attacker[None, :], attacked, wT)
 
-    # --- learn_from (soup.py:62-68) ---------------------------------------
-    if config.learn_from_rate > 0 and config.learn_from_severity > 0:
-        learned, _ = learn_epochs_popmajor(
-            topo, wT, wT[:, learn_tgt], config.learn_from_severity,
-            config.lr, config.train_mode)
-        wT = torch.where(learn_gate[None, :], learned, wT)
-
-    # --- train (soup.py:69-76) --------------------------------------------
-    if config.train > 0:
-        wT, train_loss = train_epochs_popmajor(
-            topo, wT, config.train, config.lr, config.train_mode)
-    else:
-        train_loss = torch.zeros(n, dtype=wT.dtype, device=dev)
-
-    # --- respawn (soup.py:77-86) ------------------------------------------
-    none = torch.zeros(n, dtype=torch.bool, device=dev)
-    dead_div = is_diverged(wT, axis=0) if config.remove_divergent else none
-    dead_zero = (is_zero(wT, config.epsilon, axis=0) & ~dead_div) \
-        if config.remove_zero else none
-    wT = torch.where((dead_div | dead_zero)[None, :], d.fresh, wT)
+    # --- learn_from, train, respawn (soup.py:62-86) -----------------------
+    wT, train_loss, dead_div, dead_zero = _learn_train_respawn(
+        config, topo, wT, d.fresh, learn_gate, learn_tgt)
     return _finish(config, state, gates, wT, train_loss, dead_div, dead_zero)
 
 
@@ -312,9 +421,13 @@ def _evolve_fused_popmajor(config: SoupConfig, state: SoupState,
     draws, phase order and event record as the phase chain.  Counterpart
     operands are gathered from the START-of-generation population; the
     kernel re-applies the attack to imitation targets, so learners see
-    post-attack weights like the phase chain."""
+    post-attack weights like the phase chain.  A bfloat16 population
+    enters the kernel as it is stored; an int8 one is dequantized here,
+    before the gathers."""
     n = config.size
     dev = wT.device
+    if config.population_dtype == "int8":
+        wT = _upcast(config, wT, state.scales, paxis=-1)
     d = _resolve_draws(config, state, dev, draws)
     gates = _gates(config, d, n, dev)
     _, _, att_idx, learn_gate, learn_tgt = gates
@@ -342,10 +455,15 @@ def _evolve_fused_popmajor(config: SoupConfig, state: SoupState,
 
 def _popmajor(config: SoupConfig, state: SoupState) -> torch.Tensor:
     shape = (config.size, config.topo.num_weights)
-    if tuple(state.weights.shape) != shape or \
-            state.weights.dtype != torch.float32:
-        raise ValueError(f"state.weights must be float32 {shape}, got "
+    dtype = _pop_dtype(config)
+    if tuple(state.weights.shape) != shape or state.weights.dtype != dtype:
+        raise ValueError(f"state.weights must be {dtype} {shape}, got "
                          f"{state.weights.dtype} {tuple(state.weights.shape)}")
+    if (state.scales is None) != (config.population_dtype != "int8") or (
+            state.scales is not None and
+            tuple(state.scales.shape) != (config.size,)):
+        raise ValueError("state.scales must be (N,) float32 for an int8 "
+                         "population and None otherwise")
     return state.weights.t().contiguous()
 
 
@@ -383,6 +501,7 @@ def evolve(config: SoupConfig, state: SoupState,
 
 def count(config: SoupConfig, state: SoupState) -> torch.Tensor:
     """(5,) class histogram of the current population (``Soup.count``,
-    ``soup.py:89-103``)."""
-    return count_classes(classify_batch(config.topo, state.weights,
-                                        config.epsilon))
+    ``soup.py:89-103``), classified from its stored view."""
+    return count_classes(classify_batch(
+        config.topo, _stored_view(config, state.weights, state.scales),
+        config.epsilon))

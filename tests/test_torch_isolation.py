@@ -24,6 +24,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "srnn_tpu" or m.startswith("srnn_tpu."))
 print(len(names), bad)
+for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
+             "srnn_tpu_torch.ops.popmajor_cross"):
+    assert name in names, name
 """
 
 
@@ -33,7 +36,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 25  # the new variants' nets and kernel wrappers too
+    assert int(count) >= 28  # the mixed soup and the cross transforms too
     assert bad == "[]"
 
 
@@ -65,6 +68,26 @@ def test_default_device_is_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         st.init_population(cfg.topo, 0, 8)
     assert st.seed(cfg, 0, device="cpu").weights.device.type == "cpu"
+
+
+def test_mixed_and_precision_entry_points_default_to_cuda(monkeypatch):
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mcfg = ms.MultiSoupConfig(topos=(st.Topology("weightwise"),
+                                     st.Topology("recurrent")), sizes=(4, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ms.seed_multi(mcfg, 0)
+    s = ms.seed_multi(mcfg, 0, device="cpu")
+    assert all(w.device.type == "cpu" for w in s.weights)
+    for dtype, torch_dtype in (("bf16", torch.bfloat16),
+                               ("int8", torch.int8)):
+        cfg = st.SoupConfig(topo=st.Topology("weightwise"), size=8,
+                            population_dtype=dtype)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            st.seed(cfg, 0)
+        assert st.seed(cfg, 0, device="cpu").weights.dtype == torch_dtype
 
 
 def test_kernel_topology_fence():
