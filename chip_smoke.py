@@ -18,7 +18,10 @@ Phases, each fatal on failure:
    recurrent bodies, and K3's three bfloat16 bodies; every other
    instantiated activation, aggregator and fft mode at a small N; max abs /
    max rel difference, integer outputs equal, median times of kernel and
-   plain version (CUDA events) beside the kernel's bound;
+   plain version (CUDA events) beside the kernel's bound; the recurrent
+   kernels (K5, K3's recurrent bodies) bitwise, with the mean loss within
+   1 ulp, and K3's recurrent bodies also timed with no attack and no learn
+   operand (train only), which puts a number on their gated phases;
 4. the main path through the public entry points, each of its runs with
    the launch counts set to 0 just before it and checked just after against
    the launches that run must make: the N = 1M full-dynamics soup (attack
@@ -58,6 +61,9 @@ import time
 # cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# The data sheet counts an FMA as two operations; the kernels are built with
+# --fmad=false, so their separate multiplies and adds issue at half of it.
+FMAD_OFF_OPS_PER_S = PEAK_FP32_FLOPS / 2
 
 N = 1_000_000
 BENCH_STEPS = 2000
@@ -138,16 +144,17 @@ def rnn_forward_ops(topo, t_len: int) -> int:
 
 
 def rnn_sgd_ops_per_epoch(topo) -> int:
-    """One BPTT epoch: forward, loss, its gradient, per layer and step the
-    carries, the weight gradients, the input gradients (above layer 0) and
-    the recurrent carry; then the update."""
+    """One BPTT epoch, as the kernel needs it (linear activation): the
+    forward, the errors, the loss and its gradient; per layer and step the
+    carried gradient's add (not at the last step), the weight gradients, the
+    input gradients (above layer 0) and the recurrent carry (not out of step
+    0); then the update."""
     t = p = topo.num_weights
     ops = rnn_forward_ops(topo, t) + t + 2 * t + t
     for layer, (i, u) in enumerate(topo.rnn_layer_dims):
-        per_step = u + 2 * u * (i + u) + u * (2 * u - 1)
+        ops += (t - 1) * u + t * 2 * u * (i + u) + (t - 1) * u * (2 * u - 1)
         if layer > 0:
-            per_step += i * (2 * u - 1)
-        ops += t * per_step
+            ops += t * i * (2 * u - 1)
     return ops + 2 * p
 
 
@@ -155,6 +162,11 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fmad_off_ms(ops: float) -> float:
+    """The issue-rate ceiling of ``ops`` separate multiplies and adds."""
+    return ops / FMAD_OFF_OPS_PER_S * 1e3
 
 
 # ---------------------------------------------------------------- helpers
@@ -179,12 +191,17 @@ def timed_ms(torch, fn, reps: int, warm: bool = True) -> float:
     return times[len(times) // 2]
 
 
-def compare(torch, what: str, got, ref):
+def compare(torch, what: str, got, ref, ulps=None):
     """Max abs / max rel difference over finite entries; the non-finite
-    pattern must agree exactly.  Raises when outside RTOL/ATOL.  Values are
-    compared as float32, so bfloat16 outputs are compared bit for bit where
-    finite and by NaN/Inf position elsewhere (the card's and torch's
-    bfloat16 conversions may give NaNs different payloads)."""
+    pattern must agree exactly.  Raises when outside RTOL/ATOL, or, where
+    ``ulps`` is given (the recurrent kernels: 0 for weights, 1 for the mean
+    loss), when more than ``ulps`` float32 ulps apart where finite or with
+    another finite/NaN/Inf pattern.  Values are compared as float32, so
+    bfloat16 outputs are compared bit for bit where finite and by NaN/Inf
+    position elsewhere (the card's and torch's bfloat16 conversions may give
+    NaNs different payloads)."""
+    from srnn_tpu_torch.bench_rnn import check_exact, max_ulps
+
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
@@ -198,10 +215,14 @@ def compare(torch, what: str, got, ref):
     max_rel = float(torch.where(fin, rel, torch.zeros_like(rel)).max())
     within = bool(((diff <= ATOL + RTOL * ref.abs()) | ~fin).all())
     bitwise = bool(same_nonfinite and (diff == 0).all())
+    held = "" if ulps is None else (f" ulps {max_ulps(got, ref)} (allowed "
+                                    f"{ulps})")
     log(f"  {what}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-        f"bitwise {bitwise} nonfinite_pattern_equal {same_nonfinite}")
+        f"bitwise {bitwise} nonfinite_pattern_equal {same_nonfinite}{held}")
     if not (within and same_nonfinite):
         raise AssertionError(f"{what}: outside rtol {RTOL} atol {ATOL}")
+    if ulps is not None:
+        check_exact(what, got, ref, ulps)
     return max_abs
 
 
@@ -218,9 +239,13 @@ def equal_ints(torch, what: str, got, ref) -> None:
 def build_kernels():
     """Build every kernel source, one nvcc each, all at once; print each
     one's finish time (its log's last write) and ptxas' report summed over
-    the source's instantiations: registers, stack frame, spilled bytes."""
+    the source's instantiations: registers, stack frame, spilled bytes,
+    shared memory per block; for the recurrent BPTT sources also the linear
+    instantiations' resident warps per SM."""
     import re
 
+    from srnn_tpu_torch.bench_rnn import SOURCES as RNN_SOURCES
+    from srnn_tpu_torch.bench_rnn import linear_resources
     from srnn_tpu_torch.ops import _build
 
     t0, wall0 = time.perf_counter(), time.time()
@@ -235,10 +260,15 @@ def build_kernels():
                                             report)]
         spills = sum(int(b) for b in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", report))
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
         log(f"  {name}: nvcc done after {done:.1f} s; {len(regs)} kernels, "
             f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
             f"stack frame up to {max(stack, default=0)} bytes, spilled "
-            f"bytes {spills}")
+            f"bytes {spills}, shared memory up to {max(smem, default=0)} "
+            "bytes a block")
+        if name in RNN_SOURCES:
+            log(f"    linear instantiations: "
+                f"{linear_resources(_build.log_path(name))}")
 
 
 def population(topo, n, gen, scale=1.0):
@@ -323,7 +353,7 @@ def check_kernels(torch, rows):
 
     # K3: all phases on, both removals
     log(f"K3 generation N={N}")
-    err, k3_ms, k3_plain, ops, kw, n_dead = check_generation_body(
+    err, k3_ms, k3_plain, ops, kw, n_dead, _ = check_generation_body(
         torch, topo, cg.GENERATION, w, gen)
     b, by = gen_body_bound(topo, ops, kw, n_dead, p * pts, epoch_ops,
                            epoch_ops)
@@ -352,7 +382,8 @@ def check_kernels(torch, rows):
 
 def check_small_generation(torch, topo, ws, o, kw):
     """K3 against its plain version on a small population, with a float32
-    and with a bfloat16 population (the operand columns rounded too)."""
+    and with a bfloat16 population (the operand columns rounded too);
+    the recurrent bodies bitwise (the loss within 1 ulp)."""
     from srnn_tpu_torch.ops import cuda_generation as cg
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -362,8 +393,9 @@ def check_small_generation(torch, topo, ws, o, kw):
         got = cg.generation_popmajor(topo, wd, **cast, **kw)
         ref = cg.generation_popmajor_plain(topo, wd, **cast, **kw)
         tag = "K3" if dtype == torch.float32 else "K3 bf16"
-        compare(torch, f"{tag} weights", got[0], ref[0])
-        compare(torch, f"{tag} loss", got[1], ref[1])
+        exact = topo.variant == "recurrent"
+        compare(torch, f"{tag} weights", got[0], ref[0], 0 if exact else None)
+        compare(torch, f"{tag} loss", got[1], ref[1], 1 if exact else None)
         equal_ints(torch, f"{tag} dead", torch.stack(got[2:]),
                    torch.stack(ref[2:]))
 
@@ -371,8 +403,10 @@ def check_small_generation(torch, topo, ws, o, kw):
 def check_generation_body(torch, topo, kernel, w, gen, train=10, reps=10):
     """One K3 body against its plain version at all phases, both removals,
     lanes 0..99 forced divergent and 100..199 forced zero (their gates off);
-    returns (max abs error, kernel ms, plain ms, operands, kwargs, number
-    of dead lanes)."""
+    the recurrent body bitwise (the loss within 1 ulp), and also checked
+    and timed with no attack and no learn operand (train only).  Returns
+    (max abs error, kernel ms, plain ms, operands, kwargs, number of dead
+    lanes, train-only ms or None)."""
     from srnn_tpu_torch.ops import cuda_generation as cg
 
     wT = w.clone()
@@ -383,26 +417,38 @@ def check_generation_body(torch, topo, kernel, w, gen, train=10, reps=10):
         ops[k][:200] = False
     kw = dict(severity=1, train=train, lr=0.01, remove_divergent=True,
               remove_zero=True, epsilon=1e-4)
-    got = cg.generation_popmajor(topo, wT, **ops, **kw)
-    ref = cg.generation_popmajor_plain(topo, wT, **ops, **kw)
-    errs = [compare(torch, "weights", got[0], ref[0]),
-            compare(torch, "loss", got[1], ref[1])]
-    equal_ints(torch, "dead_div", got[2], ref[2])
-    equal_ints(torch, "dead_zero", got[3], ref[3])
-    if not (bool(got[2][:100].all()) and bool(got[3][100:200].all())):
-        raise AssertionError("forced divergent/zero lanes were not respawned")
-    n_dead = int((got[2] | got[3]).sum())
-    log(f"  deaths: divergent {int(got[2].sum())}, zero {int(got[3].sum())}")
+    exact = topo.variant == "recurrent"
+    train_only = {"freshT": ops["freshT"]}
+    errs = []
+    runs = [("", ops)] + ([("train only ", train_only)] if exact else [])
+    for tag, o in runs:
+        got = cg.generation_popmajor(topo, wT, **o, **kw)
+        ref = cg.generation_popmajor_plain(topo, wT, **o, **kw)
+        errs += [compare(torch, f"{tag}weights", got[0], ref[0],
+                         0 if exact else None),
+                 compare(torch, f"{tag}loss", got[1], ref[1],
+                         1 if exact else None)]
+        equal_ints(torch, f"{tag}dead_div", got[2], ref[2])
+        equal_ints(torch, f"{tag}dead_zero", got[3], ref[3])
+        if not (bool(got[2][:100].all()) and bool(got[3][100:200].all())):
+            raise AssertionError("forced divergent/zero lanes were not "
+                                 "respawned")
+        if tag == "":
+            n_dead = int((got[2] | got[3]).sum())
+            log(f"  deaths: divergent {int(got[2].sum())}, zero "
+                f"{int(got[3].sum())}")
     if not reps:
-        return max(errs), None, None, ops, kw, n_dead
+        return max(errs), None, None, ops, kw, n_dead, None
     before = kernel.launches
     ms = timed_ms(torch, lambda: cg.generation_popmajor(topo, wT, **ops,
                                                         **kw), reps)
     plain = timed_ms(torch, lambda: cg.generation_popmajor_plain(
         topo, wT, **ops, **kw), 1, warm=False)
+    only_ms = timed_ms(torch, lambda: cg.generation_popmajor(
+        topo, wT, **train_only, **kw), reps) if exact else None
     if kernel.launches == before:
         raise AssertionError(f"{kernel.name} was not launched")
-    return max(errs), ms, plain, ops, kw, n_dead
+    return max(errs), ms, plain, ops, kw, n_dead, only_ms
 
 
 def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
@@ -427,7 +473,8 @@ def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
               + p * n_dead * 4
               + p * N * pop_bytes + (N + 2 * N) * 4)
     log(f"  attacked {n_att}, learners {n_learn}, recomputed {n_re}, "
-        f"dead {n_dead}; {nbytes / 1e6:.1f} MB, {total / 1e9:.3f} Gop")
+        f"dead {n_dead}; {nbytes / 1e6:.1f} MB, {total / 1e9:.3f} Gop "
+        f"(--fmad=false ceiling {fmad_off_ms(total):.3f} ms)")
     return bound_ms(nbytes, total)
 
 
@@ -444,10 +491,13 @@ def gen_body_ops(topo):
             kvec_sgd_ops_per_epoch(topo, True))
 
 
-def check_sgd(torch, what, fn, fn_plain):
+def check_sgd(torch, what, fn, fn_plain, exact=False):
+    """An SGD chain against its plain version; ``exact``: the weights
+    bitwise, the mean loss within 1 ulp."""
     (gw, gl), (rw, rl) = fn(), fn_plain()
-    return max(compare(torch, what + " weights", gw, rw),
-               compare(torch, what + " loss", gl, rl))
+    return max(compare(torch, what + " weights", gw, rw,
+                       0 if exact else None),
+               compare(torch, what + " loss", gl, rl, 1 if exact else None))
 
 
 def check_variant_kernels(torch, rows):
@@ -496,16 +546,20 @@ def check_variant_kernels(torch, rows):
     w[16, 0] = float("inf")
     err = max(check_sgd(torch, "train epochs=10",
                         lambda: crt.rnn_train_epochs(rnn, w, 10),
-                        lambda: crt.rnn_sgd_plain(rnn, w, None, 10, 0.01)),
+                        lambda: crt.rnn_sgd_plain(rnn, w, None, 10, 0.01),
+                        exact=True),
               check_sgd(torch, "learn severity=1",
                         lambda: crt.rnn_learn_epochs(rnn, w, other, 1),
-                        lambda: crt.rnn_sgd_plain(rnn, w, other, 1, 0.01)))
+                        lambda: crt.rnn_sgd_plain(rnn, w, other, 1, 0.01),
+                        exact=True))
     ms = timed_ms(torch, lambda: crt.rnn_train_epochs(rnn, w, 10), 10)
     plain = timed_ms(torch, lambda: crt.rnn_sgd_plain(rnn, w, None, 10,
                                                       0.01), 1, warm=False)
-    b, by = bound_ms((2 * p + 1) * N * 4, N * 10 * rnn_sgd_ops_per_epoch(rnn))
+    ops = N * 10 * rnn_sgd_ops_per_epoch(rnn)
+    b, by = bound_ms((2 * p + 1) * N * 4, ops)
     log(f"  train epochs=10: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"bound {b:.3f} ms ({by})")
+        f"bound {b:.3f} ms ({by}), --fmad=false ceiling "
+        f"{fmad_off_ms(ops):.3f} ms")
     rows["rnn_sgd"].update(max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=b, bound_by=by)
 
@@ -552,7 +606,7 @@ def check_variant_kernels(torch, rows):
              torch.bfloat16)):
         log(f"K3 {kernel.name} N={N} ({topo.variant}, {dtype})")
         w = population(topo, N, gen, scale).to(dtype)
-        err, ms, plain, ops, kw, n_dead = check_generation_body(
+        err, ms, plain, ops, kw, n_dead, only_ms = check_generation_body(
             torch, topo, kernel, w, gen, reps=10 if key else 0)
         if key is None:
             continue
@@ -560,6 +614,10 @@ def check_variant_kernels(torch, rows):
                                pop_bytes=w.element_size())
         log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
             f"({by})")
+        if only_ms is not None:
+            log(f"  train only (no attack, no learn operand): {only_ms:.3f} "
+                f"ms; the gated phases {ms - only_ms:.3f} ms, "
+                f"{100 * (ms - only_ms) / ms:.1f}% of the kernel")
         rows[key].update(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                          bound_by=by)
 
@@ -572,7 +630,7 @@ def check_variant_kernels(torch, rows):
     small += [Topology("aggregating", activation=a)
               for a in ("sigmoid", "tanh", "relu")]
     small += [Topology("recurrent", activation=a)
-              for a in ("sigmoid", "tanh", "relu")]
+              for a in ("linear", "sigmoid", "tanh", "relu")]
     for t in small:
         log(f"{t.variant} aggregator={t.aggregator} fft_mode={t.fft_mode} "
             f"fft_use_target={t.fft_use_target} activation={t.activation} "
@@ -581,10 +639,11 @@ def check_variant_kernels(torch, rows):
         os_ = population(t, n, gen, 0.5)
         if t.variant == "recurrent":
             check_sgd(torch, "K5 train=3", lambda: crt.rnn_train_epochs(
-                t, ws, 3), lambda: crt.rnn_sgd_plain(t, ws, None, 3, 0.01))
+                t, ws, 3), lambda: crt.rnn_sgd_plain(t, ws, None, 3, 0.01),
+                exact=True)
             check_sgd(torch, "K5 learn=2", lambda: crt.rnn_learn_epochs(
                 t, ws, os_, 2), lambda: crt.rnn_sgd_plain(t, ws, os_, 2,
-                                                         0.01))
+                                                         0.01), exact=True)
             compare(torch, "K6", cra.rnn_apply(t, os_, ws),
                     cra.rnn_apply_plain(t, os_, ws))
             for t_len in (14, 20):
@@ -989,7 +1048,9 @@ def main() -> int:
 
     phase("build", build_kernels)
     log(f"tolerance: floats rtol {RTOL} atol {ATOL} with the non-finite "
-        "pattern exact; integer outputs exact")
+        "pattern exact; the recurrent kernels (K5, K3's recurrent bodies) "
+        "bitwise where finite, the mean loss within 1 ulp; integer outputs "
+        "exact")
     phase("weightwise kernels", check_kernels, torch, rows)
     phase("variant kernels", check_variant_kernels, torch, rows)
     launches = phase("main path", main_path, torch, kernels)

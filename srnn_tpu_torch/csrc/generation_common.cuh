@@ -24,8 +24,14 @@
 // population crosses device memory once per generation, as the Pallas
 // megakernel's block did through VMEM.  The phase gates are per-lane ints: a
 // lane whose gate is off skips that phase (the JAX kernel computed it and
-// discarded it with a where; the result is the same), so at the paper's
-// rates most warps skip the attack and learn work.  The learner's imitation
+// discarded it with a where; the result is the same).  A warp runs a phase
+// when any of its 32 lanes is gated, so at the paper's rates (0.1) about
+// 1 - 0.9^32 = 97% of warps would run the attack and the learn work with
+// most lanes idle.  That is cheap beside the weightwise and k-vector
+// bodies' training, and a quarter of the recurrent body's: the recurrent body
+// opts in (B::kSortGated) to dealing each block's lanes to its threads
+// gated first (deal_lane), so that those phases run in about one warp of
+// the four.  The learner's imitation
 // target is recomputed to its post-attack value in-thread from the target's
 // pre-attack column and its attacker's column, so no mid-generation round
 // trip through device memory is needed.
@@ -43,6 +49,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "lane_common.cuh"
 
@@ -77,12 +85,53 @@ struct GenArgs {
   int remove_zero;
 };
 
-template <class B, class Pop>
+// The lane this thread runs.  Unsorted: its own.  SORT: the block's lanes
+// dealt to its threads gated first -- the learners, then the other attacked
+// lanes, then the rest (each group in no set order) -- so that the gated
+// phases run in the first warp or so while the other warps go straight to
+// self-training.  Every lane's arithmetic is its own either way, so the
+// results are the same bitwise.
+template <bool SORT, class Pop>
+__device__ __forceinline__ long long deal_lane(const GenArgs<Pop>& g) {
+  const long long base = static_cast<long long>(blockIdx.x) * blockDim.x;
+  if constexpr (!SORT) {
+    return base + threadIdx.x;
+  } else {
+    const long long n = g.n;
+    const long long mine = base + threadIdx.x;
+    __shared__ int count[3];  // learners, other attacked lanes, the rest
+    __shared__ int order[kThreads];
+    if (threadIdx.x < 3) count[threadIdx.x] = 0;
+    __syncthreads();
+    int group = 2;
+    if (mine < n) {
+      if (g.oth != nullptr && g.severity > 0 && g.gates[lane(1, n, mine)] != 0) {
+        group = 0;
+      } else if (g.atk != nullptr && g.gates[lane(0, n, mine)] != 0) {
+        group = 1;
+      }
+    }
+    const int ticket = atomicAdd(&count[group], 1);
+    __syncthreads();
+    order[(group > 0 ? count[0] : 0) + (group > 1 ? count[1] : 0) + ticket] =
+        threadIdx.x;
+    __syncthreads();
+    return base + order[threadIdx.x];
+  }
+}
+
+template <class B, class = void>
+struct SortGated : std::false_type {};
+template <class B>
+struct SortGated<B, std::void_t<decltype(B::kSortGated)>>
+    : std::bool_constant<B::kSortGated> {};
+
+template <class B, class Pop, bool SORT>
 __global__ void __launch_bounds__(kThreads)
 generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
   constexpr int P = B::P;
   const long long n = g.n;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long i = deal_lane<SORT>(g);
   if (i >= n) return;
   float rows[P];
 #pragma unroll
@@ -145,8 +194,8 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
 template <class B, class Pop>
 inline int launch_generation(const GenArgs<Pop>& g,
                              const typename B::Consts& co, void* stream) {
-  generation_kernel<B, Pop><<<blocks_for(g.n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(g, co);
+  generation_kernel<B, Pop, SortGated<B>::value><<<blocks_for(g.n), kThreads, 0,
+      static_cast<cudaStream_t>(stream)>>>(g, co);
   return static_cast<int>(cudaGetLastError());
 }
 

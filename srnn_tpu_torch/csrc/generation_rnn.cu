@@ -7,12 +7,21 @@
 // rnn_forward_rows, _chain_for's pallas_rnn_train._sgd_epochs).
 //
 // What bounds it on an H100: arithmetic.  At the soup's rates (attack 0.1,
-// learn 0.1, train 10) about 1.6e10 operations at N = 1M, against about
-// 170 MB that the gates make it move (the population in and out, the gates,
-// a column for each attacked lane, learner, recomputed target and dead
-// lane).
-// The BPTT keeps about 200 floats live per thread; ptxas' spill report is
-// printed by chip_smoke.py.
+// learn 0.1, train 10) about 1.6e10 operations at N = 1M (0.24 ms at the
+// data sheet's FP32 rate, 0.48 ms at the issue rate of separate multiplies
+// and adds under --fmad=false), against about 170 MB that the gates make it
+// move (the population in and out, the gates, a column for each attacked
+// lane, learner, recomputed target and dead lane).
+//
+// Design: K5's (rnn_train.cu): every array in registers with the layers
+// walked by template recursion (no stack frame), the BPTT's backward one
+// reverse-time sweep over all layers; the attack runs the stack time-major
+// and stores nothing but its output.  The gated phases (attack, learn) are
+// per lane, and a warp carrying any gated lane runs them with the rest
+// idle, which cost a quarter of the kernel; so the body opts in to the
+// skeleton's sorted deal (kSortGated: the learners and attacked lanes to
+// the block's first threads), which cut the kernel by a tenth
+// (generation_common.cuh, PERF.md).
 
 #include "generation_common.cuh"
 #include "rnn_common.cuh"
@@ -24,17 +33,22 @@ struct NoConsts {};
 template <int W, int D, int A>
 struct RnnBody {
   static constexpr int P = srnn::RNN<W, D>::P;
+  static constexpr bool kSortGated = true;
   using Consts = NoConsts;
-  __device__ static void apply(const float (&self)[P], const float (&x)[P],
-                               float (&out)[P], const Consts&) {
-    srnn::rnn_apply<W, D, A, P>(self, x, out);
+  __device__ __forceinline__ static void apply(const float (&self)[P],
+                                               const float (&x)[P],
+                                               float (&out)[P], const Consts&) {
+    srnn::rnn_apply_streamed<W, D, A, P>(self, x, out);
   }
-  __device__ static void learn(float (&rows)[P], const float (&other)[P],
-                               int epochs, float lr, const Consts&) {
+  __device__ __forceinline__ static void learn(float (&rows)[P],
+                                               const float (&other)[P],
+                                               int epochs, float lr,
+                                               const Consts&) {
     srnn::rnn_sgd<W, D, A, false>(rows, other, epochs, lr);
   }
-  __device__ static float train(float (&rows)[P], int epochs, float lr,
-                                const Consts&) {
+  __device__ __forceinline__ static float train(float (&rows)[P],
+                                                int epochs, float lr,
+                                                const Consts&) {
     return srnn::rnn_sgd<W, D, A, true>(rows, rows, epochs, lr);
   }
 };

@@ -6,17 +6,21 @@
 // pallas_sgd_common.lane_call).
 //
 // What bounds it on an H100: arithmetic.  One epoch of the 17-weight
-// 1-2-2-1 stack over its own 17-step sequence is a forward (about 490
-// operations), the loss, the BPTT (about 1,000) and the update -- about
-// 1,600 operations; the soup's self-training runs 10 epochs.  At N = 1M that
-// is about 1.6e10 operations (0.24 ms at the FP32 peak) against 140 MB read
-// and written once (0.04 ms at 3.35 TB/s).
+// 1-2-2-1 stack over its own 17-step sequence is a forward (493
+// operations), the loss and its gradient (68), the BPTT (1,002) and the
+// update (34): 1,597 operations; the soup's self-training runs 10 epochs.
+// At N = 1M that is 1.6e10 operations: 0.24 ms at the data sheet's FP32
+// rate, which counts an FMA as two operations, and 0.48 ms at the rate at
+// which the card issues the separate multiplies and adds of a build with
+// --fmad=false; against 140 MB read and written once (0.04 ms at
+// 3.35 TB/s).
 //
-// Design: one thread per particle; weights, the sequence sample, every
-// layer's output sequence, the gradients and the carries in registers for
-// the whole chain (rnn_common.cuh; spills, if ptxas reports any, go to local
-// memory and are written down in PERF.md); one coalesced read and one write
-// per weight row.
+// Design: one thread per particle; the weights, the sample, the gradients,
+// every layer's output sequence and the carries in registers for the
+// whole chain (148 registers, no stack frame), one coalesced read and one
+// write per weight row; the layers walked by template recursion, so that
+// no array falls to local memory, and the backward one reverse-time sweep
+// over all layers (rnn_common.cuh: bptt_epoch).
 
 #include "rnn_common.cuh"
 

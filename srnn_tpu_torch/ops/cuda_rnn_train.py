@@ -113,10 +113,14 @@ def bptt_epoch_plain(topo: Topology, rows: Sequence[torch.Tensor],
                     gr = ro + v * units + u
                     prev = out[t - 1][v] if t > 0 else zero
                     grads[gr] = grads[gr] + prev * dz[u]
-            d_inp[t] = [_sum([dz[u] * rows[ko + i * units + u]
-                              for u in range(units)]) for i in range(ind)]
-            dcarry = [_sum([dz[u] * rows[ro + v * units + u]
-                            for u in range(units)]) for v in range(units)]
+            # layer 0's input gradient and the carry out of step 0 reach
+            # nothing; like the kernel (and XLA), skip them
+            if layer > 0:
+                d_inp[t] = [_sum([dz[u] * rows[ko + i * units + u]
+                                  for u in range(units)]) for i in range(ind)]
+            if t > 0:
+                dcarry = [_sum([dz[u] * rows[ro + v * units + u]
+                                for u in range(units)]) for v in range(units)]
         d_out = d_inp
     return grads, loss
 

@@ -2,18 +2,22 @@
 package: K5's hand BPTT chain against ``rnn_*_epochs_pallas`` in interpret
 mode, K6's forward against ``rnn_apply_pallas`` in interpret mode (victims
 of the attacker's length and of other lengths), the port's autograd chain
-(``popmajor_rnn``) against the hand chain, and the orthogonal init's law.
+(``popmajor_rnn``) against the hand chain, the orthogonal init's law, and
+the operation count behind K5's bound against what the plain chain does.
 Tolerances: weights rtol 1e-5 / atol 1e-6, losses rtol 1e-4 / atol 1e-6
 (tests/test_pallas_train.py keeps 1e-6 / 1e-7 between two JAX spellings;
 across the two packages the activations' float noise gets one decade)."""
 
+import collections
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+import chip_smoke
 from srnn_tpu import Topology as JTopology
 from srnn_tpu.ops.pallas_rnn_apply import rnn_apply_pallas
 from srnn_tpu.ops.pallas_rnn_train import (rnn_learn_epochs_pallas,
@@ -168,3 +172,35 @@ def test_fences():
         cra.rnn_apply(Topology("recurrent", activation="gelu"), wT, wT)
     with pytest.raises(ValueError):
         cra.rnn_apply(topo, wT, wT[:, :4].contiguous())
+
+
+class _ArithCount(TorchDispatchMode):
+    """Counts the elementwise multiplies, adds, subtracts and divides
+    dispatched inside the mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        if name in ("aten.mul", "aten.add", "aten.sub", "aten.div"):
+            self.n[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_bptt_op_count_matches_plain():
+    """The operations chip_smoke.py counts for K5's and K3's bound are the
+    ones the plain chain does: per epoch (the difference of 2 epochs and 1,
+    so per-call work is not counted), at N = 4, linear, P = 17."""
+    topo = Topology("recurrent")
+    wT = torch.from_numpy(_rows(17, 4, 10))
+    counts = []
+    for epochs in (1, 2):
+        with _ArithCount() as mode:
+            crt.rnn_sgd_plain(topo, wT, None, epochs, 0.01)
+        counts.append(sum(mode.n.values()))
+    per_epoch = counts[1] - counts[0]
+    assert per_epoch == counts[0] == chip_smoke.rnn_sgd_ops_per_epoch(topo)
+    assert per_epoch == 1597
+    assert chip_smoke.rnn_forward_ops(topo, 17) == 493
