@@ -18,10 +18,14 @@ Phases, each fatal on failure:
    recurrent bodies, and K3's three bfloat16 bodies; every other
    instantiated activation, aggregator and fft mode at a small N; max abs /
    max rel difference, integer outputs equal, median times of kernel and
-   plain version (CUDA events) beside the kernel's bound; the recurrent
-   kernels (K5, K3's recurrent bodies) bitwise, with the mean loss within
-   1 ulp, and K3's recurrent bodies also timed with no attack and no learn
-   operand (train only), which puts a number on their gated phases;
+   plain version (CUDA events) beside the kernel's bound, and for K1 and K2
+   beside the --fmad=false ceiling of the FP32 instructions they issue; the
+   weightwise and recurrent kernels (K1, K2, K5, K3's weightwise and
+   recurrent bodies, both dtypes) bitwise, with the mean loss within 1 ulp,
+   and those K3 bodies also timed with no attack and no learn operand
+   (train only), which puts a number on their gated phases; the SM clock
+   and power draw (nvidia-smi, sampled meanwhile) beside K1's and K3's
+   times;
 4. the main path through the public entry points, each of its runs with
    the launch counts set to 0 just before it and checked just after against
    the launches that run must make: the N = 1M full-dynamics soup (attack
@@ -69,6 +73,9 @@ N = 1_000_000
 BENCH_STEPS = 2000
 GENERATIONS = 20
 RTOL, ATOL = 1e-5, 1e-6
+#: the variants whose kernels are held bitwise (weights and dead masks 0
+#: ulps where finite, the same non-finite pattern, the mean loss 1 ulp)
+EXACT_VARIANTS = ("weightwise", "recurrent")
 
 
 def fail(msg: str) -> int:
@@ -99,6 +106,37 @@ def sgd_ops_per_epoch(topo) -> int:
     back += sum(a * (2 * b - 1) for a, b in shapes[1:])
     per_sample = apply_ops_per_point(topo) + 3 + 1 + back + 2 * topo.num_weights
     return topo.num_weights * per_sample + 1
+
+
+def coord_values(topo):
+    """Per axis of the duplex coordinates, the set of values its points
+    take (topology.normalized_weight_coords)."""
+    from srnn_tpu_torch.topology import normalized_weight_coords
+
+    c = normalized_weight_coords(topo)
+    return [set(c[:, k].tolist()) for k in range(3)]
+
+
+def ww_apply_issued(topo) -> int:
+    """FP32 instructions the redesigned weightwise application issues per
+    particle (csrc/ww_common.cuh): layer 0's coordinate products taken once
+    per application for each coordinate value other than 1.0, then at each
+    point the weight feature's product and three adds per layer-0 column and
+    the upper layers as the reference has them."""
+    (a0, b0), upper = topo.layer_shapes[0], topo.layer_shapes[1:]
+    shared = b0 * sum(len(v - {1.0}) for v in coord_values(topo))
+    per_point = b0 * a0 + sum(b * (2 * a - 1) for a, b in upper)
+    return shared + topo.num_weights * per_point
+
+
+def ww_sgd_issued_per_epoch(topo) -> int:
+    """FP32 instructions of one epoch of the redesigned batch-1 chain: the
+    reference's count less the forward's and the layer-0 gradients' products
+    with a coordinate of 1.0."""
+    from srnn_tpu_torch.topology import normalized_weight_coords
+
+    ones = int((normalized_weight_coords(topo) == 1.0).sum())
+    return sgd_ops_per_epoch(topo) - 2 * topo.layer_shapes[0][1] * ones
 
 
 def kvec_reduce_ops(topo) -> int:
@@ -191,16 +229,31 @@ def timed_ms(torch, fn, reps: int, warm: bool = True) -> float:
     return times[len(times) // 2]
 
 
+#: (what, start, end) of the timings that the SM clock and power draw are
+#: read beside (K1, K3), matched to the nvidia-smi samples after phase 3
+CLOCK_WINDOWS = []
+
+
+def timed_clocked(torch, what: str, fn, reps: int, warm: bool = True):
+    """``timed_ms``, its window kept for the clock and power readings."""
+    import datetime
+
+    t0 = datetime.datetime.now()
+    ms = timed_ms(torch, fn, reps, warm)
+    CLOCK_WINDOWS.append((what, t0, datetime.datetime.now()))
+    return ms
+
+
 def compare(torch, what: str, got, ref, ulps=None):
     """Max abs / max rel difference over finite entries; the non-finite
     pattern must agree exactly.  Raises when outside RTOL/ATOL, or, where
-    ``ulps`` is given (the recurrent kernels: 0 for weights, 1 for the mean
-    loss), when more than ``ulps`` float32 ulps apart where finite or with
-    another finite/NaN/Inf pattern.  Values are compared as float32, so
-    bfloat16 outputs are compared bit for bit where finite and by NaN/Inf
-    position elsewhere (the card's and torch's bfloat16 conversions may give
-    NaNs different payloads)."""
-    from srnn_tpu_torch.bench_rnn import check_exact, max_ulps
+    ``ulps`` is given (the weightwise and recurrent kernels: 0 for weights,
+    1 for the mean loss), when more than ``ulps`` float32 ulps apart where
+    finite or with another finite/NaN/Inf pattern.  Values are compared as
+    float32, so bfloat16 outputs are compared bit for bit where finite and
+    by NaN/Inf position elsewhere (the card's and torch's bfloat16
+    conversions may give NaNs different payloads)."""
+    from srnn_tpu_torch.bench_kernels import check_exact, max_ulps
 
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape:
@@ -240,12 +293,12 @@ def build_kernels():
     """Build every kernel source, one nvcc each, all at once; print each
     one's finish time (its log's last write) and ptxas' report summed over
     the source's instantiations: registers, stack frame, spilled bytes,
-    shared memory per block; for the recurrent BPTT sources also the linear
+    shared memory per block; for the sources that bench_kernels compares
+    (the weightwise and the recurrent BPTT kernels) also the linear
     instantiations' resident warps per SM."""
     import re
 
-    from srnn_tpu_torch.bench_rnn import SOURCES as RNN_SOURCES
-    from srnn_tpu_torch.bench_rnn import linear_resources
+    from srnn_tpu_torch.bench_kernels import GROUPS, linear_resources
     from srnn_tpu_torch.ops import _build
 
     t0, wall0 = time.perf_counter(), time.time()
@@ -266,7 +319,7 @@ def build_kernels():
             f"stack frame up to {max(stack, default=0)} bytes, spilled "
             f"bytes {spills}, shared memory up to {max(smem, default=0)} "
             "bytes a block")
-        if name in RNN_SOURCES:
+        if any(name in g for g in GROUPS.values()):
             log(f"    linear instantiations: "
                 f"{linear_resources(_build.log_path(name))}")
 
@@ -315,14 +368,19 @@ def check_kernels(torch, rows):
     for steps in (1, 50):
         got = cuda_ww.ww_apply_population(topo, w_damped, steps)
         ref = cuda_ww.ww_apply_population_plain(topo, w_damped, steps)
-        err = compare(torch, f"steps={steps}", got, ref)
-    k1_ms = timed_ms(torch, lambda: cuda_ww.ww_apply_population(
-        topo, w_damped, BENCH_STEPS), 5)
+        err = compare(torch, f"steps={steps}", got, ref, 0)
+    k1_ms = timed_clocked(torch, f"K1 steps={BENCH_STEPS}",
+                          lambda: cuda_ww.ww_apply_population(
+                              topo, w_damped, BENCH_STEPS), 5)
     k1_plain = timed_ms(torch, lambda: cuda_ww.ww_apply_population_plain(
         topo, w_damped, BENCH_STEPS), 1, warm=False)
     b, by = bound_ms(2 * p * N * 4, BENCH_STEPS * N * p * pts)
+    issued = ww_apply_issued(topo)
     log(f"  steps={BENCH_STEPS}: kernel {k1_ms:.3f} ms, plain "
-        f"{k1_plain:.3f} ms, bound {b:.3f} ms ({by})")
+        f"{k1_plain:.3f} ms, bound {b:.3f} ms ({by}; {p * pts} operations "
+        f"an application); the kernel issues {issued} FP32 instructions an "
+        f"application, --fmad=false ceiling "
+        f"{fmad_off_ms(BENCH_STEPS * N * issued):.3f} ms")
     rows["ww_apply"].update(max_abs_err=err, ms=k1_ms, plain_ms=k1_plain,
                             bound_ms=b, bound_by=by)
 
@@ -338,27 +396,29 @@ def check_kernels(torch, rows):
             ("learn severity=1",
              lambda: cuda_ww_train.ww_learn_epochs(topo, w, other, 1),
              lambda: cuda_ww_train.ww_sgd_plain(topo, w, other, 1, 0.01))):
-        (gw, gl), (rw, rl) = fn(), fn_plain()
-        errs.append(compare(torch, what + " weights", gw, rw))
-        errs.append(compare(torch, what + " loss", gl, rl))
+        errs.append(check_sgd(torch, what, fn, fn_plain, exact=True))
     k2_ms = timed_ms(torch, lambda: cuda_ww_train.ww_train_epochs(
         topo, w, 10), 10)
     k2_plain = timed_ms(torch, lambda: cuda_ww_train.ww_sgd_plain(
         topo, w, None, 10, 0.01), 1, warm=False)
     b, by = bound_ms((2 * p + 1) * N * 4, N * 10 * epoch_ops)
     log(f"  train epochs=10: kernel {k2_ms:.3f} ms, plain {k2_plain:.3f} ms,"
-        f" bound {b:.3f} ms ({by})")
+        f" bound {b:.3f} ms ({by}); the kernel issues "
+        f"{ww_sgd_issued_per_epoch(topo)} FP32 instructions an epoch "
+        f"({epoch_ops} operations), --fmad=false ceiling "
+        f"{fmad_off_ms(N * 10 * ww_sgd_issued_per_epoch(topo)):.3f} ms")
     rows["ww_sgd"].update(max_abs_err=max(errs), ms=k2_ms, plain_ms=k2_plain,
                           bound_ms=b, bound_by=by)
 
     # K3: all phases on, both removals
     log(f"K3 generation N={N}")
-    err, k3_ms, k3_plain, ops, kw, n_dead, _ = check_generation_body(
+    err, k3_ms, k3_plain, ops, kw, n_dead, only_ms = check_generation_body(
         torch, topo, cg.GENERATION, w, gen)
     b, by = gen_body_bound(topo, ops, kw, n_dead, p * pts, epoch_ops,
                            epoch_ops)
     log(f"  kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound "
         f"{b:.3f} ms ({by})")
+    log_train_only(k3_ms, only_ms)
     rows["generation"].update(max_abs_err=err, ms=k3_ms, plain_ms=k3_plain,
                               bound_ms=b, bound_by=by)
 
@@ -369,11 +429,11 @@ def check_kernels(torch, rows):
         log(f"activation {act} N={n}")
         ws = population(t, n, gen, 0.3)
         compare(torch, "K1 steps=5", cuda_ww.ww_apply_population(t, ws, 5),
-                cuda_ww.ww_apply_population_plain(t, ws, 5))
-        gw, gl = cuda_ww_train.ww_train_epochs(t, ws, 3)
-        rw, rl = cuda_ww_train.ww_sgd_plain(t, ws, None, 3, 0.01)
-        compare(torch, "K2 train=3 weights", gw, rw)
-        compare(torch, "K2 train=3 loss", gl, rl)
+                cuda_ww.ww_apply_population_plain(t, ws, 5), 0)
+        check_sgd(torch, "K2 train=3",
+                  lambda: cuda_ww_train.ww_train_epochs(t, ws, 3),
+                  lambda: cuda_ww_train.ww_sgd_plain(t, ws, None, 3, 0.01),
+                  exact=True)
         o = gen_operands(torch, t, ws, gen, rate=0.5)
         kw2 = dict(severity=1, train=2, lr=0.01, remove_divergent=True,
                    remove_zero=True, epsilon=1e-4)
@@ -383,7 +443,7 @@ def check_kernels(torch, rows):
 def check_small_generation(torch, topo, ws, o, kw):
     """K3 against its plain version on a small population, with a float32
     and with a bfloat16 population (the operand columns rounded too);
-    the recurrent bodies bitwise (the loss within 1 ulp)."""
+    the weightwise and recurrent bodies bitwise (the loss within 1 ulp)."""
     from srnn_tpu_torch.ops import cuda_generation as cg
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -393,32 +453,27 @@ def check_small_generation(torch, topo, ws, o, kw):
         got = cg.generation_popmajor(topo, wd, **cast, **kw)
         ref = cg.generation_popmajor_plain(topo, wd, **cast, **kw)
         tag = "K3" if dtype == torch.float32 else "K3 bf16"
-        exact = topo.variant == "recurrent"
+        exact = topo.variant in EXACT_VARIANTS
         compare(torch, f"{tag} weights", got[0], ref[0], 0 if exact else None)
         compare(torch, f"{tag} loss", got[1], ref[1], 1 if exact else None)
         equal_ints(torch, f"{tag} dead", torch.stack(got[2:]),
                    torch.stack(ref[2:]))
 
 
-def check_generation_body(torch, topo, kernel, w, gen, train=10, reps=10):
-    """One K3 body against its plain version at all phases, both removals,
-    lanes 0..99 forced divergent and 100..199 forced zero (their gates off);
-    the recurrent body bitwise (the loss within 1 ulp), and also checked
-    and timed with no attack and no learn operand (train only).  Returns
-    (max abs error, kernel ms, plain ms, operands, kwargs, number of dead
-    lanes, train-only ms or None)."""
+def check_generation_body(torch, topo, kernel, w, gen, reps=100):
+    """One K3 body against its plain version at all phases (train 10),
+    both removals, lanes 0..99 forced divergent and 100..199 forced zero
+    (their gates off; bench_kernels.generation_inputs); the weightwise and
+    recurrent bodies bitwise (the loss within 1 ulp), and also checked and
+    timed with no attack and no learn operand (train only).  Returns (max
+    abs error, kernel ms, plain ms, operands, kwargs, number of dead lanes,
+    train-only ms or None)."""
+    from srnn_tpu_torch.bench_kernels import GEN_KW, generation_inputs
     from srnn_tpu_torch.ops import cuda_generation as cg
 
-    wT = w.clone()
-    wT[3, :100] = float("inf")
-    wT[:, 100:200] = 0.0
-    ops = gen_operands(torch, topo, wT, gen)
-    for k in ("has_attacker", "learn_gate"):
-        ops[k][:200] = False
-    kw = dict(severity=1, train=train, lr=0.01, remove_divergent=True,
-              remove_zero=True, epsilon=1e-4)
-    exact = topo.variant == "recurrent"
-    train_only = {"freshT": ops["freshT"]}
+    wT, ops, train_only = generation_inputs(topo, w, gen)
+    kw = GEN_KW
+    exact = topo.variant in EXACT_VARIANTS
     errs = []
     runs = [("", ops)] + ([("train only ", train_only)] if exact else [])
     for tag, o in runs:
@@ -440,15 +495,24 @@ def check_generation_body(torch, topo, kernel, w, gen, train=10, reps=10):
     if not reps:
         return max(errs), None, None, ops, kw, n_dead, None
     before = kernel.launches
-    ms = timed_ms(torch, lambda: cg.generation_popmajor(topo, wT, **ops,
-                                                        **kw), reps)
+    ms = timed_clocked(torch, f"K3 {kernel.name}", lambda:
+                       cg.generation_popmajor(topo, wT, **ops, **kw), reps)
     plain = timed_ms(torch, lambda: cg.generation_popmajor_plain(
         topo, wT, **ops, **kw), 1, warm=False)
-    only_ms = timed_ms(torch, lambda: cg.generation_popmajor(
-        topo, wT, **train_only, **kw), reps) if exact else None
+    only_ms = timed_clocked(torch, f"K3 {kernel.name} train only", lambda:
+                            cg.generation_popmajor(topo, wT, **train_only,
+                                                   **kw), reps) \
+        if exact else None
     if kernel.launches == before:
         raise AssertionError(f"{kernel.name} was not launched")
     return max(errs), ms, plain, ops, kw, n_dead, only_ms
+
+
+def log_train_only(ms, only_ms) -> None:
+    if only_ms is not None:
+        log(f"  train only (no attack, no learn operand): {only_ms:.3f} ms; "
+            f"the gated phases {ms - only_ms:.3f} ms, "
+            f"{100 * (ms - only_ms) / ms:.1f}% of the kernel")
 
 
 def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
@@ -607,17 +671,14 @@ def check_variant_kernels(torch, rows):
         log(f"K3 {kernel.name} N={N} ({topo.variant}, {dtype})")
         w = population(topo, N, gen, scale).to(dtype)
         err, ms, plain, ops, kw, n_dead, only_ms = check_generation_body(
-            torch, topo, kernel, w, gen, reps=10 if key else 0)
+            torch, topo, kernel, w, gen, reps=100 if key else 0)
         if key is None:
             continue
         b, by = gen_body_bound(topo, ops, kw, n_dead, *gen_body_ops(topo),
                                pop_bytes=w.element_size())
         log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
             f"({by})")
-        if only_ms is not None:
-            log(f"  train only (no attack, no learn operand): {only_ms:.3f} "
-                f"ms; the gated phases {ms - only_ms:.3f} ms, "
-                f"{100 * (ms - only_ms) / ms:.1f}% of the kernel")
+        log_train_only(ms, only_ms)
         rows[key].update(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                          bound_by=by)
 
@@ -1048,11 +1109,19 @@ def main() -> int:
 
     phase("build", build_kernels)
     log(f"tolerance: floats rtol {RTOL} atol {ATOL} with the non-finite "
-        "pattern exact; the recurrent kernels (K5, K3's recurrent bodies) "
-        "bitwise where finite, the mean loss within 1 ulp; integer outputs "
-        "exact")
-    phase("weightwise kernels", check_kernels, torch, rows)
-    phase("variant kernels", check_variant_kernels, torch, rows)
+        "pattern exact; the weightwise and recurrent kernels (K1, K2, K5, "
+        "K3's weightwise and recurrent bodies) bitwise where finite, the "
+        "mean loss within 1 ulp; integer outputs exact")
+    from srnn_tpu_torch.bench_kernels import SmiSampler
+
+    sampler = SmiSampler()
+    try:
+        phase("weightwise kernels", check_kernels, torch, rows)
+        phase("variant kernels", check_variant_kernels, torch, rows)
+    finally:
+        sampler.stop()
+    for what, t0, t1 in CLOCK_WINDOWS:
+        log(f"clocks during {what}: {sampler.at(t0, t1)}")
     launches = phase("main path", main_path, torch, kernels)
     phase("small soups vs cpu", small_soup_vs_cpu, torch)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -27,14 +27,13 @@
 // discarded it with a where; the result is the same).  A warp runs a phase
 // when any of its 32 lanes is gated, so at the paper's rates (0.1) about
 // 1 - 0.9^32 = 97% of warps would run the attack and the learn work with
-// most lanes idle.  That is cheap beside the weightwise and k-vector
-// bodies' training, and a quarter of the recurrent body's: the recurrent body
-// opts in (B::kSortGated) to dealing each block's lanes to its threads
-// gated first (deal_lane), so that those phases run in about one warp of
-// the four.  The learner's imitation
-// target is recomputed to its post-attack value in-thread from the target's
-// pre-attack column and its attacker's column, so no mid-generation round
-// trip through device memory is needed.
+// most lanes idle.  The weightwise and recurrent bodies opt in
+// (B::kSortGated) to dealing each block's lanes to its threads gated first
+// (deal_lane), so that those phases run in about one warp of the four; the
+// k-vector body, whose training is cheap beside its memory traffic, does
+// not.  The learner's imitation target is recomputed to its post-attack
+// value in-thread from the target's pre-attack column and its attacker's
+// column, so no mid-generation round trip through device memory is needed.
 //
 // A body B (the role of pallas_generation.apply_rows / _chain_for) gives:
 //   B::P                              the particle's weight count;

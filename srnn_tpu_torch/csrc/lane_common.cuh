@@ -7,7 +7,8 @@
 // wT[p * N + n] for each row p (a warp's 32 loads of one row are
 // contiguous, so they coalesce) and keeps the particle's rows in registers
 // for the whole call.  There is no cross-particle arithmetic anywhere, so
-// no shared memory and no synchronisation.  The sources are built with
+// no shared memory and no synchronisation but K3's deal of a block's lanes
+// to its threads (generation_common.cuh).  The sources are built with
 // --fmad=false, so every multiply and every add rounds on its own, as the
 // plain torch versions' separate ops do.
 

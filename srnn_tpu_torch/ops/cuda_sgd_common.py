@@ -125,8 +125,9 @@ def check_lanes(topo: Topology, *arrays: torch.Tensor, rows=None,
 
 
 def coords_arg(topo: Topology) -> np.ndarray:
-    """The (P, 3) normalised coordinates as a float32 host array; the C
-    entry points copy them into the kernel's argument."""
+    """The (P, 3) normalised coordinates as a float32 host array; the
+    weightwise C entry points refuse to launch (``cudaErrorInvalidValue``)
+    unless they equal the kernels' compile-time table bit for bit."""
     return np.ascontiguousarray(normalized_weight_coords(topo),
                                 dtype=np.float32)
 
