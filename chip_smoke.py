@@ -18,14 +18,14 @@ Phases, each fatal on failure:
    recurrent bodies, and K3's three bfloat16 bodies; every other
    instantiated activation, aggregator and fft mode at a small N; max abs /
    max rel difference, integer outputs equal, median times of kernel and
-   plain version (CUDA events) beside the kernel's bound, and for K1 and K2
-   beside the --fmad=false ceiling of the FP32 instructions they issue; the
-   weightwise and recurrent kernels (K1, K2, K5, K3's weightwise and
-   recurrent bodies, both dtypes) bitwise, with the mean loss within 1 ulp,
-   and those K3 bodies also timed with no attack and no learn operand
-   (train only), which puts a number on their gated phases; the SM clock
-   and power draw (nvidia-smi, sampled meanwhile) beside K1's and K3's
-   times;
+   plain version (CUDA events) and the kernel's device time (its launches'
+   own durations under torch.profiler) beside the kernel's bound, and for
+   K1, K2, K4 and K3 beside the --fmad=false ceiling of the FP32
+   instructions they issue; every kernel bitwise (weights, attack outputs
+   and the mean loss equal where finite with the same non-finite pattern),
+   and K3's bodies also timed with no attack and no learn operand (train
+   only), which puts a number on their gated phases; the SM clock and power
+   draw (nvidia-smi, sampled meanwhile) beside K1's and K3's times;
 4. the main path through the public entry points, each of its runs with
    the launch counts set to 0 just before it and checked just after against
    the launches that run must make: the N = 1M full-dynamics soup (attack
@@ -73,9 +73,6 @@ N = 1_000_000
 BENCH_STEPS = 2000
 GENERATIONS = 20
 RTOL, ATOL = 1e-5, 1e-6
-#: the variants whose kernels are held bitwise (weights and dead masks 0
-#: ulps where finite, the same non-finite pattern, the mean loss 1 ulp)
-EXACT_VARIANTS = ("weightwise", "recurrent")
 
 
 def fail(msg: str) -> int:
@@ -155,24 +152,35 @@ def kvec_reduce_ops(topo) -> int:
     return (p - k) * (2 if topo.aggregator == "max_buggy" else 1)
 
 
-def kvec_sgd_ops_per_epoch(topo, refresh: bool) -> int:
+def kvec_reduce_issued(topo) -> int:
+    """FP32 instructions of one reduce as the redesigned kernels issue it on
+    a lane whose weights are all finite (csrc/kvec_common.cuh): the
+    average's segment sums, their total and (sum + 0.0) * 1/count, without
+    the poison chains; the other kinds as ``kvec_reduce_ops`` counts them."""
+    p, k = topo.num_weights, topo.aggregates
+    if topo.variant == "aggregating" and topo.aggregator == "average":
+        return (p - k) + (k - 1) + 2 * k
+    return kvec_reduce_ops(topo)
+
+
+def kvec_sgd_ops_per_epoch(topo, refresh: bool, reduce=kvec_reduce_ops) -> int:
     """Operations of one full-batch epoch of the k-vector chain: the
-    reduce (self-training), the forward, the error, loss and its
-    gradient, the weight gradients, the back-propagated gradients above the
-    first layer and the update."""
+    reduce (self-training; ``reduce`` counts it), the forward, the error,
+    loss and its gradient, the weight gradients, the back-propagated
+    gradients above the first layer and the update."""
     shapes, k = topo.layer_shapes, topo.aggregates
     back = sum(a * b for a, b in shapes)
     back += sum(a * (2 * b - 1) for a, b in shapes[1:])
     fwd = apply_ops_per_point(topo)
-    return ((kvec_reduce_ops(topo) if refresh else 0) + fwd + k + 2 * k
+    return ((reduce(topo) if refresh else 0) + fwd + k + 2 * k
             + k + back + 2 * topo.num_weights)
 
 
-def kvec_apply_ops(topo) -> int:
+def kvec_apply_ops(topo, reduce=kvec_reduce_ops) -> int:
     """One k-vector transform: reduce, forward, expand (P rows of k
     products and k - 1 adds)."""
     p, k = topo.num_weights, topo.aggregates
-    return kvec_reduce_ops(topo) + apply_ops_per_point(topo) + p * (2 * k - 1)
+    return reduce(topo) + apply_ops_per_point(topo) + p * (2 * k - 1)
 
 
 def rnn_forward_ops(topo, t_len: int) -> int:
@@ -205,6 +213,15 @@ def bound_ms(nbytes: float, ops: float):
 def fmad_off_ms(ops: float) -> float:
     """The issue-rate ceiling of ``ops`` separate multiplies and adds."""
     return ops / FMAD_OFF_OPS_PER_S * 1e3
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """A kernel's own device time: the mean duration of its launches in
+    ``reps`` runs of ``fn`` under torch.profiler
+    (``bench_kernels.device_ms``)."""
+    from srnn_tpu_torch.bench_kernels import device_ms as traced
+
+    return traced(fn, reps)
 
 
 # ---------------------------------------------------------------- helpers
@@ -247,12 +264,12 @@ def timed_clocked(torch, what: str, fn, reps: int, warm: bool = True):
 def compare(torch, what: str, got, ref, ulps=None):
     """Max abs / max rel difference over finite entries; the non-finite
     pattern must agree exactly.  Raises when outside RTOL/ATOL, or, where
-    ``ulps`` is given (the weightwise and recurrent kernels: 0 for weights,
-    1 for the mean loss), when more than ``ulps`` float32 ulps apart where
-    finite or with another finite/NaN/Inf pattern.  Values are compared as
-    float32, so bfloat16 outputs are compared bit for bit where finite and
-    by NaN/Inf position elsewhere (the card's and torch's bfloat16
-    conversions may give NaNs different payloads)."""
+    ``ulps`` is given (0 for every kernel against its plain version), when
+    more than ``ulps`` float32 ulps apart where finite or with another
+    finite/NaN/Inf pattern.  Values are compared as float32, so bfloat16
+    outputs are compared bit for bit where finite and by NaN/Inf position
+    elsewhere (the card's and torch's bfloat16 conversions may give NaNs
+    different payloads)."""
     from srnn_tpu_torch.bench_kernels import check_exact, max_ulps
 
     got, ref = got.float(), ref.float()
@@ -294,11 +311,12 @@ def build_kernels():
     one's finish time (its log's last write) and ptxas' report summed over
     the source's instantiations: registers, stack frame, spilled bytes,
     shared memory per block; for the sources that bench_kernels compares
-    (the weightwise and the recurrent BPTT kernels) also the linear
+    (its groups) also the linear (k-vector: linear average)
     instantiations' resident warps per SM."""
     import re
 
-    from srnn_tpu_torch.bench_kernels import GROUPS, linear_resources
+    from srnn_tpu_torch.bench_kernels import (GROUPS, census_fragment,
+                                              linear_resources)
     from srnn_tpu_torch.ops import _build
 
     t0, wall0 = time.perf_counter(), time.time()
@@ -320,8 +338,9 @@ def build_kernels():
             f"bytes {spills}, shared memory up to {max(smem, default=0)} "
             "bytes a block")
         if any(name in g for g in GROUPS.values()):
-            log(f"    linear instantiations: "
-                f"{linear_resources(_build.log_path(name))}")
+            res = linear_resources(_build.log_path(name),
+                                   census_fragment(name))
+            log(f"    linear instantiations: {res}")
 
 
 def population(topo, n, gen, scale=1.0):
@@ -369,20 +388,21 @@ def check_kernels(torch, rows):
         got = cuda_ww.ww_apply_population(topo, w_damped, steps)
         ref = cuda_ww.ww_apply_population_plain(topo, w_damped, steps)
         err = compare(torch, f"steps={steps}", got, ref, 0)
-    k1_ms = timed_clocked(torch, f"K1 steps={BENCH_STEPS}",
-                          lambda: cuda_ww.ww_apply_population(
-                              topo, w_damped, BENCH_STEPS), 5)
+    k1_run = lambda: cuda_ww.ww_apply_population(topo, w_damped, BENCH_STEPS)
+    k1_ms = timed_clocked(torch, f"K1 steps={BENCH_STEPS}", k1_run, 5)
+    k1_device = device_ms(k1_run, 3)
     k1_plain = timed_ms(torch, lambda: cuda_ww.ww_apply_population_plain(
         topo, w_damped, BENCH_STEPS), 1, warm=False)
     b, by = bound_ms(2 * p * N * 4, BENCH_STEPS * N * p * pts)
     issued = ww_apply_issued(topo)
-    log(f"  steps={BENCH_STEPS}: kernel {k1_ms:.3f} ms, plain "
+    log(f"  steps={BENCH_STEPS}: kernel {k1_ms:.3f} ms (device "
+        f"{k1_device:.4f}), plain "
         f"{k1_plain:.3f} ms, bound {b:.3f} ms ({by}; {p * pts} operations "
         f"an application); the kernel issues {issued} FP32 instructions an "
         f"application, --fmad=false ceiling "
         f"{fmad_off_ms(BENCH_STEPS * N * issued):.3f} ms")
-    rows["ww_apply"].update(max_abs_err=err, ms=k1_ms, plain_ms=k1_plain,
-                            bound_ms=b, bound_by=by)
+    rows["ww_apply"].update(max_abs_err=err, ms=k1_ms, device_ms=k1_device,
+                            plain_ms=k1_plain, bound_ms=b, bound_by=by)
 
     # K2: train 10 epochs and learn severity 1 on glorot populations
     log(f"K2 ww_sgd N={N}")
@@ -396,30 +416,34 @@ def check_kernels(torch, rows):
             ("learn severity=1",
              lambda: cuda_ww_train.ww_learn_epochs(topo, w, other, 1),
              lambda: cuda_ww_train.ww_sgd_plain(topo, w, other, 1, 0.01))):
-        errs.append(check_sgd(torch, what, fn, fn_plain, exact=True))
-    k2_ms = timed_ms(torch, lambda: cuda_ww_train.ww_train_epochs(
-        topo, w, 10), 10)
+        errs.append(check_sgd(torch, what, fn, fn_plain))
+    k2_run = lambda: cuda_ww_train.ww_train_epochs(topo, w, 10)
+    k2_ms = timed_ms(torch, k2_run, 10)
+    k2_device = device_ms(k2_run)
     k2_plain = timed_ms(torch, lambda: cuda_ww_train.ww_sgd_plain(
         topo, w, None, 10, 0.01), 1, warm=False)
     b, by = bound_ms((2 * p + 1) * N * 4, N * 10 * epoch_ops)
-    log(f"  train epochs=10: kernel {k2_ms:.3f} ms, plain {k2_plain:.3f} ms,"
+    log(f"  train epochs=10: kernel {k2_ms:.3f} ms (device "
+        f"{k2_device:.4f}), plain {k2_plain:.3f} ms,"
         f" bound {b:.3f} ms ({by}); the kernel issues "
         f"{ww_sgd_issued_per_epoch(topo)} FP32 instructions an epoch "
         f"({epoch_ops} operations), --fmad=false ceiling "
         f"{fmad_off_ms(N * 10 * ww_sgd_issued_per_epoch(topo)):.3f} ms")
-    rows["ww_sgd"].update(max_abs_err=max(errs), ms=k2_ms, plain_ms=k2_plain,
-                          bound_ms=b, bound_by=by)
+    rows["ww_sgd"].update(max_abs_err=max(errs), ms=k2_ms,
+                          device_ms=k2_device, plain_ms=k2_plain, bound_ms=b,
+                          bound_by=by)
 
     # K3: all phases on, both removals
     log(f"K3 generation N={N}")
-    err, k3_ms, k3_plain, ops, kw, n_dead, only_ms = check_generation_body(
+    err, k3_ms, k3_plain, ops, kw, n_dead, only = check_generation_body(
         torch, topo, cg.GENERATION, w, gen)
     b, by = gen_body_bound(topo, ops, kw, n_dead, p * pts, epoch_ops,
                            epoch_ops)
-    log(f"  kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound "
-        f"{b:.3f} ms ({by})")
-    log_train_only(k3_ms, only_ms)
-    rows["generation"].update(max_abs_err=err, ms=k3_ms, plain_ms=k3_plain,
+    log(f"  kernel {k3_ms:.3f} ms (device {only['device']:.4f}), plain "
+        f"{k3_plain:.3f} ms, bound {b:.3f} ms ({by})")
+    log_train_only(k3_ms, only)
+    rows["generation"].update(max_abs_err=err, ms=k3_ms,
+                              device_ms=only["device"], plain_ms=k3_plain,
                               bound_ms=b, bound_by=by)
 
     # every instantiated activation, small N
@@ -432,8 +456,7 @@ def check_kernels(torch, rows):
                 cuda_ww.ww_apply_population_plain(t, ws, 5), 0)
         check_sgd(torch, "K2 train=3",
                   lambda: cuda_ww_train.ww_train_epochs(t, ws, 3),
-                  lambda: cuda_ww_train.ww_sgd_plain(t, ws, None, 3, 0.01),
-                  exact=True)
+                  lambda: cuda_ww_train.ww_sgd_plain(t, ws, None, 3, 0.01))
         o = gen_operands(torch, t, ws, gen, rate=0.5)
         kw2 = dict(severity=1, train=2, lr=0.01, remove_divergent=True,
                    remove_zero=True, epsilon=1e-4)
@@ -442,8 +465,8 @@ def check_kernels(torch, rows):
 
 def check_small_generation(torch, topo, ws, o, kw):
     """K3 against its plain version on a small population, with a float32
-    and with a bfloat16 population (the operand columns rounded too);
-    the weightwise and recurrent bodies bitwise (the loss within 1 ulp)."""
+    and with a bfloat16 population (the operand columns rounded too),
+    bitwise."""
     from srnn_tpu_torch.ops import cuda_generation as cg
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -453,9 +476,8 @@ def check_small_generation(torch, topo, ws, o, kw):
         got = cg.generation_popmajor(topo, wd, **cast, **kw)
         ref = cg.generation_popmajor_plain(topo, wd, **cast, **kw)
         tag = "K3" if dtype == torch.float32 else "K3 bf16"
-        exact = topo.variant in EXACT_VARIANTS
-        compare(torch, f"{tag} weights", got[0], ref[0], 0 if exact else None)
-        compare(torch, f"{tag} loss", got[1], ref[1], 1 if exact else None)
+        compare(torch, f"{tag} weights", got[0], ref[0], 0)
+        compare(torch, f"{tag} loss", got[1], ref[1], 0)
         equal_ints(torch, f"{tag} dead", torch.stack(got[2:]),
                    torch.stack(ref[2:]))
 
@@ -463,26 +485,22 @@ def check_small_generation(torch, topo, ws, o, kw):
 def check_generation_body(torch, topo, kernel, w, gen, reps=100):
     """One K3 body against its plain version at all phases (train 10),
     both removals, lanes 0..99 forced divergent and 100..199 forced zero
-    (their gates off; bench_kernels.generation_inputs); the weightwise and
-    recurrent bodies bitwise (the loss within 1 ulp), and also checked and
-    timed with no attack and no learn operand (train only).  Returns (max
-    abs error, kernel ms, plain ms, operands, kwargs, number of dead lanes,
-    train-only ms or None)."""
+    (their gates off; bench_kernels.generation_inputs), bitwise, and also
+    checked and timed with no attack and no learn operand (train only).
+    Returns (max abs error, kernel ms, plain ms, operands, kwargs, number of
+    dead lanes, {"device": device ms, "train_only": train-only ms,
+    "train_only_device": its device ms}, or None for ``reps`` 0)."""
     from srnn_tpu_torch.bench_kernels import GEN_KW, generation_inputs
     from srnn_tpu_torch.ops import cuda_generation as cg
 
     wT, ops, train_only = generation_inputs(topo, w, gen)
     kw = GEN_KW
-    exact = topo.variant in EXACT_VARIANTS
     errs = []
-    runs = [("", ops)] + ([("train only ", train_only)] if exact else [])
-    for tag, o in runs:
+    for tag, o in (("", ops), ("train only ", train_only)):
         got = cg.generation_popmajor(topo, wT, **o, **kw)
         ref = cg.generation_popmajor_plain(topo, wT, **o, **kw)
-        errs += [compare(torch, f"{tag}weights", got[0], ref[0],
-                         0 if exact else None),
-                 compare(torch, f"{tag}loss", got[1], ref[1],
-                         1 if exact else None)]
+        errs += [compare(torch, f"{tag}weights", got[0], ref[0], 0),
+                 compare(torch, f"{tag}loss", got[1], ref[1], 0)]
         equal_ints(torch, f"{tag}dead_div", got[2], ref[2])
         equal_ints(torch, f"{tag}dead_zero", got[3], ref[3])
         if not (bool(got[2][:100].all()) and bool(got[3][100:200].all())):
@@ -495,28 +513,30 @@ def check_generation_body(torch, topo, kernel, w, gen, reps=100):
     if not reps:
         return max(errs), None, None, ops, kw, n_dead, None
     before = kernel.launches
-    ms = timed_clocked(torch, f"K3 {kernel.name}", lambda:
-                       cg.generation_popmajor(topo, wT, **ops, **kw), reps)
+    run = lambda: cg.generation_popmajor(topo, wT, **ops, **kw)
+    run_only = lambda: cg.generation_popmajor(topo, wT, **train_only, **kw)
+    ms = timed_clocked(torch, f"K3 {kernel.name}", run, reps)
     plain = timed_ms(torch, lambda: cg.generation_popmajor_plain(
         topo, wT, **ops, **kw), 1, warm=False)
-    only_ms = timed_clocked(torch, f"K3 {kernel.name} train only", lambda:
-                            cg.generation_popmajor(topo, wT, **train_only,
-                                                   **kw), reps) \
-        if exact else None
+    only = {"device": device_ms(run),
+            "train_only": timed_clocked(torch, f"K3 {kernel.name} train only",
+                                        run_only, reps),
+            "train_only_device": device_ms(run_only)}
     if kernel.launches == before:
         raise AssertionError(f"{kernel.name} was not launched")
-    return max(errs), ms, plain, ops, kw, n_dead, only_ms
+    return max(errs), ms, plain, ops, kw, n_dead, only
 
 
-def log_train_only(ms, only_ms) -> None:
-    if only_ms is not None:
-        log(f"  train only (no attack, no learn operand): {only_ms:.3f} ms; "
-            f"the gated phases {ms - only_ms:.3f} ms, "
-            f"{100 * (ms - only_ms) / ms:.1f}% of the kernel")
+def log_train_only(ms, only) -> None:
+    dev, dev_only = only["device"], only["train_only_device"]
+    log(f"  train only (no attack, no learn operand): {only['train_only']:.3f}"
+        f" ms (device {dev_only:.4f}); the gated phases "
+        f"{ms - only['train_only']:.3f} ms, device {dev - dev_only:.4f} ms, "
+        f"{100 * (dev - dev_only) / dev:.1f}% of the kernel's device time")
 
 
 def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
-                   pop_bytes=4):
+                   pop_bytes=4, issued=None):
     """Bound of one K3 launch from this run's gates: every lane trains,
     the attacked lanes and recomputed targets apply once, the learners run
     their imitation chain.  Bytes as the kernel's gates need them, counted
@@ -525,13 +545,19 @@ def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
     a target column for each learner, its attacker's column for each
     recomputed target (``pop_bytes`` each: 4 for float32, 2 for bfloat16),
     a fresh column (float32) for each dead lane; the population, loss and
-    both dead masks written."""
+    both dead masks written.  ``issued``: the (apply, learn, train-epoch)
+    FP32 instructions the kernel issues instead, logged as its
+    --fmad=false ceiling."""
     p = topo.num_weights
     n_att = int(ops["has_attacker"].sum())
     n_learn = int(ops["learn_gate"].sum())
     n_re = int((ops["learn_gate"] & ops["other_attacked"]).sum())
-    total = ((n_att + n_re) * apply_ops + n_learn * learn_ops
-             + N * kw["train"] * train_ops + N * 3 * p)
+
+    def ops_of(apply_n, learn_n, train_n):
+        return ((n_att + n_re) * apply_n + n_learn * learn_n
+                + N * kw["train"] * train_n + N * 3 * p)
+
+    total = ops_of(apply_ops, learn_ops, train_ops)
     nbytes = ((2 * N + n_learn) * 4
               + p * (N + n_att + n_learn + n_re) * pop_bytes
               + p * n_dead * 4
@@ -539,29 +565,34 @@ def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
     log(f"  attacked {n_att}, learners {n_learn}, recomputed {n_re}, "
         f"dead {n_dead}; {nbytes / 1e6:.1f} MB, {total / 1e9:.3f} Gop "
         f"(--fmad=false ceiling {fmad_off_ms(total):.3f} ms)")
+    if issued is not None:
+        total_issued = ops_of(*issued)
+        log(f"  the kernel issues {total_issued / 1e9:.3f} G FP32 "
+            f"instructions (--fmad=false ceiling "
+            f"{fmad_off_ms(total_issued):.3f} ms)")
     return bound_ms(nbytes, total)
 
 
-def gen_body_ops(topo):
-    """(apply, learn, train-epoch) operation counts of a K3 body."""
+def gen_body_ops(topo, reduce=kvec_reduce_ops):
+    """(apply, learn, train-epoch) operation counts of a K3 body; for the
+    k-vector body ``reduce`` counts the reduce."""
     if topo.variant == "weightwise":
         epoch = sgd_ops_per_epoch(topo)
         return topo.num_weights * apply_ops_per_point(topo), epoch, epoch
     if topo.variant == "recurrent":
         epoch = rnn_sgd_ops_per_epoch(topo)
         return rnn_forward_ops(topo, topo.num_weights), epoch, epoch
-    return (kvec_apply_ops(topo),
-            kvec_reduce_ops(topo) + kvec_sgd_ops_per_epoch(topo, False),
-            kvec_sgd_ops_per_epoch(topo, True))
+    return (kvec_apply_ops(topo, reduce),
+            reduce(topo) + kvec_sgd_ops_per_epoch(topo, False, reduce),
+            kvec_sgd_ops_per_epoch(topo, True, reduce))
 
 
-def check_sgd(torch, what, fn, fn_plain, exact=False):
-    """An SGD chain against its plain version; ``exact``: the weights
-    bitwise, the mean loss within 1 ulp."""
+def check_sgd(torch, what, fn, fn_plain):
+    """An SGD chain against its plain version: the weights and the mean
+    loss bitwise."""
     (gw, gl), (rw, rl) = fn(), fn_plain()
-    return max(compare(torch, what + " weights", gw, rw,
-                       0 if exact else None),
-               compare(torch, what + " loss", gl, rl, 1 if exact else None))
+    return max(compare(torch, what + " weights", gw, rw, 0),
+               compare(torch, what + " loss", gl, rl, 0))
 
 
 def check_variant_kernels(torch, rows):
@@ -592,15 +623,21 @@ def check_variant_kernels(torch, rows):
               check_sgd(torch, "learn severity=1",
                         lambda: ck.kvec_learn_epochs(agg, w, other, 1),
                         lambda: ck.kvec_sgd_plain(agg, w, other, 1, 0.01)))
-    ms = timed_ms(torch, lambda: ck.kvec_train_epochs(agg, w, 10), 10)
+    run = lambda: ck.kvec_train_epochs(agg, w, 10)
+    ms = timed_ms(torch, run, 10)
+    dev = device_ms(run)
     plain = timed_ms(torch, lambda: ck.kvec_sgd_plain(agg, w, None, 10,
                                                       0.01), 1, warm=False)
-    b, by = bound_ms((2 * p + 1) * N * 4,
-                     N * 10 * kvec_sgd_ops_per_epoch(agg, True))
-    log(f"  train epochs=10: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"bound {b:.3f} ms ({by})")
-    rows["kvec_sgd"].update(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=b, bound_by=by)
+    epoch_ops = kvec_sgd_ops_per_epoch(agg, True)
+    issued = kvec_sgd_ops_per_epoch(agg, True, kvec_reduce_issued)
+    b, by = bound_ms((2 * p + 1) * N * 4, N * 10 * epoch_ops)
+    log(f"  train epochs=10: kernel {ms:.3f} ms (device {dev:.4f}), plain "
+        f"{plain:.3f} ms, bound {b:.3f} ms ({by}); the kernel issues {issued} "
+        f"FP32 instructions an epoch on a finite lane ({epoch_ops} "
+        f"operations), --fmad=false ceiling "
+        f"{fmad_off_ms(N * 10 * issued):.3f} ms")
+    rows["kvec_sgd"].update(max_abs_err=err, ms=ms, device_ms=dev,
+                            plain_ms=plain, bound_ms=b, bound_by=by)
 
     # K5: train 10 and learn 1
     p = rnn.num_weights
@@ -610,22 +647,22 @@ def check_variant_kernels(torch, rows):
     w[16, 0] = float("inf")
     err = max(check_sgd(torch, "train epochs=10",
                         lambda: crt.rnn_train_epochs(rnn, w, 10),
-                        lambda: crt.rnn_sgd_plain(rnn, w, None, 10, 0.01),
-                        exact=True),
+                        lambda: crt.rnn_sgd_plain(rnn, w, None, 10, 0.01)),
               check_sgd(torch, "learn severity=1",
                         lambda: crt.rnn_learn_epochs(rnn, w, other, 1),
-                        lambda: crt.rnn_sgd_plain(rnn, w, other, 1, 0.01),
-                        exact=True))
-    ms = timed_ms(torch, lambda: crt.rnn_train_epochs(rnn, w, 10), 10)
+                        lambda: crt.rnn_sgd_plain(rnn, w, other, 1, 0.01)))
+    run = lambda: crt.rnn_train_epochs(rnn, w, 10)
+    ms = timed_ms(torch, run, 10)
+    dev = device_ms(run)
     plain = timed_ms(torch, lambda: crt.rnn_sgd_plain(rnn, w, None, 10,
                                                       0.01), 1, warm=False)
     ops = N * 10 * rnn_sgd_ops_per_epoch(rnn)
     b, by = bound_ms((2 * p + 1) * N * 4, ops)
-    log(f"  train epochs=10: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"bound {b:.3f} ms ({by}), --fmad=false ceiling "
+    log(f"  train epochs=10: kernel {ms:.3f} ms (device {dev:.4f}), plain "
+        f"{plain:.3f} ms, bound {b:.3f} ms ({by}), --fmad=false ceiling "
         f"{fmad_off_ms(ops):.3f} ms")
-    rows["rnn_sgd"].update(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=b, bound_by=by)
+    rows["rnn_sgd"].update(max_abs_err=err, ms=ms, device_ms=dev,
+                           plain_ms=plain, bound_ms=b, bound_by=by)
 
     # K6: the attack, on victims of the attacker's length T = P and on the
     # mixed soup's cross victims (weightwise T = 14, aggregating T = 20)
@@ -637,16 +674,18 @@ def check_variant_kernels(torch, rows):
         kernel = cra.RNN_APPLY_BY_T[t_len]
         log(f"K6 {kernel.name} N={N} (victims T={t_len})")
         err = compare(torch, "attack", cra.rnn_apply(rnn, other, vT),
-                      cra.rnn_apply_plain(rnn, other, vT))
-        ms = timed_ms(torch, lambda: cra.rnn_apply(rnn, other, vT), 10)
+                      cra.rnn_apply_plain(rnn, other, vT), 0)
+        run = lambda: cra.rnn_apply(rnn, other, vT)
+        ms = timed_ms(torch, run, 10)
+        dev = device_ms(run)
         plain = timed_ms(torch, lambda: cra.rnn_apply_plain(rnn, other, vT),
                          1, warm=False)
         b, by = bound_ms((p + 2 * t_len) * N * 4,
                          N * rnn_forward_ops(rnn, t_len))
-        log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
-            f"({by})")
-        rows[kernel.name].update(max_abs_err=err, ms=ms, plain_ms=plain,
-                                 bound_ms=b, bound_by=by)
+        log(f"  kernel {ms:.3f} ms (device {dev:.4f}), plain {plain:.3f} ms, "
+            f"bound {b:.3f} ms ({by})")
+        rows[kernel.name].update(max_abs_err=err, ms=ms, device_ms=dev,
+                                 plain_ms=plain, bound_ms=b, bound_by=by)
     try:
         cra.rnn_apply(rnn, other, w[:10].contiguous())
     except ValueError:
@@ -670,17 +709,19 @@ def check_variant_kernels(torch, rows):
              torch.bfloat16)):
         log(f"K3 {kernel.name} N={N} ({topo.variant}, {dtype})")
         w = population(topo, N, gen, scale).to(dtype)
-        err, ms, plain, ops, kw, n_dead, only_ms = check_generation_body(
+        err, ms, plain, ops, kw, n_dead, only = check_generation_body(
             torch, topo, kernel, w, gen, reps=100 if key else 0)
         if key is None:
             continue
+        issued = gen_body_ops(topo, kvec_reduce_issued) \
+            if topo.variant == "aggregating" else None
         b, by = gen_body_bound(topo, ops, kw, n_dead, *gen_body_ops(topo),
-                               pop_bytes=w.element_size())
-        log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
-            f"({by})")
-        log_train_only(ms, only_ms)
-        rows[key].update(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                         bound_by=by)
+                               pop_bytes=w.element_size(), issued=issued)
+        log(f"  kernel {ms:.3f} ms (device {only['device']:.4f}), plain "
+            f"{plain:.3f} ms, bound {b:.3f} ms ({by})")
+        log_train_only(ms, only)
+        rows[key].update(max_abs_err=err, ms=ms, device_ms=only["device"],
+                         plain_ms=plain, bound_ms=b, bound_by=by)
 
     # every other instantiation at a small N
     n = 65536
@@ -700,18 +741,17 @@ def check_variant_kernels(torch, rows):
         os_ = population(t, n, gen, 0.5)
         if t.variant == "recurrent":
             check_sgd(torch, "K5 train=3", lambda: crt.rnn_train_epochs(
-                t, ws, 3), lambda: crt.rnn_sgd_plain(t, ws, None, 3, 0.01),
-                exact=True)
+                t, ws, 3), lambda: crt.rnn_sgd_plain(t, ws, None, 3, 0.01))
             check_sgd(torch, "K5 learn=2", lambda: crt.rnn_learn_epochs(
                 t, ws, os_, 2), lambda: crt.rnn_sgd_plain(t, ws, os_, 2,
-                                                         0.01), exact=True)
+                                                         0.01))
             compare(torch, "K6", cra.rnn_apply(t, os_, ws),
-                    cra.rnn_apply_plain(t, os_, ws))
+                    cra.rnn_apply_plain(t, os_, ws), 0)
             for t_len in (14, 20):
                 vs = population(Topology("weightwise") if t_len == 14
                                 else Topology("aggregating"), n, gen, 0.5)
                 compare(torch, f"K6 T={t_len}", cra.rnn_apply(t, os_, vs),
-                        cra.rnn_apply_plain(t, os_, vs))
+                        cra.rnn_apply_plain(t, os_, vs), 0)
         else:
             check_sgd(torch, "K4 train=3", lambda: ck.kvec_train_epochs(
                 t, ws, 3), lambda: ck.kvec_sgd_plain(t, ws, None, 3, 0.01))
@@ -1109,9 +1149,9 @@ def main() -> int:
 
     phase("build", build_kernels)
     log(f"tolerance: floats rtol {RTOL} atol {ATOL} with the non-finite "
-        "pattern exact; the weightwise and recurrent kernels (K1, K2, K5, "
-        "K3's weightwise and recurrent bodies) bitwise where finite, the "
-        "mean loss within 1 ulp; integer outputs exact")
+        "pattern exact; every kernel against its plain version bitwise "
+        "where finite (weights, attack outputs, the mean loss: 0 ulps); "
+        "integer outputs exact")
     from srnn_tpu_torch.bench_kernels import SmiSampler
 
     sampler = SmiSampler()
@@ -1129,7 +1169,8 @@ def main() -> int:
     for k in kernels:
         rows[k.name]["launches"] = launches[k.name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{key: rows[k.name][key] for key in keys}
                                   for k in kernels]}))
     print(smi)

@@ -1,29 +1,35 @@
 """Time versions of the hand-written kernels side by side on the card.
 
     python -m srnn_tpu_torch.bench_kernels [--variant LABEL=DIR ...]
-        [--group ww|rnn ...] [--size 1000000] [--rounds 3] [--reps 10]
+        [--group ww|rnn|kvec ...] [--size 1000000] [--rounds 3] [--reps 10]
 
 Builds the kernels of each ``--group`` from each variant's source directory
 ``DIR`` with the package's nvcc flags, one nvcc per source, all at once:
 ``ww`` is K1 (``csrc/ww_apply.cu``), K2 (``ww_train.cu``) and K3's
 weightwise bodies (``generation.cu``, ``generation_bf16.cu``); ``rnn`` is
 K5 (``rnn_train.cu``) and K3's recurrent bodies (``generation_rnn.cu``,
-``generation_rnn_bf16.cu``).  ``DIR`` may hold another commit's sources
+``generation_rnn_bf16.cu``); ``kvec`` is K4 (``kvec_train.cu``), K3's
+k-vector bodies (``generation_kvec.cu``, ``generation_kvec_bf16.cu``) and K6
+(``rnn_apply.cu``).  ``DIR`` may hold another commit's sources
 (``git archive <commit> srnn_tpu_torch/csrc``), so that two versions are
 compared in turns on one card.  Without ``--variant`` it times the
-package's own sources; without ``--group``, both groups.
+package's own sources; without ``--group``, every group.
 
 Each variant's outputs are held against the plain versions on the same
-inputs: weights and dead masks bitwise equal where finite with the same
-non-finite pattern, the mean loss within 1 ulp.  Then, in each of
-``--rounds`` rounds, the variants in turn, each time the median of
-``--reps`` CUDA-event timings (20 times as many for K3's short launches),
+inputs, bitwise: weights, the mean loss and the attack's output equal
+where finite with the same non-finite pattern, dead masks equal.  Then,
+in each of ``--rounds`` rounds, the variants in turn, each time the median
+of ``--reps`` CUDA-event timings (20 times as many for K3's short launches),
 K1's and K3's with the SM clock and the power draw that ``nvidia-smi``
 sampled meanwhile: K1 at steps 2000 on damped glorot lanes; K2 and K5
 self-training 10 epochs; K3's bodies in float32 and bfloat16 on
 ``chip_smoke.py``'s inputs (glorot lanes, 100 forced divergent and 100
 forced zero, attack 0.1, learn_from 0.1, severity 1, train 10, both
-removals) and with no attack and no learn operand (train only); K3's
+removals) and with no attack and no learn operand (train only), the
+k-vector bodies on aggregating (average) and fft particles; K4
+self-training 10 epochs and imitating 1 (an Inf and a NaN weight among
+glorot lanes); K6 on victims of length T = 14, 17 and 20 (weightwise,
+recurrent and aggregating lanes); K3's
 weightwise float32 body on the operands of one generation of the
 N-particle weightwise soup (seeded, five generations in), launched as the
 others and in the soup itself (the median of ten of the soup's own
@@ -31,20 +37,30 @@ launches, the glue kernels between them); and the soup's milliseconds a
 generation over 20 generations (host clock, ending in a synchronise).
 Each kernel timing brackets one call of the wrapper after a synchronise,
 as ``chip_smoke.py`` times, so it also counts the host's time in the
-wrapper before the launch; K2, K3 and K5 are also timed ``_streamed``,
-200 calls enqueued between one pair of events, which hides it.
+wrapper before the launch; K2 to K5 are also timed ``_streamed``, 200
+calls enqueued between one pair of events, which hides it where the
+kernel takes longer than the wrapper's host work (K6 only so); and K2 to K6
+``_device``, the mean of the kernel launches' own durations under
+``torch.profiler`` (CUPTI), which are device times for any kernel length.
+The ``kvec`` group also runs K3's aggregating float32 body on one
+generation's operands of the aggregating soup, in that soup, and the soup's
+milliseconds a generation, as ``ww`` does for the weightwise ones.
 
 Prints the card and its power limit, then one JSON line per variant: for
 each source, ptxas' registers, stack frame, spills and shared memory per
-block of the linear instantiations and the resident blocks and warps per
-SM those admit, and the SASS census of those instantiations (``cuobjdump
--sass``: instructions, FMUL, FADD, FFMA, MOV, local loads and stores);
-then each time per round.  Needs a CUDA card and nvcc.
+block of the linear instantiations (for the k-vector sources the linear
+average ones) and the resident blocks and warps per SM those admit, the
+SASS census of those instantiations (``cuobjdump -sass``: instructions,
+FMUL, FADD, FFMA, MOV, local loads and stores) and a digest of the whole
+library's SASS (the anonymous namespace's hash masked, so that two builds
+of the same code agree); then each time per round.  Needs a CUDA card and
+nvcc.
 """
 
 import argparse
 import ctypes
 import datetime
+import hashlib
 import json
 import math
 import re
@@ -61,6 +77,8 @@ from . import Topology
 from .init import fresh_lanes
 from .ops import _build
 from .ops import cuda_generation as cg
+from .ops import cuda_kvec_train as ck
+from .ops import cuda_rnn_apply as cra
 from .ops import cuda_rnn_train as crt
 from .ops import cuda_ww as cw
 from .ops import cuda_ww_train as cwt
@@ -68,6 +86,8 @@ from .ops import cuda_ww_train as cwt
 GROUPS = {
     "ww": ("ww_apply", "ww_train", "generation", "generation_bf16"),
     "rnn": ("rnn_train", "generation_rnn", "generation_rnn_bf16"),
+    "kvec": ("kvec_train", "generation_kvec", "generation_kvec_bf16",
+             "rnn_apply"),
 }
 
 # One H100 SM (CUDA occupancy rules for compute capability 9.0): registers
@@ -76,8 +96,10 @@ GROUPS = {
 PARTITION_REGS, PARTITIONS, REG_UNIT = 16384, 4, 256
 SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
 MAX_WARPS, MAX_BLOCKS = 64, 32
-#: mangled-name fragment of the width-2 / depth-2 / linear instantiations
+#: mangled-name fragment of the width-2 / depth-2 / linear instantiations,
+#: and of the k-vector kernels' aggregates-4 / linear / average ones
 LINEAR = "Li2ELi2ELi0E"
+KVEC_LINEAR = "Li2ELi2ELi4ELi0ELi0E"
 #: SASS opcodes the census counts
 CENSUS = ("FMUL", "FADD", "FFMA", "MOV", "LDL", "STL")
 
@@ -85,6 +107,11 @@ K1_STEPS = 2000
 SOUP_GENERATIONS = 5
 #: calls enqueued between one pair of events (streamed_ms)
 STREAMED = 200
+#: calls traced for their kernels' durations (device_ms)
+TRACED = 50
+#: the port's kernels, by a part of the name the profiler gives them
+KERNEL_NAMES = ("ww_apply_kernel", "ww_sgd_kernel", "generation_kernel",
+                "kvec_sgd_kernel", "rnn_sgd_kernel", "rnn_apply_kernel")
 
 
 class Variant(NamedTuple):
@@ -169,11 +196,19 @@ def resident_blocks(regs: int, smem: int, threads: int) -> int:
     return min(by_regs, by_smem, MAX_WARPS // warps, MAX_BLOCKS)
 
 
-def linear_resources(log: Path, threads: int = 128) -> dict:
-    """ptxas' numbers for the linear-activation (width 2, depth 2)
-    instantiations of one library, and the residency they admit."""
+def census_fragment(source: str) -> str:
+    """The mangled-name fragment of the instantiations that the census and
+    the resource report of ``csrc/<source>.cu`` cover."""
+    return KVEC_LINEAR if "kvec" in source else LINEAR
+
+
+def linear_resources(log: Path, frag: str = LINEAR,
+                     threads: int = 128) -> dict:
+    """ptxas' numbers for the instantiations of one library whose names
+    hold ``frag`` (the linear-activation, width 2, depth 2 ones), and the
+    residency they admit."""
     ents = {k: e for k, e in ptxas_entries(log.read_text()).items()
-            if LINEAR in k and "regs" in e}
+            if frag in k and "regs" in e}
     regs = max(e["regs"] for e in ents.values())
     smem = max(e["smem"] for e in ents.values())
     blocks = resident_blocks(regs, smem, threads)
@@ -188,17 +223,37 @@ def cuobjdump_path() -> str:
     return found or str(Path(_build.nvcc_path()).with_name("cuobjdump"))
 
 
-def sass_census(lib: Path) -> Dict[str, dict]:
-    """Per kernel of a built library whose name holds a linear
-    instantiation: its SASS instruction count and the counts of the
-    ``CENSUS`` opcodes (predicated ones included)."""
-    sass = subprocess.run([cuobjdump_path(), "-sass", str(lib)],
+def sass_text(lib: Path) -> str:
+    return subprocess.run([cuobjdump_path(), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
+
+
+def sass_digest(sass: str) -> str:
+    """Hash of a library's SASS: the multiset of its kernels' instruction
+    streams, names left out (the anonymous namespace's name differs between
+    two builds of the same source)."""
+    kernels, cur = [], None
+    for line in sass.splitlines():
+        if re.search(r"Function : \S+", line):
+            cur = []
+            kernels.append(cur)
+        elif cur is not None and re.match(r"\s+/\*[0-9a-f]+\*/", line):
+            cur.append(line.strip())
+    h = hashlib.sha256()
+    for code in sorted("\n".join(k) for k in kernels):
+        h.update(hashlib.sha256(code.encode()).digest())
+    return h.hexdigest()[:16]
+
+
+def sass_census(sass: str, frag: str = LINEAR) -> Dict[str, dict]:
+    """Per kernel of a library's SASS whose name holds ``frag`` (a linear
+    instantiation): its SASS instruction count and the counts of the
+    ``CENSUS`` opcodes (predicated ones included)."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = Counter() if LINEAR in m.group(1) else None
+            cur = Counter() if frag in m.group(1) else None
             if cur is not None:
                 out[m.group(1)] = cur
             continue
@@ -329,6 +384,30 @@ def streamed_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(fn, reps: int = TRACED) -> float:
+    """Mean duration of the port's kernel launches in ``reps`` runs of
+    ``fn`` under ``torch.profiler``, after a warm-up run: the device's time
+    in the kernels alone, whatever the host spends around them."""
+    from .profile_soup import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    traced = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()]
+    ours = [(c, us) for k, c, us in traced
+            if us > 0 and any(name in k for name in KERNEL_NAMES)]
+    if not ours:
+        seen = sorted(k[:60] for k, _, us in traced if us > 0)
+        raise RuntimeError(f"the profiler recorded no kernel of the port "
+                           f"in {reps} runs; device events: {seen[:12]}")
+    return sum(us for _, us in ours) / sum(c for c, _ in ours) / 1e3
+
+
 def generation_inputs(topo, wT, gen, rate=0.1):
     """``chip_smoke.py``'s K3 inputs on the population ``wT``: lanes 0..99
     forced divergent and 100..199 forced zero with their gates off, attacked
@@ -358,18 +437,18 @@ GEN_KW = dict(severity=1, train=10, lr=0.01, remove_divergent=True,
 
 
 class SoupProbe:
-    """The weightwise float32 soup of N = n particles with the full dynamics
-    of ``profile_soup``, seeded and ``SOUP_GENERATIONS`` generations in:
-    the operands of its next K3 launch, and K3's time on the soup's own
-    launches."""
+    """The float32 soup of ``topo`` (weightwise unless given), N = n
+    particles, with the full dynamics of ``profile_soup``, seeded and
+    ``SOUP_GENERATIONS`` generations in: the operands of its next K3 launch,
+    and K3's time on the soup's own launches."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, topo: Topology = None):
         from . import soup as st
         from .profile_soup import DYNAMICS
 
         self.st = st
         self.cfg = st.SoupConfig(
-            topo=Topology("weightwise", width=2, depth=2), size=n,
+            topo=topo or Topology("weightwise", width=2, depth=2), size=n,
             generation_impl="fused", **DYNAMICS)
         self.state = st.evolve(self.cfg, st.seed(self.cfg, 0, device="cuda"),
                                SOUP_GENERATIONS)
@@ -431,12 +510,17 @@ def cases(n: int, groups) -> Dict[str, tuple]:
         out.update(ww_cases(n, gen))
     if "rnn" in groups:
         out.update(rnn_cases(n, gen))
-    # the short launches also streamed (timed by themselves: their runs
-    # return the time)
+    if "kvec" in groups:
+        out.update(kvec_cases(n, gen))
+    # the short launches also streamed and traced (timed by themselves:
+    # their runs return the time)
     for name, (run, plain, timed) in list(out.items()):
-        if name.startswith(("k2", "k3", "k5")) and plain and timed:
+        if name.startswith(("k2", "k3", "k4", "k5")) and plain and timed:
             out[f"{name}_streamed"] = (
                 lambda run=run: streamed_ms(run, STREAMED), None, True)
+        if name.startswith(("k2", "k3", "k4", "k5", "k6")) and plain:
+            out[f"{name}_device"] = (lambda run=run: device_ms(run), None,
+                                     True)
     return out
 
 
@@ -487,10 +571,54 @@ def rnn_cases(n: int, gen) -> Dict[str, tuple]:
     return out
 
 
+def kvec_cases(n: int, gen) -> Dict[str, tuple]:
+    """K4 train 10 and learn 1; K3's k-vector bodies on aggregating and fft
+    particles; K6 at T = 14, 17 and 20, streamed only."""
+    agg = Topology("aggregating", width=2, depth=2, aggregates=4)
+    fft = Topology("fft", width=2, depth=2, aggregates=4)
+    rnn = Topology("recurrent", width=2, depth=2)
+    w = fresh_lanes(agg, gen, n, "fused", "cuda").contiguous()
+    other = fresh_lanes(agg, gen, n, "fused", "cuda").contiguous()
+    poisoned = w.clone()
+    poisoned[3, 0] = float("inf")
+    poisoned[10, 1] = float("nan")
+    out = {
+        "k4_train10": (lambda: ck.kvec_train_epochs(agg, poisoned, 10),
+                       lambda: ck.kvec_sgd_plain(agg, poisoned, None, 10,
+                                                 0.01), True),
+        "k4_learn1": (lambda: ck.kvec_learn_epochs(agg, poisoned, other, 1),
+                      lambda: ck.kvec_sgd_plain(agg, poisoned, other, 1,
+                                                0.01), True)}
+    out.update(generation_cases(agg, w, gen))
+    out.update(generation_cases(
+        fft, fresh_lanes(fft, gen, n, "fused", "cuda").contiguous(), gen))
+    probe = SoupProbe(n, agg)
+    out["k3agg_f32_soup"] = (probe.launch, probe.plain, True)
+    # timed by themselves: their runs return the time
+    out["k3agg_f32_in_soup"] = (probe.in_soup_ms, None, True)
+    out["soup_agg_fused_ms_per_generation"] = (probe.ms_per_generation, None,
+                                               True)
+    attackers = (fresh_lanes(rnn, gen, n, "fused", "cuda") * 0.5).contiguous()
+    for t_len, vic in ((14, Topology("weightwise", width=2, depth=2)),
+                       (17, rnn), (20, agg)):
+        vT = (fresh_lanes(vic, gen, n, "fused", "cuda") * 0.5).contiguous()
+        run = lambda vT=vT: cra.rnn_apply(rnn, attackers, vT)
+        out[f"k6_t{t_len}"] = (
+            run, lambda vT=vT: cra.rnn_apply_plain(rnn, attackers, vT), False)
+        out[f"k6_t{t_len}_streamed"] = (
+            lambda run=run: streamed_ms(run, STREAMED), None, True)
+    return out
+
+
+#: K3 cases' tag by variant
+K3_TAGS = {"weightwise": "k3ww", "recurrent": "k3rnn", "aggregating": "k3agg",
+           "fft": "k3fft"}
+
+
 def generation_cases(topo, w, gen) -> Dict[str, tuple]:
     """K3's body of ``topo`` in float32 and bfloat16, at the gates and
     train only."""
-    tag = "k3ww" if topo.variant == "weightwise" else "k3rnn"
+    tag = K3_TAGS[topo.variant]
     out = {}
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         wd, ops, only = generation_inputs(topo, w.to(dtype), gen)
@@ -515,7 +643,7 @@ def check(label: str, runs: Dict[str, tuple], refs: Dict[str, tuple]) -> None:
             check_exact(f"{label} {name}", got, ref)
             continue
         check_exact(f"{label} {name} weights", got[0], ref[0])
-        check_exact(f"{label} {name} loss", got[1], ref[1], ulps=1)
+        check_exact(f"{label} {name} loss", got[1], ref[1])
         for g, r in zip(got[2:], ref[2:]):
             if not torch.equal(g, r):
                 raise AssertionError(f"{label} {name}: dead masks differ")
@@ -543,24 +671,35 @@ def main(argv=None) -> int:
     libs = build(variants, sources)
     runs = cases(args.size, groups)
     refs = {name: plain() for name, (_, plain, _) in runs.items() if plain}
-    results = {}
+    results, failed = {}, []
     for v in variants:
         install(libs[v.label])
-        check(v.label, runs, refs)
+        try:
+            check(v.label, runs, refs)
+        except AssertionError as e:
+            # reported, and left out of the timing; the run fails at the end
+            print(f"{v.label}: {e}", flush=True)
+            failed.append(v.label)
+            continue
+        sass = {name: sass_text(path) for name, path in libs[v.label].items()}
         results[v.label] = {
             "label": v.label, "csrc": str(v.csrc),
             "card": smi, "bitwise": True,
-            "ptxas": {name: {**linear_resources(path.with_suffix(".log")),
+            "ptxas": {name: {**linear_resources(path.with_suffix(".log"),
+                                                census_fragment(name)),
                              "nvcc_s": float(path.with_suffix(
                                  ".seconds").read_text())}
                       for name, path in libs[v.label].items()},
-            "sass": {name: sass_census(path)
-                     for name, path in libs[v.label].items()},
+            "sass": {name: sass_census(sass[name], census_fragment(name))
+                     for name in libs[v.label]},
+            "sass_digest": {name: sass_digest(sass[name])
+                            for name in libs[v.label]},
             "ms": {name: [] for name, (_, _, t) in runs.items() if t},
             "clocks": {name: [] for name, (_, _, t) in runs.items()
                        if t and name.startswith(("k1", "k3"))}}
     smi_log = SmiSampler()
     windows = []
+    variants = [v for v in variants if v.label in results]
     for _ in range(args.rounds):
         for v in variants:
             install(libs[v.label])
@@ -579,7 +718,10 @@ def main(argv=None) -> int:
     for v in variants:
         print(json.dumps(results[v.label]), flush=True)
     _build._LOADED.clear()
-    return 0
+    if failed:
+        print(f"not bitwise equal to the plain versions: {failed}",
+              flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -16,9 +16,8 @@
 //
 // Design: the arithmetic is ww_common.cuh's, with the coordinates as
 // compile-time constants (an application issues 250 instructions, an epoch
-// 52 fewer than the reference's count), and the body opts in to the
-// skeleton's deal (kSortGated): a block's learners and attacked lanes run
-// in its first threads, so that the attack and imitation run in about one
+// 52 fewer than the reference's count), and the skeleton deals a block's
+// learners and attacked lanes to its first threads, so that the attack and imitation run in about one
 // warp of the four instead of in nearly every warp with most lanes idle.
 // Neither changes a rounded operation, so the results are the same bitwise.
 // ptxas' report for this kernel is printed by chip_smoke.py (the build log).
@@ -34,7 +33,6 @@ struct NoConsts {};
 template <int W, int D, int A>
 struct WwBody {
   static constexpr int P = srnn::WW<W, D>::P;
-  static constexpr bool kSortGated = true;
   using Consts = NoConsts;
   __device__ static void apply(const float (&self)[P], const float (&x)[P],
                                float (&out)[P], const Consts&) {

@@ -27,11 +27,13 @@
 // discarded it with a where; the result is the same).  A warp runs a phase
 // when any of its 32 lanes is gated, so at the paper's rates (0.1) about
 // 1 - 0.9^32 = 97% of warps would run the attack and the learn work with
-// most lanes idle.  The weightwise and recurrent bodies opt in
-// (B::kSortGated) to dealing each block's lanes to its threads gated first
-// (deal_lane), so that those phases run in about one warp of the four; the
-// k-vector body, whose training is cheap beside its memory traffic, does
-// not.  The learner's imitation target is recomputed to its post-attack
+// most lanes idle.  So each block's lanes are dealt to its threads gated
+// first (deal_lane), and those phases run in about one warp of the four.
+// A dealt warp's loads and stores of a population row then spread over the
+// block's 128 columns; the k-vector body, whose training is short beside
+// its memory traffic, opts in (B::kStageTile) to staging the block's tile
+// through shared memory so that they stay coalesced (generation_kernel's
+// STAGE).  The learner's imitation target is recomputed to its post-attack
 // value in-thread from the target's pre-attack column and its attacker's
 // column, so no mid-generation round trip through device memory is needed.
 //
@@ -43,7 +45,9 @@
 //                                     (its sample derived once);
 //   B::train(rows, e, lr, co)         e self-training epochs, the sample
 //                                     refreshed at each epoch top; returns
-//                                     the last epoch's loss (0 for e = 0).
+//                                     the last epoch's loss (0 for e = 0);
+//   B::kStageTile                     optional, false when absent: stage
+//                                     the block's tile (STAGE below).
 
 #pragma once
 
@@ -84,57 +88,95 @@ struct GenArgs {
   int remove_zero;
 };
 
-// The lane this thread runs.  Unsorted: its own.  SORT: the block's lanes
-// dealt to its threads gated first -- the learners, then the other attacked
-// lanes, then the rest (each group in no set order) -- so that the gated
-// phases run in the first warp or so while the other warps go straight to
-// self-training.  Every lane's arithmetic is its own either way, so the
-// results are the same bitwise.
-template <bool SORT, class Pop>
+// The lane this thread runs: the block's lanes dealt to its threads gated
+// first -- the learners, then the other attacked lanes, then the rest (each
+// group in no set order) -- so that the gated phases run in the first warp
+// or so while the other warps go straight to self-training.  Every lane's
+// arithmetic is its own, so the results are the same bitwise whichever
+// thread runs it.
+template <class Pop>
 __device__ __forceinline__ long long deal_lane(const GenArgs<Pop>& g) {
   const long long base = static_cast<long long>(blockIdx.x) * blockDim.x;
-  if constexpr (!SORT) {
-    return base + threadIdx.x;
-  } else {
-    const long long n = g.n;
-    const long long mine = base + threadIdx.x;
-    __shared__ int count[3];  // learners, other attacked lanes, the rest
-    __shared__ int order[kThreads];
-    if (threadIdx.x < 3) count[threadIdx.x] = 0;
-    __syncthreads();
-    int group = 2;
-    if (mine < n) {
-      if (g.oth != nullptr && g.severity > 0 && g.gates[lane(1, n, mine)] != 0) {
-        group = 0;
-      } else if (g.atk != nullptr && g.gates[lane(0, n, mine)] != 0) {
-        group = 1;
-      }
+  const long long n = g.n;
+  const long long mine = base + threadIdx.x;
+  __shared__ int count[3];  // learners, other attacked lanes, the rest
+  __shared__ int order[kThreads];
+  if (threadIdx.x < 3) count[threadIdx.x] = 0;
+  __syncthreads();
+  int group = 2;
+  if (mine < n) {
+    if (g.oth != nullptr && g.severity > 0 && g.gates[lane(1, n, mine)] != 0) {
+      group = 0;
+    } else if (g.atk != nullptr && g.gates[lane(0, n, mine)] != 0) {
+      group = 1;
     }
-    const int ticket = atomicAdd(&count[group], 1);
-    __syncthreads();
-    order[(group > 0 ? count[0] : 0) + (group > 1 ? count[1] : 0) + ticket] =
-        threadIdx.x;
-    __syncthreads();
-    return base + order[threadIdx.x];
   }
+  const int ticket = atomicAdd(&count[group], 1);
+  __syncthreads();
+  order[(group > 0 ? count[0] : 0) + (group > 1 ? count[1] : 0) + ticket] =
+      threadIdx.x;
+  __syncthreads();
+  return base + order[threadIdx.x];
 }
 
 template <class B, class = void>
-struct SortGated : std::false_type {};
+struct StageTile : std::false_type {};
 template <class B>
-struct SortGated<B, std::void_t<decltype(B::kSortGated)>>
-    : std::bool_constant<B::kSortGated> {};
+struct StageTile<B, std::void_t<decltype(B::kStageTile)>>
+    : std::bool_constant<B::kStageTile> {};
 
-template <class B, class Pop, bool SORT>
+// STAGE (B::kStageTile): the block's (P, kThreads) tile of the population,
+// and its loss and dead masks, cross device memory through shared memory.  Every thread loads and stores its own column, so each
+// warp's access to a row stays one contiguous 128 bytes (4 sectors), and
+// the dealt thread reads and writes its lane's column of the tile; dealt
+// straight from device memory, a warp's access to a row spans the block's
+// 128 columns (up to 16 sectors).  The gated operand columns (attacker,
+// target, its attacker) are read by the dealt thread, sparse either way.
+template <int P>
+struct StagedTile {
+  float rows[P][kThreads];
+  float loss[kThreads];
+  int dead[2][kThreads];
+};
+
+// The block's staged tile (a function's shared memory, so that a kernel
+// that does not stage declares none).
+template <int P>
+__device__ __forceinline__ StagedTile<P>& staged_tile() {
+  __shared__ StagedTile<P> tile;
+  return tile;
+}
+
+template <class B, class Pop, bool STAGE>
 __global__ void __launch_bounds__(kThreads)
 generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
   constexpr int P = B::P;
   const long long n = g.n;
-  const long long i = deal_lane<SORT>(g);
-  if (i >= n) return;
-  float rows[P];
+  const long long base = static_cast<long long>(blockIdx.x) * blockDim.x;
+  if constexpr (STAGE) {
+    const long long mine = base + threadIdx.x;
+    if (mine < n) {
 #pragma unroll
-  for (int r = 0; r < P; ++r) rows[r] = load_f32(g.wT, lane(r, n, i));
+      for (int r = 0; r < P; ++r)
+        staged_tile<P>().rows[r][threadIdx.x] = load_f32(g.wT, lane(r, n, mine));
+    }
+  }
+  const long long dealt = deal_lane(g);  // its barriers publish the tile
+  if constexpr (!STAGE) {
+    if (dealt >= n) return;
+  }
+  // a staged block's threads all reach its barriers: a thread dealt a
+  // column past the end runs the last lane's phases and keeps nothing
+  const long long i = STAGE && dealt >= n ? n - 1 : dealt;
+  float rows[P];
+  if constexpr (STAGE) {
+#pragma unroll
+    for (int r = 0; r < P; ++r) rows[r] = staged_tile<P>().rows[r][i - base];
+    __syncthreads();  // every column read before any is overwritten
+  } else {
+#pragma unroll
+    for (int r = 0; r < P; ++r) rows[r] = load_f32(g.wT, lane(r, n, i));
+  }
 
   // attack: the gated lanes are rewritten by their attacker's net
   if (g.atk != nullptr && g.gates[lane(0, n, i)] != 0) {
@@ -180,21 +222,40 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
     zero = zero && !div;
   }
   const bool dead = div || zero;
+  if constexpr (STAGE) {
+    StagedTile<P>& tile = staged_tile<P>();
+    const int c = static_cast<int>(dealt - base);
 #pragma unroll
-  for (int r = 0; r < P; ++r) {
-    const long long k = lane(r, n, i);
-    store_pop(g.out, k, dead ? g.fresh[k] : rows[r]);
+    for (int r = 0; r < P; ++r) tile.rows[r][c] = dead ? g.fresh[lane(r, n, i)] : rows[r];
+    tile.loss[c] = last;
+    tile.dead[0][c] = div ? 1 : 0;
+    tile.dead[1][c] = zero ? 1 : 0;
+    __syncthreads();
+    const long long mine = base + threadIdx.x;
+    if (mine < n) {
+#pragma unroll
+      for (int r = 0; r < P; ++r) store_pop(g.out, lane(r, n, mine), tile.rows[r][threadIdx.x]);
+      g.loss[mine] = tile.loss[threadIdx.x];
+      g.dead[lane(0, n, mine)] = tile.dead[0][threadIdx.x];
+      g.dead[lane(1, n, mine)] = tile.dead[1][threadIdx.x];
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const long long k = lane(r, n, i);
+      store_pop(g.out, k, dead ? g.fresh[k] : rows[r]);
+    }
+    g.loss[i] = last;
+    g.dead[lane(0, n, i)] = div ? 1 : 0;
+    g.dead[lane(1, n, i)] = zero ? 1 : 0;
   }
-  g.loss[i] = last;
-  g.dead[lane(0, n, i)] = div ? 1 : 0;
-  g.dead[lane(1, n, i)] = zero ? 1 : 0;
 }
 
 template <class B, class Pop>
 inline int launch_generation(const GenArgs<Pop>& g,
                              const typename B::Consts& co, void* stream) {
-  generation_kernel<B, Pop, SortGated<B>::value><<<blocks_for(g.n), kThreads, 0,
-      static_cast<cudaStream_t>(stream)>>>(g, co);
+  generation_kernel<B, Pop, StageTile<B>::value><<<
+      blocks_for(g.n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(g, co);
   return static_cast<int>(cudaGetLastError());
 }
 

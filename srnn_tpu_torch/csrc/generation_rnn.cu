@@ -18,9 +18,9 @@
 // reverse-time sweep over all layers; the attack runs the stack time-major
 // and stores nothing but its output.  The gated phases (attack, learn) are
 // per lane, and a warp carrying any gated lane runs them with the rest
-// idle, which cost a quarter of the kernel; so the body opts in to the
-// skeleton's sorted deal (kSortGated: the learners and attacked lanes to
-// the block's first threads), which cut the kernel by a tenth
+// idle, which cost a quarter of the kernel; so the skeleton deals the
+// learners and attacked lanes to the block's first threads, which cut the
+// kernel by a tenth
 // (generation_common.cuh, PERF.md).
 
 #include "generation_common.cuh"
@@ -33,7 +33,6 @@ struct NoConsts {};
 template <int W, int D, int A>
 struct RnnBody {
   static constexpr int P = srnn::RNN<W, D>::P;
-  static constexpr bool kSortGated = true;
   using Consts = NoConsts;
   __device__ __forceinline__ static void apply(const float (&self)[P],
                                                const float (&x)[P],

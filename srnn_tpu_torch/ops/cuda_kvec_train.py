@@ -44,15 +44,16 @@ KVEC_SGD = LaneKernel(
     SGD_HEAD + [_I, _I, _I, _I, _I, _P, _P],
     replaces="srnn_tpu/ops/pallas_kvec_train.py:202")
 
-#: reduce kind -> the code of ``csrc/kvec_common.cuh`` (``enum Reduce``)
-REDUCE_CODES = {"average": 0, "max": 1, "max_buggy": 2, "dft": 3}
+#: reduce kind -> the code of ``csrc/kvec_common.cuh`` (``enum Reduce``):
+#: the aggregators, and the fft variant's DFT by ``fft_mode``
+REDUCE_CODES = {"average": 0, "max": 1, "max_buggy": 2, "fft": 3, "rfft": 4}
 
 #: kinds of a basis entry in the kernel's tables
 _SKIP, _ONE, _MUL = 0.0, 1.0, 2.0
 
 
 def reduce_kind(topo: Topology) -> str:
-    return "dft" if topo.variant == "fft" else topo.aggregator
+    return topo.fft_mode if topo.variant == "fft" else topo.aggregator
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,10 +96,12 @@ def _f32(c: float) -> float:
 
 @functools.lru_cache(maxsize=None)
 def kvec_tables(topo: Topology) -> np.ndarray:
-    """The kernels' constant tables as one float32 host array (layout of
-    ``KvecTables`` in ``csrc/kvec_common.cuh``): reduce basis (k, P),
-    expand basis (P, k), their entry kinds (0 skip, 1 the row itself, 2
-    times the coefficient), and whether the transform reads the target."""
+    """The kernels' constant tables as one float32 host array: reduce
+    basis (k, P), expand basis (P, k), their entry kinds (0 skip, 1 the row
+    itself, 2 times the coefficient), and whether the transform reads the
+    target.  The kernels compile these tables in (``DftTable`` in
+    ``csrc/kvec_common.cuh``) and refuse a host array that differs from
+    them bit for bit (``tables_match``): the wrappers then raise."""
     p, k = topo.num_weights, topo.aggregates
     red = np.zeros((k, p))
     red_kind = np.zeros((k, p))
@@ -178,7 +181,9 @@ def kvec_sgd_chain_plain(topo: Topology, rows0: Sequence[torch.Tensor],
         loss = err[0] * err[0]
         for j in range(1, k):
             loss = loss + err[j] * err[j]
-        loss = loss / k
+        # a tensor divisor: on the card torch takes a Python scalar divisor as
+        # a multiply by its reciprocal, not the kernels' division
+        loss = loss / torch.full_like(loss, k)
         grads = mlp_backward_plain(topo, rows, acts,
                                    [err[j] * _f32(2.0 / k) for j in range(k)],
                                    act_grad)

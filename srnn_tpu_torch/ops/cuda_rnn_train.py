@@ -84,7 +84,9 @@ def bptt_epoch_plain(topo: Topology, rows: Sequence[torch.Tensor],
     loss = err[0] * err[0]
     for t in range(1, t_len):
         loss = loss + err[t] * err[t]
-    loss = loss / t_len
+    # a tensor divisor: on the card torch takes a Python scalar divisor as
+    # a multiply by its reciprocal, not the kernels' division
+    loss = loss / torch.full_like(loss, t_len)
     zero = torch.zeros_like(rows[0])
     grads = [zero] * topo.num_weights
     scale = float(np.float32(2.0 / t_len))

@@ -95,7 +95,9 @@ def sgd_chain_plain(topo: Topology, rows0: Sequence[torch.Tensor],
                                        act_grad)
             for r in range(p):
                 rows[r] = rows[r] - lr * grads[r]
-        last = loss_acc / p
+        # a tensor divisor: on the card torch takes a Python scalar divisor as
+        # a multiply by its reciprocal, not the kernels' division
+        last = loss_acc / torch.full_like(loss_acc, p)
     return rows, last
 
 

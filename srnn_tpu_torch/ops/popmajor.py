@@ -90,7 +90,9 @@ def _ww_seq_sgd_flat(topo: Topology, wT: torch.Tensor, epochs: int,
                 (grads,) = torch.autograd.grad(per_particle.sum(), wi)
             w = w - lr * grads
             accum = accum + per_particle.detach()
-        last = accum / p
+        # a tensor divisor: on the card torch takes a Python scalar divisor as
+        # a multiply by its reciprocal, not the kernels' division
+        last = accum / torch.full_like(accum, p)
     return w, last
 
 
