@@ -41,12 +41,26 @@ Phases, each fatal on failure:
    kernel once per victim type); then the weightwise, aggregating and
    recurrent soups with population_dtype='bf16' on the fused route (K3's
    bfloat16 bodies); then the applications/s program, N = 1M, steps = 2000
-   (self-application kernel only); then, to inform, ``run_fixpoint`` class
-   counts of fresh aggregating and recurrent nets;
-5. a small soup of each variant, a small mixed soup, and small bf16 and
+   (self-application kernel only, through ``srnn_tpu_torch.bench``); then,
+   to inform, ``run_fixpoint`` class counts of fresh aggregating and
+   recurrent nets;
+5. the fixpoint engines and setups: at N = 1M, weightwise ``run_fixpoint``
+   (100 steps: K1 once a step), ``run_training`` (100 epochs: K2 once an
+   epoch), ``run_mixed_fixpoint`` (4 steps x 50 trains: K1 and K2 once a
+   step), ``run_known_fixpoint_variation`` (100 steps: K1 once a step and
+   once more) and ``fixpoint_density`` (no kernel), and ``run_training`` of
+   the aggregating and recurrent variants (100 epochs: K4 / K5 once an
+   epoch), each run's launch counts exact, class counts summing to N and
+   weights non-finite exactly where a trial is classed divergent; the six
+   fixpoint setups at their default sizes, all at once, each through
+   ``python -m srnn_tpu_torch.setups`` in a subprocess, their artifacts
+   loaded and their launch counts (SRNN_LAUNCH_COUNTS) exact; then every
+   engine on 512 trials of each standard variant on the card against the
+   same call on the CPU (integers exact, floats within rtol/atol);
+6. a small soup of each variant, a small mixed soup, and small bf16 and
    int8 soups, each on the card against the same soup on the CPU, fed the
    same draws, over 3 generations on both routes;
-6. one JSON line listing every kernel (K3 once per variant body and
+7. one JSON line listing every kernel (K3 once per variant body and
    population dtype, K6 once per victim length), then the
    card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
@@ -766,10 +780,12 @@ def check_variant_kernels(torch, rows):
 
 
 
-def check_launches(kernels, what: str, expect: dict) -> dict:
-    """This run's launch counts, which must be exactly ``expect`` (0 for a
-    kernel that ``expect`` does not name)."""
-    got = {k.name: k.launches for k in kernels}
+def check_launches(kernels, what: str, expect: dict, got=None) -> dict:
+    """This run's launch counts (the kernels' own, or ``got``: {name:
+    launches}, a name it lacks counting 0), which must be exactly
+    ``expect`` (0 for a kernel that ``expect`` does not name)."""
+    got = {k.name: (k.launches if got is None else got.get(k.name, 0))
+           for k in kernels}
     want = {k.name: expect.get(k.name, 0) for k in kernels}
     log(f"  {what} launches {got}")
     if got != want:
@@ -877,7 +893,7 @@ def main_path(torch, kernels):
     the public entry points, each run with its own launch counts; returns
     the launch counts summed over the runs."""
     import srnn_tpu_torch as st
-    from srnn_tpu_torch.ops import cuda_ww
+    from srnn_tpu_torch.bench import measure
 
     runs = GENERATIONS + 1
     totals = {k.name: 0 for k in kernels}
@@ -905,22 +921,16 @@ def main_path(torch, kernels):
         soup_runs(torch, kernels, totals,
                   st.Topology(variant, width=2, depth=2, aggregates=4),
                   {kernel: runs}, None, population_dtype="bf16")
-    # applications/s: N particles x BENCH_STEPS chained self-applications
-    w = (st.init_population(topo, 1, N, "cuda") * 0.05).t().contiguous()
+    # applications/s: N particles x 2000 chained self-applications,
+    # the program of python -m srnn_tpu_torch.bench (it checks the output
+    # is finite)
     for k in kernels:
         k.launches = 0
-    out = cuda_ww.ww_apply_population(topo, w, BENCH_STEPS)
-    torch.cuda.synchronize()
-    calls = 3
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        out = cuda_ww.ww_apply_population(topo, w, BENCH_STEPS)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if not bool(torch.isfinite(out).all()):
-        raise AssertionError("applications/s program: non-finite output")
-    log(f"applications/s: {N * BENCH_STEPS * calls / dt:.6e} at N={N}, "
-        f"steps={BENCH_STEPS} ({dt * 1e3 / calls:.3f} ms per call)")
+    row = measure(N)
+    calls = row["calls"]
+    log(f"applications/s: {row['value']:.6e} at N={N}, steps={row['steps']} "
+        f"({row['seconds'] * 1e3 / calls:.3f} ms per call; "
+        f"srnn_tpu_torch.bench)")
     for name, n in check_launches(kernels, "applications/s program",
                                   {"ww_apply": calls + 1}).items():
         totals[name] += n
@@ -949,8 +959,267 @@ def fixpoint_census(torch):
                                  f"{counts} do not sum to {trials}")
 
 
+#: launches of each setup's CLI at its default sizes: applying_fixpoints and
+#: network_trajectorys 100 weightwise steps; known_fixpoint_variation 10
+#: levels of 100 steps and one more application each; mixed_self_fixpoints
+#: 11 train values x 4 self-attacks (no SGD launch for 0 trains) per
+#: variant; training_fixpoints 1000 epochs per variant
+SETUP_LAUNCHES = {
+    "applying_fixpoints": {"ww_apply": 100},
+    "fixpoint_density": {},
+    "known_fixpoint_variation": {"ww_apply": 10 * 101},
+    "mixed_self_fixpoints": {"ww_apply": 44, "ww_sgd": 40, "kvec_sgd": 40,
+                             "rnn_sgd": 40},
+    "training_fixpoints": {"ww_sgd": 1000, "kvec_sgd": 1000,
+                           "rnn_sgd": 1000},
+    "network_trajectorys": {"ww_apply": 100},
+}
+ENGINE_STEPS = 100
+#: the device the engines' phase runs on
+CARD = "cuda"
+
+
+def check_engine_result(torch, what, res, n):
+    """Class counts sum to n, and a trial's weights are non-finite exactly
+    where it is classed divergent (the JAX package's is_diverged)."""
+    from srnn_tpu_torch.ops.predicates import CLS_DIVERGENT
+
+    counts = res.counts.tolist()
+    if sum(counts) != n:
+        raise AssertionError(f"{what}: counts {counts} do not sum to {n}")
+    diverged = ~torch.isfinite(res.weights).all(dim=1)
+    if not bool(torch.equal(diverged, res.classes == CLS_DIVERGENT)):
+        raise AssertionError(f"{what}: non-finite weights and the divergent "
+                             "class disagree")
+    return counts
+
+
+def engine_runs(torch, kernels, totals):
+    """The fixpoint engines at N = 1M on the card through the package's
+    entry points, each run with its own launch counts (added to
+    ``totals``): the weightwise engines on K1 and K2, and run_training of
+    the aggregating and recurrent variants on K4 and K5."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.fixtures import identity_fixpoint_flat, vary
+
+    gen = torch.Generator(device=CARD).manual_seed(3)
+    ww = st.Topology("weightwise", width=2, depth=2)
+    agg = st.Topology("aggregating", width=2, depth=2, aggregates=4)
+    rnn = st.Topology("recurrent", width=2, depth=2)
+    pop = st.init_population(ww, gen, N, CARD)
+    fix = identity_fixpoint_flat(ww, CARD).expand(N, -1)
+    varied = vary(gen, fix, 1e-5)
+
+    def run(what, fn, expect):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for name, k in check_launches(kernels, what, expect).items():
+            totals[name] += k
+        return res, dt
+
+    steps = ENGINE_STEPS
+    agg_pop = st.init_population(agg, gen, N, CARD)
+    rnn_pop = st.init_population(rnn, gen, N, CARD)
+    for what, fn, expect, n_steps in (
+            (f"run_fixpoint weightwise {steps} steps",
+             lambda: st.run_fixpoint(ww, pop, steps), {"ww_apply": steps},
+             steps),
+            (f"run_training weightwise {steps} epochs",
+             lambda: st.run_training(ww, pop, steps), {"ww_sgd": steps},
+             steps),
+            ("run_mixed_fixpoint weightwise 4 steps x 50 trains",
+             lambda: st.run_mixed_fixpoint(ww, pop, 50, 4),
+             {"ww_apply": 4, "ww_sgd": 4}, 4),
+            (f"run_training aggregating {steps} epochs",
+             lambda: st.run_training(agg, agg_pop, steps),
+             {"kvec_sgd": steps}, steps),
+            (f"run_training recurrent {steps} epochs",
+             lambda: st.run_training(rnn, rnn_pop, steps),
+             {"rnn_sgd": steps}, steps)):
+        res, dt = run(what, fn, expect)
+        counts = check_engine_result(torch, what, res, N)
+        extra = ""
+        if hasattr(res, "losses"):
+            if tuple(res.losses.shape) != (steps, N):
+                raise AssertionError(f"{what}: losses {tuple(res.losses.shape)}")
+            extra = (f", last epoch's mean loss over finite trials "
+                     f"{float(res.losses[-1][torch.isfinite(res.losses[-1])].mean()):.6e}")
+        log(f"{what}: {dt:.4f} s at N={N} ({dt * 1e3 / n_steps:.4f} ms a "
+            f"step or epoch), counts [divergent, fix_zero, fix_other, "
+            f"fix_sec, other] {counts}{extra}")
+    what = f"run_known_fixpoint_variation weightwise {steps} steps (e=1e-5)"
+    res, dt = run(what, lambda: st.run_known_fixpoint_variation(ww, varied,
+                                                                steps),
+                  {"ww_apply": steps + 1})
+    t_some, t_fix = res.time_to_vergence, res.time_as_fixpoint
+    if not (bool((t_fix <= t_some).all()) and int(t_some.max()) <= steps):
+        raise AssertionError(f"{what}: times out of range")
+    log(f"{what}: {dt:.4f} s at N={N} ({dt * 1e3 / steps:.4f} ms a step), "
+        f"mean time to vergence "
+        f"{float(t_some.float().mean()):.3f}, as fixpoint "
+        f"{float(t_fix.float().mean()):.3f}")
+    what = "fixpoint_density weightwise"
+    counts, dt = run(what, lambda: st.fixpoint_density(ww, pop), {})
+    if int(counts.sum()) != N:
+        raise AssertionError(f"{what}: counts {counts.tolist()}")
+    log(f"{what}: {dt:.4f} s at N={N}, counts {counts.tolist()}")
+    # the device time of one launch as the engines make it, beside their
+    # walls a step: how much of a step the card is busy
+    from srnn_tpu_torch.ops import (cuda_kvec_train, cuda_rnn_train, cuda_ww,
+                                    cuda_ww_train)
+
+    lanes = {t: p.t().contiguous() for t, p in ((ww, pop), (agg, agg_pop),
+                                                (rnn, rnn_pop))}
+    for what, fn in (
+            ("K1 steps=1", lambda: cuda_ww.ww_apply_population(
+                ww, lanes[ww], 1)),
+            ("K2 epochs=1", lambda: cuda_ww_train.ww_train_epochs(
+                ww, lanes[ww], 1)),
+            ("K2 epochs=50", lambda: cuda_ww_train.ww_train_epochs(
+                ww, lanes[ww], 50)),
+            ("K4 epochs=1", lambda: cuda_kvec_train.kvec_train_epochs(
+                agg, lanes[agg], 1)),
+            ("K5 epochs=1", lambda: cuda_rnn_train.rnn_train_epochs(
+                rnn, lanes[rnn], 1))):
+        log(f"{what} at N={N}: device {device_ms(fn, 20):.4f} ms a launch")
+
+
+def engines_vs_cpu(torch):
+    """Every engine on a 512-trial population of each standard variant on
+    the card against the same call on the CPU: integer fields exact, floats
+    bitwise with the same non-finite pattern, but for the weightwise full
+    batch (its autograd step is cuBLAS against MKL): within rtol/atol."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.fixtures import identity_fixpoint_flat, vary
+
+    n = 512
+    cpu = torch.Generator().manual_seed(5)
+    for topo in (st.Topology("weightwise", width=2, depth=2),
+                 st.Topology("aggregating", width=2, depth=2, aggregates=4),
+                 st.Topology("recurrent", width=2, depth=2)):
+        pop = st.init_population(topo, cpu, n, "cpu")
+        pop[0] = 0.0
+        pop[1, 3] = float("inf")
+        if topo.variant == "weightwise":
+            varied = vary(cpu, identity_fixpoint_flat(topo, "cpu")
+                          .expand(n, -1), 1e-3)
+        else:
+            varied = pop * 0.05
+        calls = {
+            "run_fixpoint": lambda p: st.run_fixpoint(topo, p, 40,
+                                                      record=True),
+            "run_training": lambda p: st.run_training(topo, p, 20),
+            "run_mixed_fixpoint": lambda p: st.run_mixed_fixpoint(topo, p,
+                                                                  10, 4),
+            "run_known_fixpoint_variation":
+                lambda p: st.run_known_fixpoint_variation(topo, p, 40),
+            "fixpoint_density": lambda p: st.fixpoint_density(topo, p),
+        }
+        if topo.variant == "weightwise":
+            calls["run_training full_batch"] = lambda p: st.run_training(
+                topo, p, 10, train_mode="full_batch")
+        for name, fn in calls.items():
+            p = varied if name == "run_known_fixpoint_variation" else pop
+            got, ref = fn(p.to(CARD)), fn(p)
+            tag = f"{topo.variant} {name} card vs cpu"
+            if name == "fixpoint_density":
+                equal_ints(torch, f"{tag} counts", got, ref)
+                continue
+            for field, g, r in zip(ref._fields, got, ref):
+                if r is None:
+                    continue
+                if r.dtype == torch.int32:
+                    equal_ints(torch, f"{tag} {field}", g, r)
+                else:
+                    compare(torch, f"{tag} {field}", g.cpu(), r,
+                            None if name.endswith("full_batch") else 0)
+
+
+def setup_runs(torch, kernels, totals):
+    """The six fixpoint setups at their default sizes, each through
+    ``python -m srnn_tpu_torch.setups`` in a subprocess on the card (all six
+    at once), their artifacts loaded and their launch counts (written by
+    the CLI to SRNN_LAUNCH_COUNTS) checked and added to ``totals``."""
+    import shutil
+    import tempfile
+
+    from srnn_tpu_torch.experiment import load_artifact
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="srnn_setups_")
+    env = {k: v for k, v in os.environ.items()
+           if k != "SRNN_SETUPS_PLATFORM"}
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name in SETUP_LAUNCHES:
+            counts = os.path.join(root, f"{name}.launches.json")
+            # output to files, not pipes: a full pipe would block the setup
+            with open(os.path.join(root, f"{name}.out"), "w") as out, \
+                    open(os.path.join(root, f"{name}.err"), "w") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "srnn_tpu_torch.setups", name,
+                     "--root", os.path.join(root, name)], cwd=here,
+                    env={**env, "SRNN_LAUNCH_COUNTS": counts},
+                    stdout=out, stderr=err)
+        walls = {}
+        while len(walls) < len(procs):
+            for name, proc in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("setups: not done after 600 s")
+            time.sleep(0.05)
+        for name, proc in procs.items():
+            with open(os.path.join(root, f"{name}.out")) as f:
+                out = f.read()
+            with open(os.path.join(root, f"{name}.err")) as f:
+                err = f.read()
+            if proc.returncode != 0:
+                raise AssertionError(f"setup {name}: rc {proc.returncode}\n"
+                                     f"{err[-4000:]}")
+            run_dir = out.strip().splitlines()[-1]
+            loaded = []
+            for fname in sorted(os.listdir(run_dir)):
+                stem, ext = os.path.splitext(fname)
+                if ext in (".npz", ".json"):
+                    load_artifact(os.path.join(run_dir, stem))
+                    loaded.append(fname)
+            if not os.path.exists(os.path.join(run_dir, "log.txt")):
+                raise AssertionError(f"setup {name}: no log.txt")
+            with open(os.path.join(root, f"{name}.launches.json")) as f:
+                got = json.load(f)
+            with open(os.path.join(run_dir, "meta.json")) as f:
+                run_wall = json.load(f)["wall_seconds"]
+            log(f"setup {name}: {walls[name]:.1f} s wall of the process, "
+                f"{run_wall:.2f} s of the run (meta.json; six at once), "
+                f"artifacts {loaded}")
+            for k, c in check_launches(kernels, f"setup {name}",
+                                       SETUP_LAUNCHES[name], got).items():
+                totals[k] += c
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def engines_and_setups(torch, kernels, totals):
+    """Phase 5, the fixpoint engines: at N = 1M, the six setups' CLIs, and
+    small populations on the card against the CPU."""
+    engine_runs(torch, kernels, totals)
+    setup_runs(torch, kernels, totals)
+    engines_vs_cpu(torch)
+
+
 def small_soup_vs_cpu(torch):
-    """Phase 5: each variant's soup on the card against the same soup on
+    """Phase 6: each variant's soup on the card against the same soup on
     the CPU, fed the same draws; then the mixed soup and the bfloat16 and
     int8 soups the same way."""
     import numpy as np
@@ -1163,6 +1432,8 @@ def main() -> int:
     for what, t0, t1 in CLOCK_WINDOWS:
         log(f"clocks during {what}: {sampler.at(t0, t1)}")
     launches = phase("main path", main_path, torch, kernels)
+    phase("fixpoint engines and setups", engines_and_setups, torch, kernels,
+          launches)
     phase("small soups vs cpu", small_soup_vs_cpu, torch)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -8,14 +8,20 @@ unless the caller passes ``device='cpu'``.
 
 Ported so far: all four variants (weightwise, aggregating, fft,
 recurrent) -- topology, init, the row-major transforms and the
-cross-architecture ones, predicates, the fixpoint engine; the
+cross-architecture ones, predicates, row-major training (``train``), the
+network verbs (``netops``), the known-fixpoint fixtures, the five
+experiment engines, the run layer (``experiment``) and the six fixpoint
+setups (``python -m srnn_tpu_torch.setups``); the
 population-major parallel soup in float32, bfloat16 and int8 storage; and
 the population-major mixed-type soup (``multisoup``) -- on the kernels of
 ``csrc/`` (chained self-application, the SGD chains, the recurrent attack,
 the fused generation).
 """
 
-from .engine import FixpointRunResult, classify_batch, run_fixpoint
+from .engine import (FixpointRunResult, TrainingRunResult, VariationResult,
+                     classify_batch, fixpoint_density, run_fixpoint,
+                     run_known_fixpoint_variation, run_mixed_fixpoint,
+                     run_training)
 from .init import init_population
 from .multisoup import (MultiSoupConfig, MultiSoupDraws, MultiSoupEvents,
                         MultiSoupState, count_multi, evolve_multi,
@@ -26,7 +32,9 @@ from .topology import Topology
 
 __all__ = [
     "Topology", "init_population", "run_fixpoint", "classify_batch",
-    "FixpointRunResult", "SoupConfig", "SoupState", "SoupEvents",
+    "FixpointRunResult", "run_training", "TrainingRunResult",
+    "run_mixed_fixpoint", "run_known_fixpoint_variation", "VariationResult",
+    "fixpoint_density", "SoupConfig", "SoupState", "SoupEvents",
     "SoupDraws", "seed", "evolve", "evolve_step", "count",
     "MultiSoupConfig", "MultiSoupState", "MultiSoupEvents",
     "MultiSoupDraws", "seed_multi", "evolve_multi", "evolve_multi_step",

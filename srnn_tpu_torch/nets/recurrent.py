@@ -15,7 +15,7 @@ state too.  ``rnn_scan='associative'`` is not ported and raises.
 import torch
 
 from ..ops.activations import resolve_activation
-from ..ops.mlp import unflatten
+from ..ops.flatten import unflatten
 from ..topology import Topology
 
 

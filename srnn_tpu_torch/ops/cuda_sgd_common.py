@@ -36,6 +36,10 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 
+#: every ``LaneKernel`` of the wrapper modules imported so far
+KERNELS: List["LaneKernel"] = []
+
+
 class LaneKernel:
     """One kernel of ``csrc/``: where it comes from and how often it ran."""
 
@@ -47,6 +51,7 @@ class LaneKernel:
         self.argtypes = argtypes
         self.replaces = replaces  # file:line of the Pallas kernel
         self.launches = 0
+        KERNELS.append(self)
 
     def launch(self, *args) -> None:
         lib = _build.load(self.source)

@@ -18,13 +18,7 @@ import numpy as np
 import torch
 
 from .activations import resolve_activation
-
-
-def unflatten(topo, flat: torch.Tensor):
-    """(..., P) flat weights -> list of (..., a, b) kernels, keras order."""
-    lead = flat.shape[:-1]
-    return [flat[..., o:o + a * b].reshape(*lead, a, b)
-            for (a, b), o in zip(topo.layer_shapes, topo.offsets)]
+from .flatten import unflatten
 
 
 def mlp_forward(topo, self_flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -39,8 +39,10 @@ def is_zero(flat: torch.Tensor, epsilon: float = DEFAULT_EPSILON,
     return ((flat >= -epsilon) & (flat <= epsilon)).all(dim=axis)
 
 
-def _close(new: torch.Tensor, old: torch.Tensor, epsilon: float,
-           axis: int) -> torch.Tensor:
+def is_close(new: torch.Tensor, old: torch.Tensor, epsilon: float,
+             axis: int = -1) -> torch.Tensor:
+    """The fixpoint test on an application already made: ``new`` finite
+    and every ``|new - old| < eps``."""
     return ~is_diverged(new, axis) & ((new - old).abs() < epsilon).all(dim=axis)
 
 
@@ -55,20 +57,21 @@ def is_fixpoint(apply_self: Callable[[torch.Tensor], torch.Tensor],
     new = flat
     for _ in range(degree):
         new = apply_self(new)
-    return _close(new, flat, epsilon, -1)
+    return is_close(new, flat, epsilon)
 
 
 def classify(apply_self: Callable[[torch.Tensor], torch.Tensor],
              flat: torch.Tensor,
-             epsilon: float = DEFAULT_EPSILON) -> torch.Tensor:
+             epsilon: float = DEFAULT_EPSILON,
+             axis: int = -1) -> torch.Tensor:
     """5-way class id per particle (int32), the reference's elif chain as
-    nested ``where``.  Reduces over the last axis."""
+    nested ``where``."""
     new1 = apply_self(flat)
     new2 = apply_self(new1)
-    div = is_diverged(flat)
-    fix1 = _close(new1, flat, epsilon, -1)
-    fix2 = _close(new2, flat, epsilon, -1)
-    zero = is_zero(flat, epsilon)
+    div = is_diverged(flat, axis)
+    fix1 = is_close(new1, flat, epsilon, axis)
+    fix2 = is_close(new2, flat, epsilon, axis)
+    zero = is_zero(flat, epsilon, axis)
     cls = torch.full(div.shape, CLS_OTHER, dtype=torch.int32,
                      device=flat.device)
     cls = torch.where(fix2, CLS_FIX_SEC, cls)

@@ -25,7 +25,17 @@ bad = sorted(m for m in sys.modules
              or m == "srnn_tpu" or m.startswith("srnn_tpu."))
 print(len(names), bad)
 for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
-             "srnn_tpu_torch.ops.popmajor_cross"):
+             "srnn_tpu_torch.ops.popmajor_cross", "srnn_tpu_torch.train",
+             "srnn_tpu_torch.netops", "srnn_tpu_torch.fixtures",
+             "srnn_tpu_torch.ops.flatten", "srnn_tpu_torch.experiment",
+             "srnn_tpu_torch.bench", "srnn_tpu_torch.setups.__main__",
+             "srnn_tpu_torch.setups.common",
+             "srnn_tpu_torch.setups.applying_fixpoints",
+             "srnn_tpu_torch.setups.fixpoint_density",
+             "srnn_tpu_torch.setups.known_fixpoint_variation",
+             "srnn_tpu_torch.setups.mixed_self_fixpoints",
+             "srnn_tpu_torch.setups.training_fixpoints",
+             "srnn_tpu_torch.setups.network_trajectorys"):
     assert name in names, name
 """
 
@@ -36,7 +46,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 28  # the mixed soup and the cross transforms too
+    assert int(count) >= 47  # the engines, run layer and setups too
     assert bad == "[]"
 
 
@@ -110,3 +120,25 @@ def test_kernel_topology_fence():
                         "shuffler")):
         with pytest.raises(ValueError, match=what):
             check_kernel_topology(topo)
+
+
+def test_engine_layer_entry_points_default_to_cuda(monkeypatch):
+    """The fixtures, the bench and the setups run on the card unless told
+    otherwise; the setups' CLI has no CPU fallback."""
+    from srnn_tpu_torch import bench, fixtures
+    from srnn_tpu_torch.setups import common
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = fixtures.Topology("weightwise")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fixtures.identity_fixpoint_flat(topo)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.measure(n=8)
+    assert fixtures.identity_fixpoint_flat(topo, "cpu").device.type == "cpu"
+    monkeypatch.delenv(common.PLATFORM_ENV, raising=False)
+    with pytest.raises(common.NoDeviceError, match="SRNN_SETUPS_PLATFORM"):
+        common.device()
+    monkeypatch.setenv(common.PLATFORM_ENV, "cpu")
+    assert common.device().type == "cpu"
+    row = bench.measure(n=8, device="cpu")
+    assert row["unit"] == "applications/s" and row["value"] > 0
