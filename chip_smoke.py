@@ -31,9 +31,12 @@ Phases, each fatal on failure:
    the launches that run must make: the N = 1M full-dynamics soup (attack
    0.1, learn_from 0.1, severity 1, train 10, both removals, fused respawn
    draws) of the weightwise, aggregating and recurrent particles, 20
-   generations with generation_impl='fused' (the variant's generation
-   kernel only), then 20 with 'phases' (its SGD kernel, and the recurrent
-   attack kernel); generations/s, class counts, unique uids; then the
+   generations of the population-major soup (layout='popmajor') with
+   generation_impl='fused' (the variant's generation kernel only), then 20
+   with 'phases' (its SGD kernel, and the recurrent attack kernel); then
+   20 of the row-major soup (layout='rowmajor', the default; its SGD
+   kernel twice a generation and no other kernel, counted after a warm-up
+   generation); generations/s, class counts, unique uids; then the
    mixed-type soup at setups/mega_multisoup.py's split (N = 1M as 333,334
    weightwise, 333,333 aggregating, 333,333 recurrent particles, the same
    dynamics), 20 generations on each route (fused: one generation kernel
@@ -52,14 +55,21 @@ Phases, each fatal on failure:
    the aggregating and recurrent variants (100 epochs: K4 / K5 once an
    epoch), each run's launch counts exact, class counts summing to N and
    weights non-finite exactly where a trial is classed divergent; the six
-   fixpoint setups at their default sizes, all at once, each through
-   ``python -m srnn_tpu_torch.setups`` in a subprocess, their artifacts
-   loaded and their launch counts (SRNN_LAUNCH_COUNTS) exact; then every
+   fixpoint setups and the three soup setups at their default sizes, all
+   at once, each through ``python -m srnn_tpu_torch.setups`` in a
+   subprocess, their artifacts loaded and their launch counts
+   (SRNN_LAUNCH_COUNTS) exact, the soup setups' science printed beside the
+   CPU reference's (BASELINE.md) to inform; then every
    engine on 512 trials of each standard variant on the card against the
    same call on the CPU (integers exact, floats within rtol/atol);
 6. a small soup of each variant, a small mixed soup, and small bf16 and
    int8 soups, each on the card against the same soup on the CPU, fed the
-   same draws, over 3 generations on both routes;
+   same draws, over 3 generations on both routes; the same for the
+   row-major soups (each variant, the weightwise full batch, bf16, int8),
+   the weightwise and aggregating row-major soups against the
+   population-major phase chain on the card, and a checkpoint round trip
+   on the card (3 generations, save, restore, 2 more, against 5 at once,
+   bitwise with the generator);
 7. one JSON line listing every kernel (K3 once per variant body and
    population dtype, K6 once per victim length), then the
    card's name and power limit, then the result line
@@ -308,6 +318,24 @@ def compare(torch, what: str, got, ref, ulps=None):
     if ulps is not None:
         check_exact(what, got, ref, ulps)
     return max_abs
+
+
+def report_gap(torch, what: str, got, ref) -> None:
+    """Max abs / max rel difference over finite entries, and the largest
+    magnitude, to inform; the non-finite pattern must agree exactly."""
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    same_nonfinite = bool(((torch.isnan(got) == torch.isnan(ref))
+                           & ((got == ref) | ~torch.isinf(ref))).all())
+    diff = torch.where(fin, (got - ref).abs(), torch.zeros_like(got))
+    rel = diff / ref.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    big = torch.where(fin, ref.abs(), torch.zeros_like(ref))
+    log(f"  {what} (to inform): max_abs {float(diff.max()):.3e} max_rel "
+        f"{float(torch.where(fin, rel, torch.zeros_like(rel)).max()):.3e} "
+        f"largest |w| {float(big.max()):.3e} bitwise "
+        f"{bool(same_nonfinite and (diff == 0).all())} "
+        f"nonfinite_pattern_equal {same_nonfinite}")
+    if not same_nonfinite:
+        raise AssertionError(f"{what}: non-finite patterns differ")
 
 
 def equal_ints(torch, what: str, got, ref) -> None:
@@ -804,7 +832,7 @@ def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases,
     cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
                         learn_from_rate=0.1, learn_from_severity=1, train=10,
                         remove_divergent=True, remove_zero=True,
-                        respawn_draws="fused",
+                        respawn_draws="fused", layout="popmajor",
                         population_dtype=population_dtype)
     state = st.seed(cfg, 0, device="cuda")
     routes = [("fused", cfg._replace(generation_impl="fused"), expect_fused)]
@@ -836,6 +864,46 @@ def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases,
             f"{int(state.next_uid)}")
         for name, n in check_launches(kernels, what, expect).items():
             totals[name] += n
+
+
+def rowmajor_soup_run(torch, kernels, totals, topo, kernel):
+    """The N = 1M full-dynamics row-major soup (``layout='rowmajor'``, the
+    default) of ``topo``: 20 generations after a warm-up generation, its
+    launch counts set to 0 after the warm-up and checked exactly just
+    after (``kernel``, the variant's SGD kernel, twice a generation: one
+    learn_from and one self-training launch; the attack is the row-major
+    transform in plain torch) and added to ``totals``."""
+    import srnn_tpu_torch as st
+
+    cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
+                        learn_from_rate=0.1, learn_from_severity=1, train=10,
+                        remove_divergent=True, remove_zero=True,
+                        respawn_draws="fused")
+    state = st.evolve(cfg, st.seed(cfg, 0, device="cuda"), 1)  # warm-up
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state = st.evolve(cfg, state, GENERATIONS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    what = f"{topo.variant} rowmajor soup"
+    got = check_launches(kernels, what, {kernel: 2 * GENERATIONS})
+    counts = st.count(cfg, state)
+    n_unique = int(torch.unique(state.uids).numel())
+    if n_unique != N or int(state.uids.max()) >= int(state.next_uid):
+        raise AssertionError(f"{what}: uids are not unique")
+    if int(counts.sum()) != N or not bool(torch.isfinite(
+            state.weights).all()):
+        raise AssertionError(f"{what}: counts {counts.tolist()} or "
+                             "non-finite weights after respawn")
+    log(f"{what}: {GENERATIONS / dt:.3f} generations/s at N={N}, "
+        f"P={topo.num_weights} ({dt * 1e3 / GENERATIONS:.3f} "
+        f"ms/generation), counts [divergent, fix_zero, fix_other, "
+        f"fix_sec, other] {counts.tolist()}, unique uids {n_unique}, "
+        f"next_uid {int(state.next_uid)}")
+    for name, n in got.items():
+        totals[name] += n
 
 
 def multisoup_runs(torch, kernels, totals, per_generation_fused,
@@ -907,6 +975,13 @@ def main_path(torch, kernels):
               st.Topology("recurrent", width=2, depth=2),
               {"generation_rnn": runs},
               {"rnn_sgd": 2 * runs, "rnn_apply": runs})
+    # the row-major soups (the default layout): their SGD kernel only
+    for variant, kernel in (("weightwise", "ww_sgd"),
+                            ("aggregating", "kvec_sgd"),
+                            ("recurrent", "rnn_sgd")):
+        rowmajor_soup_run(torch, kernels, totals,
+                          st.Topology(variant, width=2, depth=2,
+                                      aggregates=4), kernel)
     # the mixed soup: every generation attacks each victim type once with
     # the recurrent kernel (T = 14, 20, 17), whatever the route
     attacks = {"rnn_apply_t14": 1, "rnn_apply_t20": 1, "rnn_apply": 1}
@@ -963,7 +1038,11 @@ def fixpoint_census(torch):
 #: network_trajectorys 100 weightwise steps; known_fixpoint_variation 10
 #: levels of 100 steps and one more application each; mixed_self_fixpoints
 #: 11 train values x 4 self-attacks (no SGD launch for 0 trains) per
-#: variant; training_fixpoints 1000 epochs per variant
+#: variant; training_fixpoints 1000 epochs per variant.  The soup setups
+#: launch once per generation for a whole batch of trials: soup_trajectorys
+#: 100 generations of train 30; learn_from_soup 10 non-zero severities x 100
+#: generations, all imitation (train 0, and severity 0 skips the phase);
+#: mixed_soup 10 non-zero train values x 5 generations per variant
 SETUP_LAUNCHES = {
     "applying_fixpoints": {"ww_apply": 100},
     "fixpoint_density": {},
@@ -973,6 +1052,9 @@ SETUP_LAUNCHES = {
     "training_fixpoints": {"ww_sgd": 1000, "kvec_sgd": 1000,
                            "rnn_sgd": 1000},
     "network_trajectorys": {"ww_apply": 100},
+    "soup_trajectorys": {"ww_sgd": 100},
+    "learn_from_soup": {"ww_sgd": 1000},
+    "mixed_soup": {"ww_sgd": 50, "kvec_sgd": 50},
 }
 ENGINE_STEPS = 100
 #: the device the engines' phase runs on
@@ -1140,11 +1222,31 @@ def engines_vs_cpu(torch):
                             None if name.endswith("full_batch") else 0)
 
 
+def soup_science(name, run_dir) -> str:
+    """To inform, not a gate: a soup setup's result beside the CPU
+    reference's (BASELINE.md; the streams differ from the reference's)."""
+    from srnn_tpu_torch.experiment import counters_dict, load_artifact
+
+    if name == "soup_trajectorys":
+        counts = counters_dict(load_artifact(os.path.join(run_dir,
+                                                          "all_counters")))
+        return (f"final classes {counts} (BASELINE.md:29: 13 fix_other / "
+                "7 other)")
+    data = load_artifact(os.path.join(run_dir, "all_data"))[0]
+    zs = dict(zip(data["xs"], data["zs"]))
+    what = {"mixed_soup": ("WW zs at train", "BASELINE.md:25"),
+            "learn_from_soup": ("zs at severity", "BASELINE.md:27")}[name]
+    ref = {"mixed_soup": "0.0 -> 8.8", "learn_from_soup": "0.0 -> 9.9"}
+    return (f"{what[0]} 0 and 100: {zs.get(0)} -> {zs.get(100)} ({what[1]}: "
+            f"{ref[name]})")
+
+
 def setup_runs(torch, kernels, totals):
-    """The six fixpoint setups at their default sizes, each through
-    ``python -m srnn_tpu_torch.setups`` in a subprocess on the card (all six
+    """The nine setups at their default sizes, each through
+    ``python -m srnn_tpu_torch.setups`` in a subprocess on the card (all nine
     at once), their artifacts loaded and their launch counts (written by
-    the CLI to SRNN_LAUNCH_COUNTS) checked and added to ``totals``."""
+    the CLI to SRNN_LAUNCH_COUNTS) checked and added to ``totals``; the
+    soup setups' science printed beside the reference's."""
     import shutil
     import tempfile
 
@@ -1197,8 +1299,11 @@ def setup_runs(torch, kernels, totals):
             with open(os.path.join(run_dir, "meta.json")) as f:
                 run_wall = json.load(f)["wall_seconds"]
             log(f"setup {name}: {walls[name]:.1f} s wall of the process, "
-                f"{run_wall:.2f} s of the run (meta.json; six at once), "
-                f"artifacts {loaded}")
+                f"{run_wall:.2f} s of the run (meta.json; "
+                f"{len(procs)} at once), artifacts {loaded}")
+            if name in ("soup_trajectorys", "learn_from_soup",
+                        "mixed_soup"):
+                log(f"  {name} science: {soup_science(name, run_dir)}")
             for k, c in check_launches(kernels, f"setup {name}",
                                        SETUP_LAUNCHES[name], got).items():
                 totals[k] += c
@@ -1236,7 +1341,8 @@ def small_soup_vs_cpu(torch):
                  st.Topology("recurrent", width=2, depth=2)):
         base = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
                              learn_from_rate=0.3, learn_from_severity=1,
-                             train=2, remove_divergent=True, remove_zero=True)
+                             train=2, remove_divergent=True, remove_zero=True,
+                             layout="popmajor")
         rng = np.random.default_rng(0)
         w0 = init_population(topo, cpu, n, "cpu").numpy()
         draws = [st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
@@ -1262,6 +1368,8 @@ def small_soup_vs_cpu(torch):
                         states["cuda"].weights.cpu(), states["cpu"].weights)
     small_multisoup_vs_cpu(torch, cpu)
     small_precision_vs_cpu(torch, cpu)
+    small_rowmajor_vs_cpu(torch, cpu)
+    rowmajor_checkpoint(torch)
 
 
 def small_multisoup_vs_cpu(torch, cpu):
@@ -1334,7 +1442,7 @@ def small_precision_vs_cpu(torch, cpu):
         base = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
                              learn_from_rate=0.3, learn_from_severity=1,
                              train=2, remove_divergent=True, remove_zero=True,
-                             population_dtype=dtype)
+                             layout="popmajor", population_dtype=dtype)
         rng = np.random.default_rng(2)
         s0 = st.seed(base, 0, device="cpu")
         draws = [st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
@@ -1368,6 +1476,144 @@ def small_precision_vs_cpu(torch, cpu):
                     compare(torch, f"{tag} bf16 weights",
                             states["cuda"].weights.cpu(),
                             states["cpu"].weights)
+
+
+#: the small row-major soups held card against CPU: (variant, population
+#: dtype, train mode, ulps allowed).  None holds rtol/atol, where the two
+#: devices' libraries differ: cuFFT against pocketfft in the fft attack.
+#: "ints" holds the integer state and the non-finite pattern and reports the
+#: floats: the weightwise full batch's autograd step (cuBLAS and CUDA
+#: reductions against the CPU's, in another order) on linear particles whose
+#: weights reach 1e19 in one generation and 1e35 in two (PERF.md)
+ROWMAJOR_VS_CPU = (
+    ("weightwise", "f32", "sequential", 0),
+    ("aggregating", "f32", "sequential", 0),
+    ("fft", "f32", "sequential", None),
+    ("recurrent", "f32", "sequential", 0),
+    ("weightwise", "f32", "full_batch", "ints"),
+    ("weightwise", "bf16", "sequential", 0),
+    ("weightwise", "int8", "sequential", 0),
+)
+
+
+def _state_on(torch, st, s0, dev):
+    """A copy of ``s0`` on ``dev`` with a generator there (the draws are
+    handed over)."""
+    return st.SoupState(s0.weights.to(dev), s0.uids.to(dev),
+                        s0.next_uid.to(dev), s0.time.to(dev),
+                        torch.Generator(device=dev),
+                        None if s0.scales is None else s0.scales.to(dev))
+
+
+def small_rowmajor_vs_cpu(torch, cpu):
+    """The row-major soup (the default layout) of each variant, of the
+    weightwise full batch, and bfloat16 and int8 weightwise soups, on the
+    card against the same soup on the CPU, fed the same draws, over 3
+    generations; then the weightwise and aggregating row-major soups
+    against the population-major phase chain on the card, from the same
+    state and draws.  To inform: the row-major weightwise forward as a
+    matmul (cuBLAS) against the explicit chains the self-application
+    runs."""
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.bench_kernels import max_ulps
+    from srnn_tpu_torch.init import init_population
+    from srnn_tpu_torch.nets.weightwise import points
+    from srnn_tpu_torch.ops.mlp import mlp_apply, mlp_forward
+
+    n = 2048
+    for variant, dtype, mode, ulps in ROWMAJOR_VS_CPU:
+        topo = st.Topology(variant, width=2, depth=2, aggregates=4)
+        cfg = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
+                            learn_from_rate=0.3, learn_from_severity=1,
+                            train=2, remove_divergent=True, remove_zero=True,
+                            train_mode=mode, population_dtype=dtype)
+        rng = np.random.default_rng(3)
+        s0 = st.seed(cfg, cpu, device="cpu")
+        draws = [st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
+                              rng.random(n) < 0.3, rng.integers(0, n, n),
+                              init_population(topo, cpu, n, "cpu").t()
+                              .numpy()) for _ in range(3)]
+        runs = [("card vs cpu", cfg, cfg, ("cuda", "cpu"), ulps)]
+        if variant in ("weightwise", "aggregating") and dtype == "f32" \
+                and mode == "sequential":
+            runs.append(("vs popmajor phases on the card", cfg,
+                         cfg._replace(layout="popmajor"), ("cuda", "cuda"),
+                         0))
+        for what, cfg_a, cfg_b, (dev_a, dev_b), held in runs:
+            a, b = _state_on(torch, st, s0, dev_a), \
+                _state_on(torch, st, s0, dev_b)
+            for g, dr in enumerate(draws):
+                a, ev_a = st.evolve_step(cfg_a, a, dr)
+                b, ev_b = st.evolve_step(cfg_b, b, dr)
+                tag = f"rowmajor {variant} {dtype} {mode} {what} gen {g}"
+                for f in ("uids", "next_uid"):
+                    equal_ints(torch, f"{tag} {f}", getattr(a, f),
+                               getattr(b, f))
+                equal_ints(torch, f"{tag} actions", ev_a.action, ev_b.action)
+                if held == "ints":
+                    report_gap(torch, f"{tag} weights", a.weights.cpu(),
+                               b.weights.cpu())
+                elif dtype == "int8":
+                    equal_ints(torch, f"{tag} int8 codes", a.weights,
+                               b.weights)
+                    compare(torch, f"{tag} scales", a.scales.cpu(),
+                            b.scales.cpu(), held)
+                else:
+                    compare(torch, f"{tag} weights", a.weights.cpu(),
+                            b.weights.cpu(), held)
+                if held != "ints":
+                    compare(torch, f"{tag} loss", ev_a.loss.cpu(),
+                            ev_b.loss.cpu(), held)
+    topo = st.Topology("weightwise", width=2, depth=2)
+    w = init_population(topo, cpu, n, "cpu").cuda()
+    x = points(topo, w)
+    got, chain = mlp_forward(topo, w, x), mlp_apply(topo, w, x)
+    log(f"  to inform: row-major weightwise forward on the card, matmul "
+        f"against mlp_apply's chains: bitwise {bool(torch.equal(got, chain))}"
+        f", max ulps {max_ulps(got, chain)}, max abs "
+        f"{float((got - chain).abs().max()):.3e}")
+
+
+def rowmajor_checkpoint(torch):
+    """A checkpoint round trip on the card: 3 generations, save, restore,
+    2 more, against 5 in one go, bitwise, the generator included; float32
+    and int8 row-major weightwise soups."""
+    import shutil
+    import tempfile
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.experiment import restore_checkpoint, save_checkpoint
+
+    root = tempfile.mkdtemp(prefix="srnn_ckpt_")
+    try:
+        for dtype in ("f32", "int8"):
+            cfg = st.SoupConfig(
+                topo=st.Topology("weightwise", width=2, depth=2), size=2048,
+                attacking_rate=0.3, learn_from_rate=0.3, train=2,
+                remove_divergent=True, remove_zero=True,
+                population_dtype=dtype)
+            s0 = st.seed(cfg, 5, device="cuda")
+            path = save_checkpoint(os.path.join(root, dtype),
+                                   st.evolve(cfg, s0, 3))
+            back = restore_checkpoint(path)
+            if back.weights.device.type != "cuda" or \
+                    back.key.device.type != "cuda":
+                raise AssertionError("checkpoint: restored off the card")
+            got, ref = st.evolve(cfg, back, 2), st.evolve(cfg, s0, 5)
+            tag = f"checkpoint {dtype} 3 + 2 generations vs 5"
+            for f in ("weights", "uids", "next_uid", "time") + (
+                    ("scales",) if dtype == "int8" else ()):
+                g, r = getattr(got, f), getattr(ref, f)
+                if g.is_floating_point():
+                    compare(torch, f"{tag} {f}", g.cpu(), r.cpu(), 0)
+                else:
+                    equal_ints(torch, f"{tag} {f}", g, r)
+            equal_ints(torch, f"{tag} generator state", got.key.get_state(),
+                       ref.key.get_state())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:

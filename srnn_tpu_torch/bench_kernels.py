@@ -449,7 +449,7 @@ class SoupProbe:
         self.st = st
         self.cfg = st.SoupConfig(
             topo=topo or Topology("weightwise", width=2, depth=2), size=n,
-            generation_impl="fused", **DYNAMICS)
+            layout="popmajor", generation_impl="fused", **DYNAMICS)
         self.state = st.evolve(self.cfg, st.seed(self.cfg, 0, device="cuda"),
                                SOUP_GENERATIONS)
         seen = []

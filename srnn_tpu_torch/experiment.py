@@ -1,5 +1,6 @@
-"""Experiment runtime: run directories, logging, persistence; port of
-``srnn_tpu/experiment.py`` (the checkpoints are not ported yet).
+"""Experiment runtime: run directories, logging, persistence and soup
+checkpoints; port of ``srnn_tpu/experiment.py`` (the mixed soup's
+checkpoints are not ported yet).
 
 Reference layer L1 (``experiment.py:8-59``): a context manager that creates
 ``experiments/exp-{name}-{id}-{iteration}/``, collects log messages in RAM
@@ -30,7 +31,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .init import resolve_device
 from .ops.predicates import CLASS_NAMES
+from .soup import SoupState
 
 _SEP = "/"  # path separator for flattened keys inside npz files
 _VALUE_KEY = "__value__"  # reserved npz key for a bare (non-nested) array
@@ -290,3 +293,91 @@ class Experiment:
 
     def load(self, name: str) -> Any:
         return load_artifact(os.path.join(self.dir, name))
+
+
+# ---------------------------------------------------------------------------
+# atomic publication and soup checkpoints (``experiment.py:296-363``)
+# ---------------------------------------------------------------------------
+
+
+def atomic_write_text(path: str, text: str) -> str:
+    """Publish ``text`` at ``path`` atomically: write a tmp file beside it,
+    fsync, rename over the target, fsync the directory (where the
+    filesystem allows); a run killed mid-write never leaves a torn file
+    (``srnn_tpu/utils/atomicio.py``)."""
+    return _atomic_write(path, lambda f: f.write(text.encode("utf-8")))
+
+
+def _atomic_write(path: str, write) -> str:
+    path = os.path.abspath(path)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    try:
+        fd = os.open(os.path.dirname(path),
+                     os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
+    except OSError:
+        return path
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+    return path
+
+
+#: completion marker published (tmp + fsync + atomic rename) inside a
+#: checkpoint directory after its state file: its presence is the proof
+#: ``setups.common.checkpoint_intact`` wants before a resume trusts it
+CKPT_OK_MARKER = "SRNN_CKPT_OK"
+#: the checkpoint's state file, a ``torch.save`` of plain tensors and strings
+CKPT_STATE = "state.pt"
+
+
+def save_checkpoint(path: str, state: SoupState) -> str:
+    """Write a resumable checkpoint of a soup at ``path`` (a directory,
+    created or overwritten): ``state.pt`` holds the weights, uids,
+    next_uid, time and (int8) scales on the CPU, the devices of the
+    population and of its generator, and the generator's state; then the
+    completion marker is published.  The marker of an earlier checkpoint
+    there is removed first, so the directory reads as torn until the new
+    one is whole."""
+    if isinstance(state.key, tuple):
+        raise ValueError("save_checkpoint takes one soup, not a stacked "
+                         "state")
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    marker = os.path.join(path, CKPT_OK_MARKER)
+    if os.path.exists(marker):
+        os.remove(marker)
+    tree = {"weights": state.weights.cpu(), "uids": state.uids.cpu(),
+            "next_uid": state.next_uid.cpu(), "time": state.time.cpu(),
+            "device": str(state.weights.device),
+            "key_device": str(state.key.device),
+            "key_state": state.key.get_state()}
+    if state.scales is not None:
+        tree["scales"] = state.scales.cpu()
+    _atomic_write(os.path.join(path, CKPT_STATE),
+                  lambda f: torch.save(tree, f))
+    atomic_write_text(marker, json.dumps({"time": int(state.time)}) + "\n")
+    return path
+
+
+def restore_checkpoint(path: str) -> SoupState:
+    """Load a :func:`save_checkpoint` checkpoint back into a ``SoupState``
+    on the devices it was saved from; it evolves bitwise as the saved
+    state would have (the generator's state is restored)."""
+    tree = torch.load(os.path.join(os.path.abspath(path), CKPT_STATE),
+                      map_location="cpu", weights_only=True)
+    dev = resolve_device(tree["device"])
+    gen = torch.Generator(device=resolve_device(tree["key_device"]))
+    gen.set_state(tree["key_state"])
+    scales = tree.get("scales")
+    return SoupState(
+        weights=tree["weights"].to(dev), uids=tree["uids"].to(dev),
+        next_uid=tree["next_uid"].to(dev), time=tree["time"].to(dev),
+        key=gen, scales=None if scales is None else scales.to(dev))

@@ -59,7 +59,8 @@ from .topology import Topology
 class MultiSoupConfig(NamedTuple):
     """Mixed-soup hyperparameters; the fields of the JAX package's
     ``MultiSoupConfig``.  ``layout`` defaults to 'popmajor', the only
-    layout the port has; ``train_impl`` and ``apply_impl`` are accepted so
+    layout the port's mixed soup has (its row-major step is not ported:
+    ROADMAP.md, queue A); ``train_impl`` and ``apply_impl`` are accepted so
     that converted configs load, and select nothing (as in ``soup.py``)."""
     topos: Tuple[Topology, ...]
     sizes: Tuple[int, ...]
@@ -99,8 +100,8 @@ class MultiSoupConfig(NamedTuple):
             learn_from_severity=self.learn_from_severity,
             remove_divergent=self.remove_divergent,
             remove_zero=self.remove_zero, epsilon=self.epsilon, lr=self.lr,
-            train_mode=self.train_mode, respawn_draws=self.respawn_draws,
-            train_impl=self.train_impl, apply_impl=self.apply_impl,
+            train_mode=self.train_mode, layout=self.layout,
+            respawn_draws=self.respawn_draws, train_impl=self.train_impl, apply_impl=self.apply_impl,
             generation_impl=self.generation_impl,
             population_dtype=self.population_dtype)
 

@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops.mlp import mlp_forward
+from ..ops.mlp import mlp_apply, mlp_forward
 from ..topology import Topology, aggregation_segments
 
 
@@ -97,7 +97,7 @@ def apply(topo: Topology, self_flat: torch.Tensor,
     (``apply_to_weights``, ``network.py:359-386``)."""
     check_shuffler(topo)
     aggs = aggregate(topo, target_flat)
-    new_aggs = forward(topo, self_flat, aggs[..., None, :])[..., 0, :]
+    new_aggs = mlp_apply(topo, self_flat, aggs[..., None, :])[..., 0, :]
     return deaggregate(topo, new_aggs)
 
 

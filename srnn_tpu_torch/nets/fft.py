@@ -18,7 +18,7 @@ inverse expands back to P samples: a low-pass reconstruction.
 
 import torch
 
-from ..ops.mlp import mlp_forward
+from ..ops.mlp import mlp_apply, mlp_forward
 from ..topology import Topology
 from .aggregating import check_shuffler
 
@@ -47,7 +47,7 @@ def apply(topo: Topology, self_flat: torch.Tensor,
     check_shuffler(topo)
     src = target_flat if topo.fft_use_target else self_flat
     coeffs = coefficients(topo, src)
-    new = forward(topo, self_flat, coeffs[..., None, :])[..., 0, :]
+    new = mlp_apply(topo, self_flat, coeffs[..., None, :])[..., 0, :]
     if topo.fft_mode == "rfft":
         out = torch.fft.irfft(new, n=topo.num_weights)
     else:

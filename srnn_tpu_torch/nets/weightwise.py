@@ -9,7 +9,7 @@ weights (..., P); leading dims are a batch of particles.
 
 import torch
 
-from ..ops.mlp import mlp_forward
+from ..ops.mlp import mlp_apply, mlp_forward
 from ..topology import Topology, normalized_weight_coords
 
 
@@ -33,7 +33,7 @@ def apply(topo: Topology, self_flat: torch.Tensor,
           target_flat: torch.Tensor) -> torch.Tensor:
     """Self-application: rewrite every target weight via the net
     (``apply_to_weights``, ``network.py:265-279``)."""
-    return forward(topo, self_flat, points(topo, target_flat))[..., 0]
+    return mlp_apply(topo, self_flat, points(topo, target_flat))[..., 0]
 
 
 def samples(topo: Topology, flat: torch.Tensor):

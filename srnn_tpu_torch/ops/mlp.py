@@ -2,7 +2,8 @@
 
 Row-major: one matmul chain with the topology's activation after every
 layer (keras builds each Dense with the same ``keras_params`` -- reference
-``network.py:226-230``).  No biases.  Float32 matmuls run in full float32 on
+``network.py:226-230``); the self-application takes the same net as
+explicit multiply-add chains (``mlp_apply``).  No biases.  Float32 matmuls run in full float32 on
 the card too (``torch.backends.cuda.matmul.allow_tf32`` is False by
 default), which the 1e-4 fixpoint thresholds need.
 
@@ -28,6 +29,23 @@ def mlp_forward(topo, self_flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     h = x
     for m in unflatten(topo, self_flat):
         h = act(torch.matmul(h, m))
+    return h
+
+
+def mlp_apply(topo, self_flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``mlp_forward`` written as explicit multiply-add chains, summed in
+    order i = 0..in-1 with every product taken: the forward of the
+    self-application, which no autograd reads.  On the CPU it equals
+    ``mlp_forward`` bit for bit; on the card a matmul contracts its
+    products into FMAs and rounds otherwise, where these elementwise chains
+    round as on the CPU."""
+    act = resolve_activation(topo.activation)
+    h = x
+    for m in unflatten(topo, self_flat):
+        acc = h[..., 0:1] * m[..., 0:1, :]
+        for i in range(1, m.shape[-2]):
+            acc = acc + h[..., i:i + 1] * m[..., i:i + 1, :]
+        h = act(acc)
     return h
 
 

@@ -8,14 +8,17 @@ train 10, both removals, fused respawn draws) of the weightwise,
 aggregating and recurrent standard particles (width 2, depth 2,
 aggregates 4) on each route -- ``fused`` (the
 variant's generation kernel) and ``phases`` (phase chain: its SGD kernel,
-and the recurrent attack kernel) -- under ``torch.profiler`` after a
+and the recurrent attack kernel), both population-major, and ``rowmajor``
+(the default layout: the row-major attack in plain torch, its SGD
+kernel) -- under ``torch.profiler`` after a
 warm-up, and prints one JSON line per variant and route: wall time per
 generation, the device's busy share (summed device time of all kernels
 over wall time), and the device time by kernel, largest first.
 ``--population-dtype`` stores the populations in that dtype; ``--mixed``
 profiles instead the mixed-type soup at setups/mega_multisoup.py's split
 (the size in thirds: weightwise takes the remainder, then aggregating and
-recurrent), the same dynamics, on both routes.  Needs a CUDA card.
+recurrent), the same dynamics, on both population-major routes.  Needs a
+CUDA card.
 """
 
 import argparse
@@ -96,16 +99,20 @@ def main(argv=None) -> int:
             population_dtype=args.population_dtype, **DYNAMICS))]
     else:
         bases = [(t.variant, SoupConfig(
-            topo=t, size=args.size, population_dtype=args.population_dtype,
-            **DYNAMICS)) for t in topos]
+            topo=t, size=args.size, layout="popmajor",
+            population_dtype=args.population_dtype, **DYNAMICS))
+            for t in topos]
     for variant, base in bases:
-        for name in ("fused", "phases"):
+        routes = [(name, base._replace(generation_impl=name))
+                  for name in ("fused", "phases")]
+        if not args.mixed:
+            routes.append(("rowmajor", base._replace(layout="rowmajor")))
+        for name, cfg in routes:
             row = {"variant": variant, "route": name, "size": args.size,
                    "population_dtype": args.population_dtype,
                    "generations": args.generations,
                    "device": torch.cuda.get_device_name(0)}
-            row.update(profile_route(base._replace(generation_impl=name),
-                                     args.generations))
+            row.update(profile_route(cfg, args.generations))
             print(json.dumps(row), flush=True)
     return 0
 

@@ -14,18 +14,24 @@ there is no fallback.  Initial populations are drawn on the CPU from a
 ``torch.Generator`` seeded from the run's ``--seed`` and the trial batch's
 place in the sweep (variant index, sweep index, batch offset), then moved to
 the device, so a seed gives the same populations on either device; they
-cannot reproduce the JAX package's threefry streams.  ``--service`` (the
-experiment service, not ported yet: ROADMAP.md, queue A) is refused.
+cannot reproduce the JAX package's threefry streams.  The soup setups'
+soups carry such CPU generators too and draw there (``evolve_trials``), so
+a seed gives one soup on either device wherever their arithmetic agrees.
+``--service`` (the experiment service, not ported yet: ROADMAP.md, queue
+A) is refused.
 """
 
 import argparse
 import os
+import sys
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
-from ..experiment import Experiment, format_counters
+from .. import soup
+from ..experiment import (CKPT_OK_MARKER, CKPT_STATE, Experiment,
+                          atomic_write_text, format_counters)
 from ..init import init_population
 from ..topology import Topology
 
@@ -112,6 +118,62 @@ def population(topo: Topology, n: int, dev: torch.device, seed: int,
     return init_population(topo, generator(seed, *where), n, "cpu").to(dev)
 
 
+def evolve_trials(cfg: soup.SoupConfig, trials: int, generations: int,
+                  dev: torch.device, seed: int, *where: int
+                  ) -> soup.SoupState:
+    """Seed and evolve ``trials`` independent soups as one stacked batch,
+    as the JAX package's ``vmap`` does (the reference loops soups one at a
+    time, e.g. ``mixed-soup.py:79-92``); every phase is one kernel launch
+    per generation for the whole batch.  Trial ``t`` draws from its own
+    generator, ``generator(seed, *where, t)`` on the CPU, its draws moved
+    to ``dev``: so trial ``t`` equals, bitwise, the soup
+    ``soup.seed(cfg, generator(seed, *where, t), dev)`` evolved alone, on
+    either device.  Returns the stacked state (``soup.stack``)."""
+    states = [soup.seed(cfg, generator(seed, *where, t), dev)
+              for t in range(trials)]
+    return soup.evolve(cfg, soup.stack(states), generations)
+
+
+def count_soup_trials(cfg: soup.SoupConfig,
+                      states: soup.SoupState) -> np.ndarray:
+    """(5,) histogram over all particles of all trial soups, the setups'
+    per-particle ``count(counters, soup)`` accumulation
+    (``mixed-soup.py:27-52``)."""
+    return soup.count(cfg, states).cpu().numpy().astype(np.int64)
+
+
+def checkpoint_intact(path: str) -> bool:
+    """Is ``path`` a checkpoint directory a resume may trust?  Its
+    ``SRNN_CKPT_OK`` marker, published after the state file, is the proof,
+    with a state file that is not empty.  The port writes no checkpoint
+    without the marker, so a directory without one is torn (the JAX
+    package's structural test of pre-marker orbax trees has nothing to
+    read here)."""
+    state = os.path.join(path, CKPT_STATE)
+    return (os.path.exists(os.path.join(path, CKPT_OK_MARKER))
+            and os.path.isfile(state) and os.path.getsize(state) > 0)
+
+
+def latest_checkpoint(run_dir: str) -> str:
+    """The newest intact ``ckpt-gen<N>`` directory of ``run_dir``.  A torn
+    one (:func:`checkpoint_intact` fails) is skipped with a warning, so a
+    resume falls back to the newest checkpoint that is whole."""
+    import glob
+
+    ckpts = sorted(
+        (p for p in glob.glob(os.path.join(run_dir, "ckpt-gen*"))
+         if p.rsplit("gen", 1)[1].isdigit()),
+        key=lambda p: int(p.rsplit("gen", 1)[1]))
+    for p in reversed(ckpts):
+        if checkpoint_intact(p):
+            return p
+        print(f"latest_checkpoint: skipping torn checkpoint {p}",
+              file=sys.stderr, flush=True)
+    raise FileNotFoundError(
+        f"no finalized ckpt-gen* checkpoints under {run_dir}"
+        + (f" ({len(ckpts)} torn candidate(s) skipped)" if ckpts else ""))
+
+
 def log_sweep(exp: Experiment, name: str, data: dict):
     """Reference logging shape: name line, data dict line, blank line
     (``mixed-self-fixpoints.py:98-101``)."""
@@ -137,29 +199,3 @@ def save_run_config(run_dir: str, args, fields, extra=None) -> None:
     doc.update(extra or {})
     atomic_write_text(os.path.join(run_dir, "config.json"),
                       json.dumps(doc, indent=1))
-
-
-def atomic_write_text(path: str, text: str) -> str:
-    """Publish ``text`` at ``path`` atomically: write a tmp file beside it,
-    fsync, rename over the target, fsync the directory (where the
-    filesystem allows); a run killed mid-write never leaves a torn file
-    (``srnn_tpu/utils/atomicio.py``)."""
-    path = os.path.abspath(path)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        f.write(text.encode("utf-8"))
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    try:
-        fd = os.open(os.path.dirname(path),
-                     os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
-    except OSError:
-        return path
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
-    return path

@@ -1,5 +1,5 @@
-"""The Soup: population dynamics of self-replicating particles; port of the
-population-major parallel mode of ``srnn_tpu/soup.py``.
+"""The Soup: population dynamics of self-replicating particles; port of
+the parallel mode of ``srnn_tpu/soup.py``, in both of its layouts.
 
 Reference: ``Soup`` (``soup.py:10-108``).  Per generation, per particle:
 with p=attacking_rate pick a uniform random other (possibly self) and
@@ -11,53 +11,80 @@ phase.  All particles step together from the start-of-phase state; attack
 collisions resolve last-attacker-wins, as in the JAX package.
 
 Scope of this port: all four variants (weightwise, aggregating, fft,
-recurrent), ``layout='popmajor'``, ``mode='parallel'``, full-width phases,
-the three population dtypes (``population_dtype`` 'f32' | 'bf16' |
-'int8'); the weightwise variant in the sequential (batch-1) train mode, the
-others in either mode (one sample per epoch makes them one program).  Any
-other setting raises.  ``layout`` defaults to 'popmajor' here, the only
-layout the port has.  ``generation_impl='fused'`` runs the whole
-generation as one launch of the variant's generation kernel;
-``generation_impl='phases'`` runs the phases one after another, the train
-and learn_from chains on the variant's SGD kernel and the recurrent attack
-on its attack kernel.  The population's device picks the route inside each
-kernel's wrapper: CUDA tensors launch the kernels, CPU tensors run their
-plain versions.  ``train_impl`` and ``apply_impl`` ('plain' | 'kernel', the
-JAX package's 'xla' | 'pallas') are kept so that the JAX package's configs
+recurrent), ``mode='parallel'``, full-width phases, the three population
+dtypes (``population_dtype`` 'f32' | 'bf16' | 'int8'), in either layout:
+
+  * ``layout='rowmajor'`` (the default, as in the JAX package): the
+    population stays (N, P) between generations.  The attack is the
+    row-major transform (``nets.dispatch.apply_to_weights``, plain torch,
+    every variant; its nets run as explicit multiply-add chains,
+    ``ops/mlp.mlp_apply``, which round alike on the card and the CPU);
+    learn_from and self-training run on the variant's SGD
+    kernel over the (P, N) transpose (``train.py``'s route: K2
+    weightwise, K4 aggregating/fft, K5 recurrent), the weightwise variant
+    in either train mode (its ``'full_batch'`` by autograd, as in
+    ``train.py``).  A state may carry a leading trial axis -- B soups side
+    by side, each with its own generator (``stack``) -- and then one
+    kernel launch per phase per generation serves all of them.
+  * ``layout='popmajor'``: the population is held (P, N).  The weightwise
+    variant runs its sequential (batch-1) train mode only, the others
+    either mode (one sample per epoch makes them one program).
+    ``generation_impl='fused'`` runs the whole generation as one launch
+    of the variant's generation kernel; ``generation_impl='phases'`` runs
+    the phases one after another, the train and learn_from chains on the
+    variant's SGD kernel and the recurrent attack on its attack kernel.
+
+Any other setting raises (``mode='sequential'`` is not ported: ROADMAP.md,
+queue A).  The population's device picks the route inside each kernel's
+wrapper: CUDA tensors launch the kernels, CPU tensors run their plain
+versions.  ``train_impl`` and ``apply_impl`` ('plain' | 'kernel', the JAX
+package's 'xla' | 'pallas') are kept so that the JAX package's configs
 convert; they select nothing here.
+
+On the CPU the row-major weightwise and aggregating soups equal the
+population-major phase chain bitwise: their transforms agree bitwise and
+the SGD chains are the same calls.  The recurrent ones do not (the
+population-major recurrence, K6's, sums in another order).
 
 Population precision (``soup.py:133-148``, ``:175-247`` of the JAX
 package): a 'bf16' population stores bfloat16 weights, an 'int8' one int8
 codes with a per-particle float32 scale (``SoupState.scales``).  Every phase
 computes in float32 and the stored weights round exactly once per
-generation, at its exit.  The phase route upcasts at entry and rounds at
+generation, at its exit.  The phase routes upcast at entry and round at
 exit; on the fused route a bfloat16 population rides the generation kernel
 at storage width (its columns gathered as bfloat16, upcast at load, rounded
 at store), and an int8 one is dequantized before the gathers and
-re-quantized at the same exit point.  So the two routes round at the same
+re-quantized at the same exit point.  So the routes round at the same
 points and agree bitwise wherever their float32 arithmetic does.
 
 Randomness: the state carries a ``torch.Generator`` (field ``key``), seeded
 from an int.  ``evolve_step`` and ``evolve`` draw from a copy of it and hand
 the advanced copy back in the new state, so a state, like the JAX package's,
-can be evolved twice to the same result.  A caller may instead
-hand ``evolve_step`` the generation's draws (``SoupDraws``) -- the tests
-hand over the JAX package's own draws.
+can be evolved twice to the same result.  Both layouts draw the same
+numbers in the same order (``draw``), as the JAX package's do, so one seed
+gives one soup in either layout wherever their arithmetic agrees.  A
+generator on another device than the population (the CPU) draws there and
+the draws move to the population's device.  A caller may instead hand
+``evolve_step`` the generation's draws (``SoupDraws``) -- the tests hand
+over the JAX package's own draws.
 """
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .engine import classify_batch
-from .init import fresh_lanes, init_population, make_generator
+from .init import (fresh_lanes, init_population, make_generator,
+                   resolve_device)
+from .nets.dispatch import apply_to_weights, compute_samples
 from .ops.cuda_generation import fused_kernel_supported, generation_popmajor
 from .ops.popmajor import (DEFAULT_LR, apply_popmajor, check_train_mode,
                            learn_epochs_popmajor, train_epochs_popmajor)
 from .ops.predicates import (DEFAULT_EPSILON, count_classes, is_diverged,
                              is_zero)
 from .topology import Topology
+from .train import fit_epochs_flat, on_sgd_kernels
 
 # action codes for the event log (reference action strings, soup.py:60-85)
 ACTION_NAMES = ("none", "init", "attacking", "learn_from", "train_self",
@@ -81,7 +108,7 @@ class SoupConfig(NamedTuple):
     lr: float = DEFAULT_LR
     train_mode: str = "sequential"
     mode: str = "parallel"
-    layout: str = "popmajor"
+    layout: str = "rowmajor"            # 'rowmajor' | 'popmajor'
     respawn_draws: str = "perparticle"  # 'perparticle' | 'fused': one law
     train_impl: str = "kernel"          # accepted, selects nothing
     attack_impl: str = "full"
@@ -92,7 +119,9 @@ class SoupConfig(NamedTuple):
 
 
 class SoupState(NamedTuple):
-    """Population as struct-of-arrays."""
+    """Population as struct-of-arrays.  A stacked state (``stack``) holds
+    B soups of one config side by side: every field gains a leading trial
+    axis and ``key`` is a tuple of the trials' generators."""
     weights: torch.Tensor   # (N, P) in the storage dtype (float32,
     #                         bfloat16, or int8 codes)
     uids: torch.Tensor      # (N,) int32 -- stable identity across respawns
@@ -194,14 +223,18 @@ def _stored_view(config, w: torch.Tensor, scales: Optional[torch.Tensor],
     return w
 
 
-def seed(config: SoupConfig, seed: int, device="cuda") -> SoupState:
+def seed(config: SoupConfig, seed, device="cuda") -> SoupState:
     """Create the initial population (``Soup.seed``, ``soup.py:45-49``) on
-    ``device``, in the storage dtype; ``seed`` seeds the generator the soup
-    then carries."""
+    ``device``, in the storage dtype.  ``seed`` is an int, which seeds a
+    generator on ``device``, or a ``torch.Generator``, which may live on
+    another device (the CPU): the soup carries it, draws there and moves
+    the draws to ``device``, so one generator gives one soup on either
+    device."""
     _check_config(config)
-    gen = make_generator(seed, device)
-    w = init_population(config.topo, gen, config.size, gen.device)
-    dev = w.device
+    dev = resolve_device(device)
+    gen = seed if isinstance(seed, torch.Generator) \
+        else make_generator(seed, dev)
+    w = init_population(config.topo, gen, config.size, gen.device).to(dev)
     w, scales = _downcast(config, w)
     return SoupState(
         weights=w,
@@ -212,34 +245,53 @@ def seed(config: SoupConfig, seed: int, device="cuda") -> SoupState:
 
 
 def _check_config(config: SoupConfig) -> None:
-    """The JAX package's ``_check_popmajor`` plus the limits of this port."""
-    if config.layout != "popmajor":
-        raise ValueError(f"layout={config.layout!r} is not ported; "
-                         "srnn_tpu_torch runs layout='popmajor'")
+    """The JAX package's ``_evolve_step`` checks (``soup.py:945-982``) and
+    ``_check_popmajor``, plus the limits of this port."""
+    if config.layout not in ("rowmajor", "popmajor"):
+        raise ValueError(f"unknown soup layout {config.layout!r}")
+    rowmajor = config.layout == "rowmajor"
+    if config.mode == "sequential":
+        raise ValueError("mode='sequential' is not ported (ROADMAP.md, "
+                         "queue A); srnn_tpu_torch runs mode='parallel'")
     if config.mode != "parallel":
-        raise ValueError(f"mode={config.mode!r} is not ported; "
-                         "srnn_tpu_torch runs mode='parallel'")
+        raise ValueError(f"unknown soup mode {config.mode!r}")
     _pop_dtype(config)
+    if config.generation_impl not in ("phases", "fused"):
+        raise ValueError(
+            f"unknown generation_impl {config.generation_impl!r}")
+    if rowmajor and config.generation_impl == "fused":
+        raise ValueError(
+            "generation_impl='fused' is the popmajor lane megakernel; "
+            "layout='rowmajor' needs generation_impl='phases'")
+    for field in ("attack_impl", "learn_from_impl"):
+        if getattr(config, field) == "full":
+            continue
+        if rowmajor:
+            raise ValueError(
+                "attack_impl/learn_from_impl='compact' compact lanes of the "
+                "popmajor layout; layout='rowmajor' needs 'full'")
+        raise ValueError(f"{field}={getattr(config, field)!r} is not "
+                         "ported; srnn_tpu_torch runs 'full'")
     if config.topo.shuffler == "random":
-        raise ValueError("layout='popmajor' requires shuffler='not'")
+        raise ValueError(f"layout={config.layout!r} requires shuffler='not' "
+                         "(shuffler='random' is not ported)")
     if config.topo.variant == "recurrent" and \
             config.topo.rnn_scan != "sequential":
         raise ValueError(f"rnn_scan={config.topo.rnn_scan!r} is not ported; "
                          "srnn_tpu_torch runs the serial scan")
-    check_train_mode(config.topo, config.train_mode)
+    if rowmajor:
+        on_sgd_kernels(config.topo, config.train_mode)  # validates the mode
+    else:
+        check_train_mode(config.topo, config.train_mode)
     if config.respawn_draws not in ("perparticle", "fused"):
         raise ValueError(f"unknown respawn_draws {config.respawn_draws!r}")
-    for field in ("attack_impl", "learn_from_impl"):
-        if getattr(config, field) != "full":
-            raise ValueError(f"{field}={getattr(config, field)!r} is not "
-                             "ported; srnn_tpu_torch runs 'full'")
     for field in ("train_impl", "apply_impl"):
         if getattr(config, field) not in ("plain", "kernel"):
             raise ValueError(f"unknown {field} {getattr(config, field)!r}")
-    if config.generation_impl not in ("phases", "fused"):
-        raise ValueError(
-            f"unknown generation_impl {config.generation_impl!r}")
-    if not fused_kernel_supported(config.topo, config.train_mode):
+    # the kernels' envelope; the row-major weightwise full batch trains by
+    # autograd, but its activation is fenced like the sequential one's
+    if not fused_kernel_supported(
+            config.topo, "sequential" if rowmajor else config.train_mode):
         raise ValueError(
             "the soup's kernels need an activation with an "
             "output-expressible derivative (linear/sigmoid/tanh/relu) and "
@@ -249,15 +301,18 @@ def _check_config(config: SoupConfig) -> None:
 
 def draw(config: SoupConfig, gen: torch.Generator,
          device) -> SoupDraws:
-    """One generation's draws from ``gen``, in a fixed order."""
+    """One generation's draws from ``gen``, in a fixed order, made on the
+    generator's device and moved to ``device``; both layouts take them."""
     n = config.size
-    u_att = torch.rand(n, generator=gen, device=device)
-    t_att = torch.randint(0, n, (n,), generator=gen, device=device)
-    u_lrn = torch.rand(n, generator=gen, device=device)
-    t_lrn = torch.randint(0, n, (n,), generator=gen, device=device)
-    fresh = fresh_lanes(config.topo, gen, n, config.respawn_draws, device)
-    return SoupDraws(u_att < config.attacking_rate, t_att,
-                     u_lrn < config.learn_from_rate, t_lrn, fresh)
+    dev = gen.device
+    u_att = torch.rand(n, generator=gen, device=dev)
+    t_att = torch.randint(0, n, (n,), generator=gen, device=dev)
+    u_lrn = torch.rand(n, generator=gen, device=dev)
+    t_lrn = torch.randint(0, n, (n,), generator=gen, device=dev)
+    fresh = fresh_lanes(config.topo, gen, n, config.respawn_draws, dev)
+    return SoupDraws(*(t.to(device) for t in (
+        u_att < config.attacking_rate, t_att,
+        u_lrn < config.learn_from_rate, t_lrn, fresh)))
 
 
 def _on(x, device, dtype) -> torch.Tensor:
@@ -266,10 +321,10 @@ def _on(x, device, dtype) -> torch.Tensor:
     return x.to(device=device, dtype=dtype).contiguous()
 
 
-def _resolve_draws(config: SoupConfig, state: SoupState, device,
+def _resolve_draws(config: SoupConfig, gen: torch.Generator, device,
                    draws: Optional[SoupDraws]) -> SoupDraws:
     if draws is None:
-        return draw(config, state.key, device)
+        return draw(config, gen, device)
     n, p = config.size, config.topo.num_weights
     d = SoupDraws(_on(draws.attack_gate, device, torch.bool),
                   _on(draws.attack_tgt, device, torch.int64),
@@ -330,16 +385,17 @@ def _gates(config: SoupConfig, d: SoupDraws, n: int, dev):
 
 def _respawn_uids(uids, base, dead_div, dead_zero):
     """Fresh uids ``base, base + 1, ...`` for the dead lanes in lane order
-    (the ``cumsum`` rank); returns (uids, deaths, death action, death
-    counterpart)."""
+    (the ``cumsum`` rank) along the last axis, each row of a (B, N) batch
+    from its own ``base`` (B, 1); returns (uids, deaths per row, death
+    action, death counterpart)."""
     dead = dead_div | dead_zero
-    rank = torch.cumsum(dead.to(torch.int64), 0) - 1
+    rank = torch.cumsum(dead.to(torch.int64), -1) - 1
     uids = torch.where(dead, base + rank.to(torch.int32), uids).to(
         torch.int32)
     action = torch.full_like(uids, ACT_NONE)
     action = torch.where(dead_div, ACT_DIV_DEAD, action)
     action = torch.where(dead_zero, ACT_ZERO_DEAD, action)
-    return (uids, dead.sum().to(torch.int32), action,
+    return (uids, dead.sum(-1).to(torch.int32), action,
             torch.where(dead, uids, -1))
 
 
@@ -398,7 +454,7 @@ def _evolve_parallel_popmajor(config: SoupConfig, state: SoupState,
     topo = config.topo
     dev = wT.device
     wT = _upcast(config, wT, state.scales, paxis=-1)
-    d = _resolve_draws(config, state, dev, draws)
+    d = _resolve_draws(config, state.key, dev, draws)
     gates = _gates(config, d, n, dev)
     _, _, att_idx, learn_gate, learn_tgt = gates
 
@@ -428,7 +484,7 @@ def _evolve_fused_popmajor(config: SoupConfig, state: SoupState,
     dev = wT.device
     if config.population_dtype == "int8":
         wT = _upcast(config, wT, state.scales, paxis=-1)
-    d = _resolve_draws(config, state, dev, draws)
+    d = _resolve_draws(config, state.key, dev, draws)
     gates = _gates(config, d, n, dev)
     _, _, att_idx, learn_gate, learn_tgt = gates
     attacking = config.attacking_rate > 0
@@ -453,7 +509,140 @@ def _evolve_fused_popmajor(config: SoupConfig, state: SoupState,
     return _finish(config, state, gates, wT, train_loss, dead_div, dead_zero)
 
 
+def _rowmajor_generation(config: SoupConfig, state: SoupState,
+                         draws: Optional[Sequence[SoupDraws]] = None):
+    """One parallel row-major generation (``_evolve_parallel``,
+    ``soup.py:330-410`` of the JAX package) of the B soups of a stacked
+    ``state`` at once; ``draws`` replaces the trials' draws (one
+    ``SoupDraws`` each).  Each trial's attack and learn targets index
+    within its own trial (a ``b * N`` offset on the flattened rows), and
+    every phase runs on all B * N rows: one kernel launch per phase.
+    Returns (new stacked state, events (B, N))."""
+    b, n, p = state.weights.shape
+    topo = config.topo
+    dev = state.weights.device
+    ds = [_resolve_draws(config, gen, dev, None if draws is None
+                         else draws[t]) for t, gen in enumerate(state.key)]
+
+    def rows_of(field):
+        return torch.cat([getattr(d, field) for d in ds])
+
+    rows = _upcast(config, state.weights.reshape(b * n, p),
+                   None if state.scales is None
+                   else state.scales.reshape(-1))
+    off = torch.arange(b, device=dev).repeat_interleave(n) * n
+    none = torch.zeros(b * n, dtype=torch.bool, device=dev)
+    zero_tgt = torch.zeros(b * n, dtype=torch.int64, device=dev)
+
+    # --- attack (soup.py:56-61): last attacker wins ----------------------
+    if config.attacking_rate > 0:
+        attack_gate, attack_tgt = rows_of("attack_gate"), rows_of("attack_tgt")
+        src = torch.where(attack_gate, torch.arange(b * n, device=dev), -1)
+        att_idx = torch.full((b * n,), -1, dtype=torch.int64, device=dev)
+        att_idx = att_idx.scatter_reduce(0, attack_tgt + off, src, "amax",
+                                         include_self=True)
+        attacked = apply_to_weights(topo, rows[att_idx.clamp(min=0)], rows)
+        rows = torch.where((att_idx >= 0)[:, None], attacked, rows)
+    else:
+        attack_gate, attack_tgt = none, zero_tgt
+
+    # --- learn_from (soup.py:62-68): the counterparts' samples fixed ------
+    if config.learn_from_rate > 0:
+        learn_gate, learn_tgt = rows_of("learn_gate"), rows_of("learn_tgt")
+        if config.learn_from_severity > 0:
+            other = rows[learn_tgt + off]
+            if on_sgd_kernels(topo, config.train_mode):
+                learned, _ = learn_epochs_popmajor(
+                    topo, rows.t().contiguous(), other.t().contiguous(),
+                    config.learn_from_severity, config.lr, config.train_mode)
+                learned = learned.t()
+            else:
+                learned, _ = fit_epochs_flat(
+                    topo, rows, config.learn_from_severity, config.lr,
+                    config.train_mode, xy=compute_samples(topo, other))
+            rows = torch.where(learn_gate[:, None], learned, rows)
+    else:
+        learn_gate, learn_tgt = none, zero_tgt
+
+    # --- train (soup.py:69-76) -------------------------------------------
+    rows, train_loss = fit_epochs_flat(topo, rows, config.train, config.lr,
+                                       config.train_mode)
+
+    # --- respawn (soup.py:77-86), uids ranked per trial ------------------
+    dead_div = is_diverged(rows) if config.remove_divergent else none
+    dead_zero = (is_zero(rows, config.epsilon) & ~dead_div) \
+        if config.remove_zero else none
+    fresh = torch.cat([d.fresh.t() for d in ds])
+    rows = torch.where((dead_div | dead_zero)[:, None], fresh, rows)
+    uids, deaths, death_action, death_cp = _respawn_uids(
+        state.uids, state.next_uid[:, None], dead_div.view(b, n),
+        dead_zero.view(b, n))
+    flat_uids = state.uids.reshape(-1)
+    act, cp = _event_record(
+        b * n, attack_gate, flat_uids[attack_tgt + off], learn_gate,
+        flat_uids[learn_tgt + off], config.train > 0,
+        death_action.reshape(-1), death_cp.reshape(-1))
+
+    stored, scales = _downcast(config, rows)
+    new_state = SoupState(
+        stored.reshape(b, n, p), uids, state.next_uid + deaths,
+        state.time + 1, state.key,
+        None if scales is None else scales.reshape(b, n))
+    return new_state, SoupEvents(act.reshape(b, n), cp.reshape(b, n),
+                                 train_loss.reshape(b, n))
+
+
+def stack(states: Sequence[SoupState]) -> SoupState:
+    """B soups of one config as one stacked state (a leading trial axis on
+    every field, ``key`` the tuple of their generators), which the
+    row-major ``evolve_step`` / ``evolve`` / ``count`` take."""
+    scales = [s.scales for s in states]
+    return SoupState(
+        torch.stack([s.weights for s in states]),
+        torch.stack([s.uids for s in states]),
+        torch.stack([s.next_uid for s in states]),
+        torch.stack([s.time for s in states]),
+        tuple(s.key for s in states),
+        None if scales[0] is None else torch.stack(scales))
+
+
+def _stacked(config: SoupConfig, state: SoupState) -> Tuple[SoupState, bool]:
+    """``state`` with a leading trial axis (a lone soup as B = 1), checked,
+    and whether it came stacked."""
+    is_stacked = isinstance(state.key, tuple)
+    if not is_stacked:
+        state = stack([state])
+    b = len(state.key)
+    shape = (b, config.size, config.topo.num_weights)
+    dtype = _pop_dtype(config)
+    if tuple(state.weights.shape) != shape or state.weights.dtype != dtype:
+        raise ValueError(f"state.weights must be {dtype} {shape[1:]} (a "
+                         f"stacked state {shape}), got {state.weights.dtype} "
+                         f"{tuple(state.weights.shape)}")
+    if tuple(state.uids.shape) != shape[:2] or \
+            tuple(state.next_uid.shape) != (b,):
+        raise ValueError("state.uids must be (N,) and state.next_uid a "
+                         "scalar (a stacked state: (B, N) and (B,))")
+    if (state.scales is None) != (config.population_dtype != "int8") or (
+            state.scales is not None and
+            tuple(state.scales.shape) != shape[:2]):
+        raise ValueError("state.scales must be (N,) float32 for an int8 "
+                         "population and None otherwise")
+    return state, is_stacked
+
+
+def _unstacked(state: SoupState, is_stacked: bool) -> SoupState:
+    if is_stacked:
+        return state
+    return SoupState(state.weights[0], state.uids[0], state.next_uid[0],
+                     state.time[0], state.key[0],
+                     None if state.scales is None else state.scales[0])
+
+
 def _popmajor(config: SoupConfig, state: SoupState) -> torch.Tensor:
+    if isinstance(state.key, tuple):
+        raise ValueError("a stacked state (trial axis) needs "
+                         "layout='rowmajor'")
     shape = (config.size, config.topo.num_weights)
     dtype = _pop_dtype(config)
     if tuple(state.weights.shape) != shape or state.weights.dtype != dtype:
@@ -467,41 +656,127 @@ def _popmajor(config: SoupConfig, state: SoupState) -> torch.Tensor:
     return state.weights.t().contiguous()
 
 
+def _fork(gen: torch.Generator) -> torch.Generator:
+    copy = torch.Generator(device=gen.device)
+    copy.set_state(gen.get_state())
+    return copy
+
+
 def _forked(state: SoupState) -> SoupState:
-    """The state with a copy of its generator, so that the caller's state
-    stays as it was and can be evolved again to the same result."""
-    gen = torch.Generator(device=state.key.device)
-    gen.set_state(state.key.get_state())
-    return state._replace(key=gen)
+    """The state with a copy of its generator(s), so that the caller's
+    state stays as it was and can be evolved again to the same result."""
+    if isinstance(state.key, tuple):
+        return state._replace(key=tuple(_fork(g) for g in state.key))
+    return state._replace(key=_fork(state.key))
 
 
-def evolve_step(config: SoupConfig, state: SoupState,
-                draws: Optional[SoupDraws] = None):
+def evolve_step(config: SoupConfig, state: SoupState, draws=None):
     """One generation (``Soup.evolve`` body, ``soup.py:51-87``).  Returns
-    (new_state, events); ``state`` is left as it was.  ``draws`` replaces
-    the generator's draws for this generation."""
+    (new_state, events); ``state`` is left as it was.  ``draws`` (a
+    ``SoupDraws``; for a stacked state, one per trial) replaces the
+    generator's draws for this generation."""
     _check_config(config)
-    new_state, events, wT = _evolve_parallel_popmajor(
-        config, _forked(state), _popmajor(config, state), draws)
-    return new_state._replace(weights=wT.t().contiguous()), events
+    if config.layout == "popmajor":
+        new_state, events, wT = _evolve_parallel_popmajor(
+            config, _forked(state), _popmajor(config, state), draws)
+        return new_state._replace(weights=wT.t().contiguous()), events
+    trials, is_stacked = _stacked(config, _forked(state))
+    if draws is not None and not is_stacked:
+        draws = [draws]
+    trials, events = _rowmajor_generation(config, trials, draws)
+    if not is_stacked:
+        events = SoupEvents(*(e[0] for e in events))
+    return _unstacked(trials, is_stacked), events
 
 
-def evolve(config: SoupConfig, state: SoupState,
-           generations: int = 1) -> SoupState:
-    """Evolve ``generations`` steps, the population kept (P, N) between
-    them (one transpose at entry and one at exit); ``state`` is left as it
-    was."""
+class _Record:
+    """The stacked per-generation record of ``evolve(record=True)``,
+    preallocated on the population's device: events (G, ...) and the
+    weights (G, ..., N, P) in the stored view, uids (G, ..., N)."""
+
+    def __init__(self, config: SoupConfig, generations: int, lead: tuple,
+                 device):
+        def buf(shape, dtype):
+            return torch.empty((generations, *lead, *shape), dtype=dtype,
+                               device=device)
+
+        n, p = config.size, config.topo.num_weights
+        view = torch.bfloat16 if config.population_dtype == "bf16" \
+            else torch.float32
+        self.events = SoupEvents(buf((n,), torch.int32),
+                                 buf((n,), torch.int32),
+                                 buf((n,), torch.float32))
+        self.weights = buf((n, p), view)
+        self.uids = buf((n,), torch.int32)
+
+    def put(self, g: int, events: SoupEvents, view: torch.Tensor,
+            uids: torch.Tensor) -> None:
+        for out, e in zip(self.events, events):
+            out[g] = e.reshape(out.shape[1:])
+        self.weights[g] = view.reshape(self.weights.shape[1:])
+        self.uids[g] = uids.reshape(self.uids.shape[1:])
+
+    def result(self):
+        return self.events, self.weights, self.uids
+
+
+def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
+           record: bool = False, metrics: bool = False,
+           health: bool = False, lineage: bool = False):
+    """Evolve ``generations`` steps (``_evolve``, ``soup.py:1020-1170`` of
+    the JAX package); ``state`` is left as it was.  The row-major
+    population stays (N, P), or (B, N, P) for a stacked state; the
+    population-major one is kept (P, N) between generations (one transpose
+    at entry and one at exit).
+
+    With ``record=True`` returns ``(final, (SoupEvents stacked (G, N),
+    weights (G, N, P) in the stored view, uids (G, N)))`` (a stacked state:
+    (G, B, N) and (G, B, N, P)), preallocated on the population's device;
+    an int8 population records its dequantized float32 view.  The JAX
+    package's ``metrics=`` / ``health=`` / ``lineage=`` carries are not
+    ported (ROADMAP.md, queue A.4) and raise."""
     _check_config(config)
-    wT = _popmajor(config, state)
-    state = _forked(state)
-    for _ in range(generations):
-        state, _, wT = _evolve_parallel_popmajor(config, state, wT)
-    return state._replace(weights=wT.t().contiguous())
+    if metrics or health or lineage:
+        raise NotImplementedError(
+            "evolve(metrics=, health=, lineage=): the device telemetry "
+            "carries are not ported to srnn_tpu_torch (ROADMAP.md, A.4)")
+    rec = None
+    if config.layout == "popmajor":
+        wT = _popmajor(config, state)
+        state = _forked(state)
+        if record:
+            rec = _Record(config, generations, (), wT.device)
+        for g in range(generations):
+            state, events, wT = _evolve_parallel_popmajor(config, state, wT)
+            if record:
+                rec.put(g, events, _stored_view(config, wT, state.scales,
+                                                paxis=-1).t(), state.uids)
+        final = state._replace(weights=wT.t().contiguous())
+    else:
+        trials, is_stacked = _stacked(config, _forked(state))
+        if record:
+            lead = (len(trials.key),) if is_stacked else ()
+            rec = _Record(config, generations, lead, trials.weights.device)
+        for g in range(generations):
+            trials, events = _rowmajor_generation(config, trials)
+            if record:
+                rec.put(g, events, _rows_view(config, trials), trials.uids)
+        final = _unstacked(trials, is_stacked)
+    return (final, rec.result()) if record else final
+
+
+def _rows_view(config: SoupConfig, state: SoupState) -> torch.Tensor:
+    """The stored view of a row-major population, stacked or not."""
+    w = state.weights
+    p = w.shape[-1]
+    scales = None if state.scales is None else state.scales.reshape(-1)
+    return _stored_view(config, w.reshape(-1, p), scales).reshape(w.shape)
 
 
 def count(config: SoupConfig, state: SoupState) -> torch.Tensor:
     """(5,) class histogram of the current population (``Soup.count``,
-    ``soup.py:89-103``), classified from its stored view."""
+    ``soup.py:89-103``), classified from its stored view; over every
+    particle of every trial for a stacked state."""
+    view = _rows_view(config, state)
     return count_classes(classify_batch(
-        config.topo, _stored_view(config, state.weights, state.scales),
-        config.epsilon))
+        config.topo, view.reshape(-1, view.shape[-1]), config.epsilon))

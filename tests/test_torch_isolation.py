@@ -35,7 +35,10 @@ for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
              "srnn_tpu_torch.setups.known_fixpoint_variation",
              "srnn_tpu_torch.setups.mixed_self_fixpoints",
              "srnn_tpu_torch.setups.training_fixpoints",
-             "srnn_tpu_torch.setups.network_trajectorys"):
+             "srnn_tpu_torch.setups.network_trajectorys",
+             "srnn_tpu_torch.setups.soup_trajectorys",
+             "srnn_tpu_torch.setups.learn_from_soup",
+             "srnn_tpu_torch.setups.mixed_soup"):
     assert name in names, name
 """
 
@@ -46,7 +49,7 @@ def test_import_loads_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 47  # the engines, run layer and setups too
+    assert int(count) >= 50  # the engines, run layer and setups too
     assert bad == "[]"
 
 
@@ -72,7 +75,8 @@ def test_default_device_is_cuda(monkeypatch):
     import srnn_tpu_torch as st
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = st.SoupConfig(topo=st.Topology("weightwise"), size=8)
+    cfg = st.SoupConfig(topo=st.Topology("weightwise"), size=8,
+                        layout="popmajor")
     with pytest.raises(RuntimeError, match="CUDA"):
         st.seed(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -94,7 +98,7 @@ def test_mixed_and_precision_entry_points_default_to_cuda(monkeypatch):
     for dtype, torch_dtype in (("bf16", torch.bfloat16),
                                ("int8", torch.int8)):
         cfg = st.SoupConfig(topo=st.Topology("weightwise"), size=8,
-                            population_dtype=dtype)
+                            layout="popmajor", population_dtype=dtype)
         with pytest.raises(RuntimeError, match="CUDA"):
             st.seed(cfg, 0)
         assert st.seed(cfg, 0, device="cpu").weights.dtype == torch_dtype

@@ -78,7 +78,8 @@ def _run(name, root, flags=()):
 
 
 def test_registry():
-    assert sorted(REGISTRY) == NAMES
+    assert sorted(REGISTRY) == sorted(
+        NAMES + ["learn_from_soup", "mixed_soup", "soup_trajectorys"])
 
 
 @pytest.mark.parametrize("name", NAMES)

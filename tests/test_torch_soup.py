@@ -181,7 +181,7 @@ def test_port_soup_own_draws_and_fences():
     torch.testing.assert_close(a.weights, b.weights, rtol=2e-5, atol=1e-6)
     assert int(a.time) == 2 and int(s0.time) == 0
     assert int(torch.unique(a.uids).numel()) == cfg.size
-    for bad in (dict(layout="rowmajor"), dict(population_dtype="f16"),
+    for bad in (dict(layout="columnar"), dict(population_dtype="f16"),
                 dict(mode="sequential"), dict(attack_impl="compact"),
                 dict(apply_impl="pallas"), dict(train_mode="full_batch"),
                 dict(train_impl="pallas"),
