@@ -41,7 +41,10 @@ Phases, each fatal on failure:
    weightwise, 333,333 aggregating, 333,333 recurrent particles, the same
    dynamics), 20 generations on each route (fused: one generation kernel
    per type; phases: the types' SGD kernels; both: the recurrent attack
-   kernel once per victim type); then the weightwise, aggregating and
+   kernel once per victim type), then 20 in the row-major layout (the
+   default: the types' SGD kernels twice a generation each and no other
+   kernel, counted after a warm-up generation; the cross attack is plain
+   torch); then the weightwise, aggregating and
    recurrent soups with population_dtype='bf16' on the fused route (K3's
    bfloat16 bodies); then the applications/s program, N = 1M, steps = 2000
    (self-application kernel only, through ``srnn_tpu_torch.bench``); then,
@@ -61,15 +64,26 @@ Phases, each fatal on failure:
    (SRNN_LAUNCH_COUNTS) exact, the soup setups' science printed beside the
    CPU reference's (BASELINE.md) to inform; then every
    engine on 512 trials of each standard variant on the card against the
-   same call on the CPU (integers exact, floats within rtol/atol);
+   same call on the CPU (integers exact, floats bitwise);
 6. a small soup of each variant, a small mixed soup, and small bf16 and
    int8 soups, each on the card against the same soup on the CPU, fed the
    same draws, over 3 generations on both routes; the same for the
    row-major soups (each variant, the weightwise full batch, bf16, int8),
-   the weightwise and aggregating row-major soups against the
-   population-major phase chain on the card, and a checkpoint round trip
-   on the card (3 generations, save, restore, 2 more, against 5 at once,
-   bitwise with the generator);
+   the weightwise (both train modes) and aggregating row-major soups
+   against the population-major phase chain on the card, and a checkpoint
+   round trip on the card (3 generations, save, restore, 2 more, against 5
+   at once, bitwise with the generator); the row-major mixed soup the same
+   way (four types with fft within rtol/atol a generation at a time,
+   three-type mixes in float32, bfloat16 and int8 bitwise, chained), a
+   weightwise and aggregating mix row-major
+   against population-major on the card, and a mixed checkpoint round
+   trip; the sequential soup (mode='sequential') of each standard variant
+   and of the weightwise full batch, card against CPU bitwise with each
+   generation's launches exact; the population-major weightwise full batch
+   card against CPU, and its step's time at N = 1M (to inform);
+   then, to inform, the sequential weightwise soup at soup_trajectorys'
+   size (exactly one K2 launch per particle a generation), its ms per
+   generation and final classes beside BASELINE.md's;
 7. one JSON line listing every kernel (K3 once per variant body and
    population dtype, K6 once per victim length), then the
    card's name and power limit, then the result line
@@ -318,24 +332,6 @@ def compare(torch, what: str, got, ref, ulps=None):
     if ulps is not None:
         check_exact(what, got, ref, ulps)
     return max_abs
-
-
-def report_gap(torch, what: str, got, ref) -> None:
-    """Max abs / max rel difference over finite entries, and the largest
-    magnitude, to inform; the non-finite pattern must agree exactly."""
-    fin = torch.isfinite(got) & torch.isfinite(ref)
-    same_nonfinite = bool(((torch.isnan(got) == torch.isnan(ref))
-                           & ((got == ref) | ~torch.isinf(ref))).all())
-    diff = torch.where(fin, (got - ref).abs(), torch.zeros_like(got))
-    rel = diff / ref.abs().clamp_min(torch.finfo(torch.float32).tiny)
-    big = torch.where(fin, ref.abs(), torch.zeros_like(ref))
-    log(f"  {what} (to inform): max_abs {float(diff.max()):.3e} max_rel "
-        f"{float(torch.where(fin, rel, torch.zeros_like(rel)).max()):.3e} "
-        f"largest |w| {float(big.max()):.3e} bitwise "
-        f"{bool(same_nonfinite and (diff == 0).all())} "
-        f"nonfinite_pattern_equal {same_nonfinite}")
-    if not same_nonfinite:
-        raise AssertionError(f"{what}: non-finite patterns differ")
 
 
 def equal_ints(torch, what: str, got, ref) -> None:
@@ -912,17 +908,9 @@ def multisoup_runs(torch, kernels, totals, per_generation_fused,
     dynamics, N = 1M, 20 generations on each route after a warm-up
     generation, each run's own launch counts checked exactly and added to
     ``totals``."""
-    import srnn_tpu_torch as st
     from srnn_tpu_torch import multisoup as ms
 
-    third = N // 3
-    cfg = ms.MultiSoupConfig(
-        topos=(st.Topology("weightwise", width=2, depth=2),
-               st.Topology("aggregating", width=2, depth=2, aggregates=4),
-               st.Topology("recurrent", width=2, depth=2)),
-        sizes=(N - 2 * third, third, third), attacking_rate=0.1,
-        learn_from_rate=0.1, learn_from_severity=1, train=10,
-        remove_divergent=True, remove_zero=True, respawn_draws="fused")
+    cfg = mega_multi_config(layout="popmajor")
     state = ms.seed_multi(cfg, 0, device="cuda")
     runs = GENERATIONS + 1
     for impl, per_gen in (("fused", per_generation_fused),
@@ -936,24 +924,75 @@ def multisoup_runs(torch, kernels, totals, per_generation_fused,
         state = ms.evolve_multi(c, state, GENERATIONS)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = ms.count_multi(c, state)
-        uids = torch.cat(state.uids)
-        what = f"mixed soup {impl}"
-        n_unique = int(torch.unique(uids).numel())
-        if n_unique != N or int(uids.max()) >= int(state.next_uid):
-            raise AssertionError(f"{what}: uids are not globally unique")
-        if counts.sum(dim=1).tolist() != list(cfg.sizes) or not all(
-                bool(torch.isfinite(w).all()) for w in state.weights):
-            raise AssertionError(f"{what}: counts {counts.tolist()} or "
-                                 "non-finite weights after respawn")
-        log(f"{what}: {GENERATIONS / dt:.3f} generations/s at N={N} "
-            f"(sizes {cfg.sizes}; {dt * 1e3 / GENERATIONS:.3f} "
-            f"ms/generation), per-type counts [divergent, fix_zero, "
-            f"fix_other, fix_sec, other] {counts.tolist()}, unique uids "
-            f"{n_unique}, next_uid {int(state.next_uid)}")
+        check_multi_state(torch, c, state, f"mixed soup {impl}", dt)
         expect = {name: n * runs for name, n in per_gen.items()}
-        for name, n in check_launches(kernels, what, expect).items():
+        for name, n in check_launches(kernels, f"mixed soup {impl}",
+                                      expect).items():
             totals[name] += n
+
+
+def mega_multi_config(**kw):
+    """The mixed soup at setups/mega_multisoup.py's split, N = 1M as
+    333,334 weightwise, 333,333 aggregating and 333,333 recurrent
+    particles, with the full dynamics."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+
+    third = N // 3
+    return ms.MultiSoupConfig(
+        topos=(st.Topology("weightwise", width=2, depth=2),
+               st.Topology("aggregating", width=2, depth=2, aggregates=4),
+               st.Topology("recurrent", width=2, depth=2)),
+        sizes=(N - 2 * third, third, third), attacking_rate=0.1,
+        learn_from_rate=0.1, learn_from_severity=1, train=10,
+        remove_divergent=True, remove_zero=True, respawn_draws="fused", **kw)
+
+
+def check_multi_state(torch, cfg, state, what, dt):
+    """A mixed soup after ``GENERATIONS`` generations in ``dt`` seconds:
+    uids globally unique, each type's class counts summing to N_t, weights
+    finite; logs generations/s."""
+    from srnn_tpu_torch import multisoup as ms
+
+    counts = ms.count_multi(cfg, state)
+    uids = torch.cat(state.uids)
+    n_unique = int(torch.unique(uids).numel())
+    if n_unique != N or int(uids.max()) >= int(state.next_uid):
+        raise AssertionError(f"{what}: uids are not globally unique")
+    if counts.sum(dim=1).tolist() != list(cfg.sizes) or not all(
+            bool(torch.isfinite(w).all()) for w in state.weights):
+        raise AssertionError(f"{what}: counts {counts.tolist()} or "
+                             "non-finite weights after respawn")
+    log(f"{what}: {GENERATIONS / dt:.3f} generations/s at N={N} "
+        f"(sizes {cfg.sizes}; {dt * 1e3 / GENERATIONS:.3f} "
+        f"ms/generation), per-type counts [divergent, fix_zero, "
+        f"fix_other, fix_sec, other] {counts.tolist()}, unique uids "
+        f"{n_unique}, next_uid {int(state.next_uid)}")
+
+
+def rowmajor_multisoup_run(torch, kernels, totals):
+    """The mixed soup in the row-major layout (the default) at
+    mega_multisoup's split: 20 generations after a warm-up generation, its
+    launch counts set to 0 after the warm-up and checked exactly just
+    after (each type's SGD kernel twice a generation: K2, K4 and K5; the
+    cross attack is plain torch, so no K6) and added to ``totals``."""
+    from srnn_tpu_torch import multisoup as ms
+
+    cfg = mega_multi_config()
+    state = ms.evolve_multi(cfg, ms.seed_multi(cfg, 0, device="cuda"), 1)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state = ms.evolve_multi(cfg, state, GENERATIONS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    what = "mixed rowmajor soup"
+    got = check_launches(kernels, what, {name: 2 * GENERATIONS for name in
+                                         ("ww_sgd", "kvec_sgd", "rnn_sgd")})
+    check_multi_state(torch, cfg, state, what, dt)
+    for name, n in got.items():
+        totals[name] += n
 
 
 def main_path(torch, kernels):
@@ -989,6 +1028,9 @@ def main_path(torch, kernels):
                    {"generation": 1, "generation_kvec": 1,
                     "generation_rnn": 1, **attacks},
                    {"ww_sgd": 2, "kvec_sgd": 2, "rnn_sgd": 2, **attacks})
+    # the mixed soup in the row-major layout (the default): the types' SGD
+    # kernels only
+    rowmajor_multisoup_run(torch, kernels, totals)
     # bfloat16 populations on the fused route: K3's bfloat16 bodies
     for variant, kernel in (("weightwise", "generation_bf16"),
                             ("aggregating", "generation_kvec_bf16"),
@@ -1174,8 +1216,8 @@ def engine_runs(torch, kernels, totals):
 def engines_vs_cpu(torch):
     """Every engine on a 512-trial population of each standard variant on
     the card against the same call on the CPU: integer fields exact, floats
-    bitwise with the same non-finite pattern, but for the weightwise full
-    batch (its autograd step is cuBLAS against MKL): within rtol/atol."""
+    bitwise with the same non-finite pattern (the weightwise full batch's
+    too: its step is the hand-derived elementwise chain)."""
     import srnn_tpu_torch as st
     from srnn_tpu_torch.fixtures import identity_fixpoint_flat, vary
 
@@ -1218,8 +1260,7 @@ def engines_vs_cpu(torch):
                 if r.dtype == torch.int32:
                     equal_ints(torch, f"{tag} {field}", g, r)
                 else:
-                    compare(torch, f"{tag} {field}", g.cpu(), r,
-                            None if name.endswith("full_batch") else 0)
+                    compare(torch, f"{tag} {field}", g.cpu(), r, 0)
 
 
 def soup_science(name, run_dir) -> str:
@@ -1323,7 +1364,7 @@ def engines_and_setups(torch, kernels, totals):
     engines_vs_cpu(torch)
 
 
-def small_soup_vs_cpu(torch):
+def small_soup_vs_cpu(torch, kernels):
     """Phase 6: each variant's soup on the card against the same soup on
     the CPU, fed the same draws; then the mixed soup and the bfloat16 and
     int8 soups the same way."""
@@ -1370,6 +1411,10 @@ def small_soup_vs_cpu(torch):
     small_precision_vs_cpu(torch, cpu)
     small_rowmajor_vs_cpu(torch, cpu)
     rowmajor_checkpoint(torch)
+    small_rowmajor_multisoup_vs_cpu(torch, cpu)
+    multisoup_checkpoint(torch)
+    small_sequential_vs_cpu(torch, cpu, kernels)
+    popmajor_full_batch_vs_cpu(torch, cpu)
 
 
 def small_multisoup_vs_cpu(torch, cpu):
@@ -1391,7 +1436,7 @@ def small_multisoup_vs_cpu(torch, cpu):
     base = ms.MultiSoupConfig(topos=topos, sizes=sizes, attacking_rate=0.3,
                               learn_from_rate=0.3, learn_from_severity=1,
                               train=2, remove_divergent=True,
-                              remove_zero=True)
+                              remove_zero=True, layout="popmajor")
     rng = np.random.default_rng(1)
     w0 = [init_population(t, cpu, k, "cpu").numpy()
           for t, k in zip(topos, sizes)]
@@ -1481,16 +1526,14 @@ def small_precision_vs_cpu(torch, cpu):
 #: the small row-major soups held card against CPU: (variant, population
 #: dtype, train mode, ulps allowed).  None holds rtol/atol, where the two
 #: devices' libraries differ: cuFFT against pocketfft in the fft attack.
-#: "ints" holds the integer state and the non-finite pattern and reports the
-#: floats: the weightwise full batch's autograd step (cuBLAS and CUDA
-#: reductions against the CPU's, in another order) on linear particles whose
-#: weights reach 1e19 in one generation and 1e35 in two (PERF.md)
+#: The weightwise full batch runs its hand-derived step in elementwise
+#: chains (``ops/popmajor.ww_full_batch_epochs``), bitwise on either device
 ROWMAJOR_VS_CPU = (
     ("weightwise", "f32", "sequential", 0),
     ("aggregating", "f32", "sequential", 0),
     ("fft", "f32", "sequential", None),
     ("recurrent", "f32", "sequential", 0),
-    ("weightwise", "f32", "full_batch", "ints"),
+    ("weightwise", "f32", "full_batch", 0),
     ("weightwise", "bf16", "sequential", 0),
     ("weightwise", "int8", "sequential", 0),
 )
@@ -1509,11 +1552,11 @@ def small_rowmajor_vs_cpu(torch, cpu):
     """The row-major soup (the default layout) of each variant, of the
     weightwise full batch, and bfloat16 and int8 weightwise soups, on the
     card against the same soup on the CPU, fed the same draws, over 3
-    generations; then the weightwise and aggregating row-major soups
-    against the population-major phase chain on the card, from the same
-    state and draws.  To inform: the row-major weightwise forward as a
-    matmul (cuBLAS) against the explicit chains the self-application
-    runs."""
+    generations; then the weightwise (both train modes) and aggregating
+    row-major soups against the population-major phase chain on the card,
+    from the same state and draws.  To inform: the row-major weightwise
+    forward as a matmul (cuBLAS) against the explicit chains the
+    self-application runs."""
     import numpy as np
 
     import srnn_tpu_torch as st
@@ -1536,8 +1579,7 @@ def small_rowmajor_vs_cpu(torch, cpu):
                               init_population(topo, cpu, n, "cpu").t()
                               .numpy()) for _ in range(3)]
         runs = [("card vs cpu", cfg, cfg, ("cuda", "cpu"), ulps)]
-        if variant in ("weightwise", "aggregating") and dtype == "f32" \
-                and mode == "sequential":
+        if variant in ("weightwise", "aggregating") and dtype == "f32":
             runs.append(("vs popmajor phases on the card", cfg,
                          cfg._replace(layout="popmajor"), ("cuda", "cuda"),
                          0))
@@ -1552,10 +1594,7 @@ def small_rowmajor_vs_cpu(torch, cpu):
                     equal_ints(torch, f"{tag} {f}", getattr(a, f),
                                getattr(b, f))
                 equal_ints(torch, f"{tag} actions", ev_a.action, ev_b.action)
-                if held == "ints":
-                    report_gap(torch, f"{tag} weights", a.weights.cpu(),
-                               b.weights.cpu())
-                elif dtype == "int8":
+                if dtype == "int8":
                     equal_ints(torch, f"{tag} int8 codes", a.weights,
                                b.weights)
                     compare(torch, f"{tag} scales", a.scales.cpu(),
@@ -1563,9 +1602,8 @@ def small_rowmajor_vs_cpu(torch, cpu):
                 else:
                     compare(torch, f"{tag} weights", a.weights.cpu(),
                             b.weights.cpu(), held)
-                if held != "ints":
-                    compare(torch, f"{tag} loss", ev_a.loss.cpu(),
-                            ev_b.loss.cpu(), held)
+                compare(torch, f"{tag} loss", ev_a.loss.cpu(),
+                        ev_b.loss.cpu(), held)
     topo = st.Topology("weightwise", width=2, depth=2)
     w = init_population(topo, cpu, n, "cpu").cuda()
     x = points(topo, w)
@@ -1614,6 +1652,284 @@ def rowmajor_checkpoint(torch):
                        ref.key.get_state())
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+#: the small row-major mixed soups held card against CPU: (name, variants,
+#: population dtype, ulps allowed).  The fft type's attack goes through
+#: cuFFT against pocketfft, and its attacks reach every type: that mix is
+#: held to rtol/atol (None), each generation from the CPU's state before
+#: it, since its linear recurrent particles (|w| up to 1e4) amplify the
+#: transforms' last-bit differences past rtol 1e-5 within three chained
+#: generations (PERF.md); the others bitwise, chained
+MULTI_ROWMAJOR_VS_CPU = (
+    ("four", ("weightwise", "aggregating", "fft", "recurrent"), "f32", None),
+    ("three", ("weightwise", "aggregating", "recurrent"), "f32", 0),
+    ("three", ("weightwise", "aggregating", "recurrent"), "bf16", 0),
+    ("three", ("weightwise", "aggregating", "recurrent"), "int8", 0),
+)
+
+
+def _multi_draws(np, cpu, topos, sizes, rng, generations=3):
+    """Mixed-soup draws from numpy and a CPU generator, handed to both
+    devices."""
+    from srnn_tpu_torch import multisoup as ms
+    from srnn_tpu_torch.init import init_population
+
+    n = sum(sizes)
+    return [ms.MultiSoupDraws(
+        rng.random(n) < 0.3, rng.integers(0, n, n), rng.random(n) < 0.3,
+        tuple(rng.integers(0, k, k) for k in sizes),
+        tuple(init_population(t, cpu, k, "cpu").t().numpy()
+              for t, k in zip(topos, sizes))) for _ in range(generations)]
+
+
+def _multi_on(torch, ms, s0, dev):
+    """A copy of the mixed state ``s0`` on ``dev`` with a generator there
+    (the draws are handed over)."""
+    return ms.MultiSoupState(
+        tuple(w.to(dev) for w in s0.weights),
+        tuple(u.to(dev) for u in s0.uids), s0.next_uid.to(dev),
+        s0.time.to(dev), torch.Generator(device=dev),
+        None if s0.scales is None else tuple(x.to(dev) for x in s0.scales))
+
+
+def _compare_multi(torch, tag, a, ev_a, b, ev_b, dtype, ulps):
+    equal_ints(torch, f"{tag} next_uid", a.next_uid, b.next_uid)
+    for t in range(len(a.weights)):
+        tt = f"{tag} type {t}"
+        equal_ints(torch, f"{tt} uids", a.uids[t], b.uids[t])
+        equal_ints(torch, f"{tt} actions", ev_a.action[t], ev_b.action[t])
+        equal_ints(torch, f"{tt} counterparts", ev_a.counterpart[t],
+                   ev_b.counterpart[t])
+        if dtype == "int8":
+            equal_ints(torch, f"{tt} int8 codes", a.weights[t], b.weights[t])
+            compare(torch, f"{tt} scales", a.scales[t].cpu(),
+                    b.scales[t].cpu(), ulps)
+        else:
+            compare(torch, f"{tt} weights", a.weights[t].cpu(),
+                    b.weights[t].cpu(), ulps)
+        compare(torch, f"{tt} loss", ev_a.loss[t].cpu(), ev_b.loss[t].cpu(),
+                ulps)
+
+
+def small_rowmajor_multisoup_vs_cpu(torch, cpu):
+    """The row-major mixed soup (the default layout) on the card against
+    the same soup on the CPU, fed the same draws, over 3 generations: four
+    types with fft (each generation from the CPU's state), and three-type
+    mixes in float32, bfloat16 and int8 (chained); then a mix of
+    weightwise and aggregating types row-major against the
+    population-major phase chain on the card, bitwise."""
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+
+    rng = np.random.default_rng(4)
+    runs = [(f"{name} {dtype} card vs cpu", variants, dtype, "cpu", ulps)
+            for name, variants, dtype, ulps in MULTI_ROWMAJOR_VS_CPU]
+    runs.append(("weightwise+aggregating f32 rowmajor vs popmajor phases "
+                 "on the card", ("weightwise", "aggregating"), "f32", "cuda",
+                 0))
+    for what, variants, dtype, dev_b, ulps in runs:
+        topos = tuple(st.Topology(v, width=2, depth=2, aggregates=4)
+                      for v in variants)
+        sizes = tuple(700 - 17 * t for t in range(len(topos)))
+        cfg = ms.MultiSoupConfig(
+            topos=topos, sizes=sizes, attacking_rate=0.3,
+            learn_from_rate=0.3, learn_from_severity=1, train=2,
+            remove_divergent=True, remove_zero=True, population_dtype=dtype)
+        cfg_b = cfg if dev_b == "cpu" else cfg._replace(layout="popmajor")
+        s0 = ms.seed_multi(cfg, 6, device="cpu")
+        a, b = _multi_on(torch, ms, s0, "cuda"), _multi_on(torch, ms, s0,
+                                                           dev_b)
+        for g, dr in enumerate(_multi_draws(np, cpu, topos, sizes, rng)):
+            a, ev_a = ms.evolve_multi_step(cfg, a, dr)
+            b, ev_b = ms.evolve_multi_step(cfg_b, b, dr)
+            _compare_multi(torch, f"mixed rowmajor {what} gen {g}", a, ev_a,
+                           b, ev_b, dtype, ulps)
+            if ulps is None:
+                a = _multi_on(torch, ms, b, "cuda")
+
+
+def multisoup_checkpoint(torch):
+    """A mixed-soup checkpoint round trip on the card: 3 generations,
+    save, restore, 2 more, against 5 in one go, bitwise, the generator
+    included; float32 and int8 row-major mixes."""
+    import shutil
+    import tempfile
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+    from srnn_tpu_torch.experiment import (restore_multi_checkpoint,
+                                           save_multi_checkpoint)
+
+    root = tempfile.mkdtemp(prefix="srnn_mckpt_")
+    try:
+        for dtype in ("f32", "int8"):
+            cfg = ms.MultiSoupConfig(
+                topos=(st.Topology("weightwise", width=2, depth=2),
+                       st.Topology("aggregating", width=2, depth=2,
+                                   aggregates=4),
+                       st.Topology("recurrent", width=2, depth=2)),
+                sizes=(700, 683, 665), attacking_rate=0.3,
+                learn_from_rate=0.3, train=2, remove_divergent=True,
+                remove_zero=True, population_dtype=dtype)
+            s0 = ms.seed_multi(cfg, 5, device="cuda")
+            path = save_multi_checkpoint(os.path.join(root, dtype),
+                                         ms.evolve_multi(cfg, s0, 3))
+            back = restore_multi_checkpoint(path)
+            if back.weights[0].device.type != "cuda" or \
+                    back.key.device.type != "cuda":
+                raise AssertionError("mixed checkpoint: restored off the "
+                                     "card")
+            got, ref = ms.evolve_multi(cfg, back, 2), \
+                ms.evolve_multi(cfg, s0, 5)
+            tag = f"mixed checkpoint {dtype} 3 + 2 generations vs 5"
+            for t in range(3):
+                for f in ("weights", "uids") + (
+                        ("scales",) if dtype == "int8" else ()):
+                    g, r = getattr(got, f)[t], getattr(ref, f)[t]
+                    if g.is_floating_point():
+                        compare(torch, f"{tag} type {t} {f}", g.cpu(),
+                                r.cpu(), 0)
+                    else:
+                        equal_ints(torch, f"{tag} type {t} {f}", g, r)
+            for f in ("next_uid", "time"):
+                equal_ints(torch, f"{tag} {f}", getattr(got, f),
+                           getattr(ref, f))
+            equal_ints(torch, f"{tag} generator state", got.key.get_state(),
+                       ref.key.get_state())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+#: the small sequential soups held card against CPU, bitwise: (variant,
+#: train mode, the SGD kernel a learner and a trainer launch, or None)
+SEQUENTIAL_VS_CPU = (
+    ("weightwise", "sequential", "ww_sgd"),
+    ("aggregating", "sequential", "kvec_sgd"),
+    ("recurrent", "sequential", "rnn_sgd"),
+    ("weightwise", "full_batch", None),
+)
+
+
+def small_sequential_vs_cpu(torch, cpu, kernels):
+    """The sequential soup (``mode='sequential'``) of each standard variant
+    and of the weightwise full batch, 20 particles, 3 generations, on the
+    card against the same soup on the CPU, fed the same draws, bitwise;
+    each generation's launches on the card exact: one of the variant's SGD
+    kernel per learner and one per particle (its one-lane learn and train
+    calls), none for the full batch."""
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.init import init_population
+
+    n = 20
+    rng = np.random.default_rng(5)
+    for variant, mode, kernel in SEQUENTIAL_VS_CPU:
+        topo = st.Topology(variant, width=2, depth=2, aggregates=4)
+        cfg = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
+                            learn_from_rate=0.3, learn_from_severity=1,
+                            train=2, remove_divergent=True, remove_zero=True,
+                            mode="sequential", train_mode=mode)
+        s0 = st.seed(cfg, cpu, device="cpu")
+        a, b = _state_on(torch, st, s0, "cuda"), _state_on(torch, st, s0,
+                                                           "cpu")
+        for g in range(3):
+            dr = st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
+                              rng.random(n) < 0.3, rng.integers(0, n, n),
+                              init_population(topo, cpu, n, "cpu").t()
+                              .numpy())
+            for k in kernels:
+                k.launches = 0
+            a, ev_a = st.evolve_step(cfg, a, dr)
+            tag = f"sequential {variant} {mode} card vs cpu gen {g}"
+            want = {} if kernel is None else {
+                kernel: int(dr.learn_gate.sum()) + n}
+            check_launches(kernels, tag, want)
+            b, ev_b = st.evolve_step(cfg, b, dr)
+            for f in ("uids", "next_uid"):
+                equal_ints(torch, f"{tag} {f}", getattr(a, f), getattr(b, f))
+            equal_ints(torch, f"{tag} actions", ev_a.action, ev_b.action)
+            equal_ints(torch, f"{tag} counterparts", ev_a.counterpart,
+                       ev_b.counterpart)
+            compare(torch, f"{tag} weights", a.weights.cpu(), b.weights, 0)
+            compare(torch, f"{tag} loss", ev_a.loss.cpu(), ev_b.loss, 0)
+
+
+def popmajor_full_batch_vs_cpu(torch, cpu):
+    """The population-major weightwise full batch (its plain step) on the
+    card against the CPU, fed the same draws, bitwise; its step's time at
+    N = 1M, 10 epochs, beside K2's sequential chain on the same
+    population (to inform)."""
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.init import init_population
+    from srnn_tpu_torch.ops.cuda_ww_train import ww_train_epochs
+    from srnn_tpu_torch.ops.popmajor import ww_full_batch_epochs
+
+    n = 2048
+    topo = st.Topology("weightwise", width=2, depth=2)
+    cfg = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
+                        learn_from_rate=0.3, learn_from_severity=1, train=2,
+                        remove_divergent=True, remove_zero=True,
+                        train_mode="full_batch", layout="popmajor")
+    rng = np.random.default_rng(6)
+    s0 = st.seed(cfg, cpu, device="cpu")
+    a, b = _state_on(torch, st, s0, "cuda"), _state_on(torch, st, s0, "cpu")
+    for g in range(3):
+        dr = st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
+                          rng.random(n) < 0.3, rng.integers(0, n, n),
+                          init_population(topo, cpu, n, "cpu").t().numpy())
+        a, ev_a = st.evolve_step(cfg, a, dr)
+        b, ev_b = st.evolve_step(cfg, b, dr)
+        tag = f"popmajor weightwise full_batch card vs cpu gen {g}"
+        for f in ("uids", "next_uid"):
+            equal_ints(torch, f"{tag} {f}", getattr(a, f), getattr(b, f))
+        equal_ints(torch, f"{tag} actions", ev_a.action, ev_b.action)
+        compare(torch, f"{tag} weights", a.weights.cpu(), b.weights, 0)
+        compare(torch, f"{tag} loss", ev_a.loss.cpu(), ev_b.loss, 0)
+    wT = population(topo, N, torch.Generator(device="cuda").manual_seed(7))
+    fb = timed_ms(torch, lambda: ww_full_batch_epochs(topo, wT, 10), 3)
+    k2 = timed_ms(torch, lambda: ww_train_epochs(topo, wT, 10), 10)
+    log(f"  to inform: weightwise full-batch step at N={N}, 10 epochs: "
+        f"{fb:.3f} ms a call (plain torch, "
+        f"{10 * topo.num_weights} forward/backward chains); K2's sequential"
+        f" chain on the same population {k2:.3f} ms")
+
+
+def sequential_trajectory(torch, kernels):
+    """To inform: the sequential weightwise soup at soup_trajectorys' size
+    (20 particles, attack 0.1, no learn_from, train 30, both removals, 100
+    generations, its draws from a CPU generator as the setups make them)
+    on the card: exactly one K2 launch per particle per generation, the
+    wall per generation, and the final classes beside the reference's
+    (BASELINE.md:29, 13 fix_other / 7 other)."""
+    import srnn_tpu_torch as st
+
+    gens, n = 100, 20
+    cfg = st.SoupConfig(topo=st.Topology("weightwise", width=2, depth=2),
+                        size=n, attacking_rate=0.1, learn_from_rate=-1.0,
+                        train=30, remove_divergent=True, remove_zero=True,
+                        mode="sequential")
+    state = st.seed(cfg, torch.Generator().manual_seed(0), device="cuda")
+    st.evolve(cfg, state, 1)  # warm-up generation
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    final = st.evolve(cfg, state, gens)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_launches(kernels, "sequential soup_trajectorys soup",
+                   {"ww_sgd": n * gens})
+    counts = st.count(cfg, final)
+    log(f"  to inform: sequential weightwise soup, {n} particles, train 30,"
+        f" {gens} generations: {dt * 1e3 / gens:.3f} ms/generation, final "
+        f"classes [divergent, fix_zero, fix_other, fix_sec, other] "
+        f"{counts.tolist()} (BASELINE.md:29: 13 fix_other / 7 other)")
 
 
 def main() -> int:
@@ -1680,7 +1996,9 @@ def main() -> int:
     launches = phase("main path", main_path, torch, kernels)
     phase("fixpoint engines and setups", engines_and_setups, torch, kernels,
           launches)
-    phase("small soups vs cpu", small_soup_vs_cpu, torch)
+    phase("small soups vs cpu", small_soup_vs_cpu, torch, kernels)
+    phase("sequential soup (to inform)", sequential_trajectory, torch,
+          kernels)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for k in kernels:

@@ -10,14 +10,15 @@ Ported so far: all four variants (weightwise, aggregating, fft,
 recurrent) -- topology, init, the row-major transforms and the
 cross-architecture ones, predicates, row-major training (``train``), the
 network verbs (``netops``), the known-fixpoint fixtures, the five
-experiment engines, the run layer (``experiment``, with the soup
-checkpoints), the six fixpoint setups and the three soup setups
+experiment engines, the run layer (``experiment``, with the checkpoints of
+soups and mixed soups), the six fixpoint setups and the three soup setups
 (``python -m srnn_tpu_torch.setups``); the parallel soup in both layouts
 (row-major, the default, with ``record=True`` and stacked trials, and
-population-major) in float32, bfloat16 and int8 storage; and the
-population-major mixed-type soup (``multisoup``) -- on the kernels of
-``csrc/`` (chained self-application, the SGD chains, the recurrent attack,
-the fused generation).
+population-major) in float32, bfloat16 and int8 storage, and the
+sequential (strict-parity) soup; the mixed-type soup (``multisoup``) in
+both layouts; both train modes everywhere -- on the kernels of ``csrc/``
+(chained self-application, the SGD chains, the recurrent attack, the
+fused generation).
 """
 
 from .engine import (FixpointRunResult, TrainingRunResult, VariationResult,

@@ -22,10 +22,10 @@ out to the layout its steps run in:
     epoch where every epoch's loss is kept (``run_training``), per outer
     step where only the last is (``run_mixed_fixpoint``), all through
     ``train.train_epochs``, which picks the route.  Weightwise
-    ``train_mode='full_batch'`` trains row-major through its autograd
-    step.  Where a run's training and self-application layouts
-    differ (the recurrent variant, weightwise full batch in the mixed
-    engine), it transposes around each training call.
+    ``train_mode='full_batch'`` takes the population-major full-batch step
+    (``ops/popmajor.ww_full_batch_epochs``, plain torch on either device).
+    Where a run's training and self-application layouts differ (the
+    recurrent variant), it transposes around each training call.
   * classification (the final classes, ``fixpoint_density``): plain torch
     in the self-application's layout; it launches no kernel.
 
@@ -45,7 +45,7 @@ from .ops.popmajor import apply_popmajor
 from .ops.predicates import (DEFAULT_EPSILON, classify, count_classes,
                              is_close, is_diverged, is_zero)
 from .topology import Topology
-from .train import DEFAULT_LR, on_sgd_kernels, train_epochs
+from .train import DEFAULT_LR, on_lanes, train_epochs
 
 
 class FixpointRunResult(NamedTuple):
@@ -176,7 +176,7 @@ def run_mixed_fixpoint(topo: Topology, pop: torch.Tensor,
     train epochs, gated by the same diverged/fixpoint mask.  On the card
     one self-application launch (weightwise) and one SGD launch per outer
     step (none where ``trains_per_application`` is 0)."""
-    on_sgd_kernels(topo, train_mode)  # an unknown mode raises before a step
+    on_lanes(topo, train_mode)  # an unknown mode raises before a step
     lanes = _applies_on_lanes(topo)
     ax = _axis(lanes)
     w = _to(pop, False, lanes)
@@ -211,7 +211,7 @@ def run_training(topo: Topology, pop: torch.Tensor, epochs: int = 1000,
         raise NotImplementedError(
             "shuffle_key is not ported to srnn_tpu_torch: no kernel takes a "
             "per-lane sample order (ROADMAP.md, queue A)")
-    lanes = on_sgd_kernels(topo, train_mode)
+    lanes = on_lanes(topo, train_mode)
     w = _to(pop, False, lanes)
     losses = []
     traj = [w] if record else None

@@ -1,6 +1,5 @@
-"""Experiment runtime: run directories, logging, persistence and soup
-checkpoints; port of ``srnn_tpu/experiment.py`` (the mixed soup's
-checkpoints are not ported yet).
+"""Experiment runtime: run directories, logging, persistence and the
+checkpoints of soups and mixed soups; port of ``srnn_tpu/experiment.py``.
 
 Reference layer L1 (``experiment.py:8-59``): a context manager that creates
 ``experiments/exp-{name}-{id}-{iteration}/``, collects log messages in RAM
@@ -33,6 +32,7 @@ import torch
 
 from .init import resolve_device
 from .ops.predicates import CLASS_NAMES
+from .multisoup import MultiSoupState
 from .soup import SoupState
 
 _SEP = "/"  # path separator for flattened keys inside npz files
@@ -296,7 +296,7 @@ class Experiment:
 
 
 # ---------------------------------------------------------------------------
-# atomic publication and soup checkpoints (``experiment.py:296-363``)
+# atomic publication and checkpoints (``experiment.py:296-423``)
 # ---------------------------------------------------------------------------
 
 
@@ -338,46 +338,100 @@ CKPT_OK_MARKER = "SRNN_CKPT_OK"
 CKPT_STATE = "state.pt"
 
 
-def save_checkpoint(path: str, state: SoupState) -> str:
-    """Write a resumable checkpoint of a soup at ``path`` (a directory,
-    created or overwritten): ``state.pt`` holds the weights, uids,
-    next_uid, time and (int8) scales on the CPU, the devices of the
-    population and of its generator, and the generator's state; then the
-    completion marker is published.  The marker of an earlier checkpoint
-    there is removed first, so the directory reads as torn until the new
-    one is whole."""
-    if isinstance(state.key, tuple):
-        raise ValueError("save_checkpoint takes one soup, not a stacked "
-                         "state")
+def _write_checkpoint(path: str, tree: dict, time_value) -> str:
+    """Publish ``tree`` as the checkpoint directory ``path`` (created or
+    overwritten): the marker of an earlier checkpoint there is removed
+    first, so the directory reads as torn until the new one is whole; then
+    the state file, then the marker."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     marker = os.path.join(path, CKPT_OK_MARKER)
     if os.path.exists(marker):
         os.remove(marker)
-    tree = {"weights": state.weights.cpu(), "uids": state.uids.cpu(),
-            "next_uid": state.next_uid.cpu(), "time": state.time.cpu(),
-            "device": str(state.weights.device),
-            "key_device": str(state.key.device),
-            "key_state": state.key.get_state()}
-    if state.scales is not None:
-        tree["scales"] = state.scales.cpu()
     _atomic_write(os.path.join(path, CKPT_STATE),
                   lambda f: torch.save(tree, f))
-    atomic_write_text(marker, json.dumps({"time": int(state.time)}) + "\n")
+    atomic_write_text(marker, json.dumps({"time": int(time_value)}) + "\n")
     return path
+
+
+def _state_tree(kind: str, state, device, weights, uids, scales) -> dict:
+    """The plain-tensor tree of a soup (``kind`` 'soup') or a mixed soup
+    ('multisoup'), everything on the CPU, with the devices of the
+    population and of its generator and the generator's state."""
+    tree = {"kind": kind, "weights": weights, "uids": uids,
+            "next_uid": state.next_uid.cpu(), "time": state.time.cpu(),
+            "device": str(device),
+            "key_device": str(state.key.device),
+            "key_state": state.key.get_state()}
+    if scales is not None:
+        tree["scales"] = scales
+    return tree
+
+
+def _read_checkpoint(path: str, kind: str):
+    """(tree, population device, restored generator) of a checkpoint of
+    ``kind``; a checkpoint of the other kind raises.  (A soup checkpoint
+    written before the mixed ones existed carries no kind: it reads as a
+    soup.)"""
+    tree = torch.load(os.path.join(os.path.abspath(path), CKPT_STATE),
+                      map_location="cpu", weights_only=True)
+    if tree.get("kind", "soup") != kind:
+        raise ValueError(f"{path} holds a {tree.get('kind', 'soup')} "
+                         f"checkpoint, not a {kind} one")
+    gen = torch.Generator(device=resolve_device(tree["key_device"]))
+    gen.set_state(tree["key_state"])
+    return tree, resolve_device(tree["device"]), gen
+
+
+def save_checkpoint(path: str, state: SoupState) -> str:
+    """Write a resumable checkpoint of a soup at ``path`` (a directory,
+    created or overwritten): ``state.pt`` holds the weights, uids,
+    next_uid, time and (int8) scales on the CPU, the devices of the
+    population and of its generator, and the generator's state; then the
+    completion marker is published."""
+    if isinstance(state.key, tuple):
+        raise ValueError("save_checkpoint takes one soup, not a stacked "
+                         "state")
+    return _write_checkpoint(path, _state_tree(
+        "soup", state, state.weights.device, state.weights.cpu(),
+        state.uids.cpu(),
+        None if state.scales is None else state.scales.cpu()), state.time)
 
 
 def restore_checkpoint(path: str) -> SoupState:
     """Load a :func:`save_checkpoint` checkpoint back into a ``SoupState``
     on the devices it was saved from; it evolves bitwise as the saved
     state would have (the generator's state is restored)."""
-    tree = torch.load(os.path.join(os.path.abspath(path), CKPT_STATE),
-                      map_location="cpu", weights_only=True)
-    dev = resolve_device(tree["device"])
-    gen = torch.Generator(device=resolve_device(tree["key_device"]))
-    gen.set_state(tree["key_state"])
+    tree, dev, gen = _read_checkpoint(path, "soup")
     scales = tree.get("scales")
     return SoupState(
         weights=tree["weights"].to(dev), uids=tree["uids"].to(dev),
         next_uid=tree["next_uid"].to(dev), time=tree["time"].to(dev),
         key=gen, scales=None if scales is None else scales.to(dev))
+
+
+def save_multi_checkpoint(path: str, state: MultiSoupState) -> str:
+    """Resumable checkpoint of a mixed soup (``save_multi_checkpoint``,
+    ``experiment.py:366-391`` of the JAX package), in the form of
+    :func:`save_checkpoint`: per-type weights, uids and (int8) scales, the
+    scalars and the generator's state, then the completion marker."""
+    return _write_checkpoint(path, _state_tree(
+        "multisoup", state, state.weights[0].device,
+        [w.cpu() for w in state.weights],
+        [u.cpu() for u in state.uids],
+        None if state.scales is None else [s.cpu() for s in state.scales]),
+        state.time)
+
+
+def restore_multi_checkpoint(path: str) -> MultiSoupState:
+    """Load a :func:`save_multi_checkpoint` checkpoint back into a
+    ``MultiSoupState`` on the devices it was saved from; it evolves
+    bitwise as the saved state would have."""
+    tree, dev, gen = _read_checkpoint(path, "multisoup")
+    scales = tree.get("scales")
+    return MultiSoupState(
+        weights=tuple(w.to(dev) for w in tree["weights"]),
+        uids=tuple(u.to(dev) for u in tree["uids"]),
+        next_uid=tree["next_uid"].to(dev), time=tree["time"].to(dev),
+        key=gen,
+        scales=None if scales is None else tuple(s.to(dev) for s in scales))

@@ -1,43 +1,56 @@
 """Heterogeneous soups: mixed-type populations with cross-type attacks;
-port of the population-major mode of ``srnn_tpu/multisoup.py``.
+port of ``srnn_tpu/multisoup.py``, in both of its layouts.
 
 The particles belong to typed subpopulations (one ``Topology`` each), and
 any particle may attack any other: a recurrent net rewriting a weightwise
-net's weights and so on (``ops/popmajor_cross.py``).  Each generation
-follows the homogeneous soup phase for phase (attack -> learn_from ->
-train -> respawn, last-action-wins events), with the JAX package's typed
-choices:
+net's weights and so on (``nets/cross.py`` row-major,
+``ops/popmajor_cross.py`` population-major).  Each generation follows the
+homogeneous soup phase for phase (attack -> learn_from -> train ->
+respawn, last-action-wins events), with the JAX package's typed choices:
 
   * attack: one global gate and target over all n = sum(N_t) particles,
     resolved last-attacker-wins; then for every (victim type, attacker
     type) pair a full-width cross apply, selected by the attacker-type mask
-    (``multisoup.py:311-336``) -- so every generation launches the
-    recurrent attack kernel (K6) once per victim type;
+    (``multisoup.py:148-173`` and ``:311-336``);
   * learn_from: the gate is a slice of one global uniform over n, the
     counterpart is drawn from the learner's OWN type (imitation needs the
     teacher's sample space to match);
-  * learn, train and respawn run per type: on the fused route as one launch
-    of the type's generation kernel (K3), with no attack operand (the
-    cross-type attack already ran) and the imitation columns gathered
-    post-attack, so nothing is recomputed; on the phase route through the
-    type's SGD kernel (K2, K4, K5), the predicates and the fresh select;
+  * learn, train and respawn run per type: through the type's SGD kernel
+    (K2, K4, K5; the weightwise full batch's plain step), the predicates
+    and the fresh select, or, on the fused route, as one launch of the
+    type's generation kernel (K3) with no attack operand (the cross-type
+    attack already ran) and the imitation columns gathered post-attack;
   * respawned uids come in blocks type by type: type t's base is
     ``next_uid`` plus the deaths of the types before it.
 
-Every type's population is a (P_t, N_t) lane matrix between generations
-(``evolve_multi`` transposes once per type at entry and exit).  The types
-share ``population_dtype``: weights upcast to float32 at generation entry
-and round once at exit, as in ``soup.py`` (the fused route's K3 runs its
-float32 bodies here).  Only ``layout='popmajor'`` is ported: the
-row-major ``_evolve_multi_step``, and the metrics, health and lineage
-carries of ``evolve_multi``, are not.
+Layouts (``layout``):
+
+  * ``'rowmajor'`` (the default, as in the JAX package): every type stays
+    (N_t, P_t) between generations.  The attack runs ``nets/cross.py``'s
+    row-major transforms in plain torch (explicit multiply-add chains, so
+    the card and the CPU round alike; the recurrent attackers' recurrence
+    too, so no generation launches K6), and each type's learn, train and
+    respawn run on its (P_t, N_t) transpose, one transpose in and one out:
+    K2/K4/K5 twice a generation per type on the card.  The lane-kernel
+    spellings (``generation_impl='fused'``, ``train_impl`` or
+    ``apply_impl='kernel'``) raise, as the JAX package's row-major step
+    does.
+  * ``'popmajor'``: every type is a (P_t, N_t) lane matrix between
+    generations (``evolve_multi`` transposes once per type at entry and
+    exit); the recurrent attackers run K6 once per victim type a
+    generation; ``generation_impl`` 'phases' or 'fused'.
+
+The types share ``population_dtype``: weights upcast to float32 at
+generation entry and round once at exit, as in ``soup.py`` (the fused
+route's K3 runs its float32 bodies here).  The metrics, health and lineage
+carries of ``evolve_multi`` are not ported.
 
 Randomness: as in ``soup.py``, the state carries a ``torch.Generator``
 (``key``) and ``evolve_multi_step`` draws from a copy of it, unless the
 caller hands it the generation's draws (``MultiSoupDraws``; the tests hand
-over the JAX package's).  The draw law and structure are the JAX
-package's: the recurrent type's fresh replacements are drawn kernel by
-kernel (``init.fresh_lanes``).
+over the JAX package's, which both of its layouts draw alike).  The draw
+law and structure are the JAX package's: the recurrent type's fresh
+replacements are drawn kernel by kernel (``init.fresh_lanes``).
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -46,6 +59,7 @@ import torch
 
 from .engine import classify_batch
 from .init import fresh_lanes, init_population, make_generator
+from .nets.cross import cross_apply
 from .ops.cuda_generation import fused_kernel_supported, generation_popmajor
 from .ops.popmajor import DEFAULT_LR
 from .ops.popmajor_cross import cross_apply_popmajor
@@ -58,10 +72,10 @@ from .topology import Topology
 
 class MultiSoupConfig(NamedTuple):
     """Mixed-soup hyperparameters; the fields of the JAX package's
-    ``MultiSoupConfig``.  ``layout`` defaults to 'popmajor', the only
-    layout the port's mixed soup has (its row-major step is not ported:
-    ROADMAP.md, queue A); ``train_impl`` and ``apply_impl`` are accepted so
-    that converted configs load, and select nothing (as in ``soup.py``)."""
+    ``MultiSoupConfig``, with its defaults ('xla' reads 'plain' here).
+    ``train_impl`` and ``apply_impl`` select nothing (as in ``soup.py``);
+    their 'kernel' spelling is refused by the row-major layout, as the JAX
+    package refuses 'pallas' there."""
     topos: Tuple[Topology, ...]
     sizes: Tuple[int, ...]
     attacking_rate: float = 0.1
@@ -73,10 +87,10 @@ class MultiSoupConfig(NamedTuple):
     epsilon: float = DEFAULT_EPSILON
     lr: float = DEFAULT_LR
     train_mode: str = "sequential"
-    layout: str = "popmajor"
+    layout: str = "rowmajor"            # 'rowmajor' | 'popmajor'
     respawn_draws: str = "perparticle"
-    train_impl: str = "kernel"          # accepted, selects nothing
-    apply_impl: str = "plain"           # accepted, selects nothing
+    train_impl: str = "plain"           # selects nothing
+    apply_impl: str = "plain"           # selects nothing
     generation_impl: str = "phases"     # 'phases' | 'fused'
     population_dtype: str = "f32"       # 'f32' | 'bf16' | 'int8'
 
@@ -122,8 +136,11 @@ class MultiSoupEvents(NamedTuple):
 
 
 class MultiSoupDraws(NamedTuple):
-    """One mixed generation's random numbers.  Tensors or numpy arrays;
-    the attack (learn) fields are read only when that phase is on."""
+    """One mixed generation's random numbers, for either layout.  Tensors
+    or numpy arrays; the attack (learn) fields are read only when that
+    phase is on.  ``fresh`` is lane-major in both layouts: the JAX
+    package's row-major ``fresh_rows`` transposed, its population-major
+    ``fresh_lanes`` as it is."""
     attack_gate: object  # (n,) bool over all particles
     attack_tgt: object   # (n,) int, global victim index per attacker
     learn_gate: object   # (n,) bool over all particles
@@ -132,22 +149,37 @@ class MultiSoupDraws(NamedTuple):
 
 
 def _check_multi(config: MultiSoupConfig) -> None:
-    if config.layout != "popmajor":
-        raise ValueError(f"layout={config.layout!r} is not ported; "
-                         "srnn_tpu_torch runs layout='popmajor'")
+    """The JAX package's ``_evolve_multi_step`` checks (``:451-483``) and
+    the limits of this port (each type as a homogeneous soup config, on
+    the route it resolves to, as the JAX package falls back per type)."""
+    if config.layout not in ("rowmajor", "popmajor"):
+        raise ValueError(f"unknown multisoup layout {config.layout!r}")
+    if config.layout == "rowmajor":
+        for field in ("train_impl", "apply_impl"):
+            if getattr(config, field) == "kernel":
+                raise ValueError(
+                    f"{field}='kernel' is the popmajor lane kernel; the "
+                    f"row-major multisoup needs {field}='plain'")
+        if config.generation_impl == "fused":
+            raise ValueError(
+                "generation_impl='fused' is the popmajor lane megakernel; "
+                "the row-major multisoup needs generation_impl='phases'")
     if len(config.topos) != len(config.sizes) or not config.topos:
         raise ValueError("topos and sizes must be non-empty and of one "
                          "length")
     if any(s < 1 for s in config.sizes):
         raise ValueError(f"every type needs at least one particle, got "
                          f"sizes {config.sizes}")
-    for t in range(len(config.topos)):
-        _check_config(config.type_config(t))
+    for t, topo in enumerate(config.topos):
+        _check_config(config.type_config(t)._replace(
+            generation_impl=resolved_generation_impl(config, topo)))
 
 
 def fused_supported_multi(config: MultiSoupConfig) -> bool:
     """Would ``generation_impl='fused'`` be a valid spelling of this mixed
-    config?"""
+    config?  (Population-major only, as in the JAX package.)"""
+    if config.layout != "popmajor":
+        return False
     try:
         _check_multi(config._replace(generation_impl="fused"))
     except ValueError:
@@ -235,14 +267,15 @@ def _resolve_draws(config: MultiSoupConfig, state: MultiSoupState, device,
     return d
 
 
-def _attack(config: MultiSoupConfig, wTs, d: MultiSoupDraws, dev):
-    """The cross-type attack phase: (new wTs, attack_gate, attack_tgt).
-    ``att_idx[v]`` is victim v's highest-indexed attacker or -1 (last
-    attacker wins)."""
+def _attack(config: MultiSoupConfig, ws, d: MultiSoupDraws, dev):
+    """The cross-type attack phase on the float32 populations ``ws`` in the
+    config's layout: (new ws, attack_gate, attack_tgt).  ``att_idx[v]`` is
+    victim v's highest-indexed attacker or -1 (last attacker wins)."""
     n, offs = config.total, config.offsets
     if config.attacking_rate <= 0:
-        return (wTs, torch.zeros(n, dtype=torch.bool, device=dev),
+        return (ws, torch.zeros(n, dtype=torch.bool, device=dev),
                 torch.zeros(n, dtype=torch.int64, device=dev))
+    rowmajor = config.layout == "rowmajor"
     gate, tgt = d.attack_gate, d.attack_tgt
     src = torch.where(gate, torch.arange(n, device=dev), -1)
     att_idx = torch.full((n,), -1, dtype=torch.int64, device=dev)
@@ -250,21 +283,27 @@ def _attack(config: MultiSoupConfig, wTs, d: MultiSoupDraws, dev):
     new = []
     for b, vic in enumerate(config.topos):
         att_b = att_idx[offs[b]:offs[b + 1]]
-        out = wTs[b]
+        out = ws[b]
         for a, atk in enumerate(config.topos):
             mask = (att_b >= offs[a]) & (att_b < offs[a + 1])
-            selfT = wTs[a][:, (att_b - offs[a]).clamp(0, config.sizes[a] - 1)]
-            attacked = cross_apply_popmajor(atk, selfT, vic, wTs[b])
-            out = torch.where(mask[None, :], attacked, out)
+            idx = (att_b - offs[a]).clamp(0, config.sizes[a] - 1)
+            if rowmajor:
+                attacked = cross_apply(atk, ws[a][idx], vic, ws[b])
+                out = torch.where(mask[:, None], attacked, out)
+            else:
+                attacked = cross_apply_popmajor(atk, ws[a][:, idx], vic,
+                                                ws[b])
+                out = torch.where(mask[None, :], attacked, out)
         new.append(out)
     return new, gate, tgt
 
 
 def _type_generation(config: MultiSoupConfig, topo: Topology, wT, fresh,
                      learn_gate, learn_tgt):
-    """Learn, train and respawn one type: (wT, loss, dead_div,
-    dead_zero).  The fused route's generation kernel gets no attack
-    operand, and its imitation columns are gathered post-attack."""
+    """Learn, train and respawn one type on its (P_t, N_t) lanes: (wT,
+    loss, dead_div, dead_zero).  The fused route's generation kernel gets
+    no attack operand, and its imitation columns are gathered
+    post-attack."""
     if resolved_generation_impl(config, topo) == "phases":
         return _learn_train_respawn(config, topo, wT, fresh, learn_gate,
                                     learn_tgt)
@@ -278,23 +317,26 @@ def _type_generation(config: MultiSoupConfig, topo: Topology, wT, fresh,
         remove_zero=config.remove_zero, epsilon=config.epsilon)
 
 
-def _evolve_multi_popmajor(config: MultiSoupConfig, state: MultiSoupState,
-                           wTs, draws: Optional[MultiSoupDraws] = None):
-    """One mixed generation on the stored (P_t, N_t) populations ``wTs``
+def _evolve_multi_generation(config: MultiSoupConfig, state: MultiSoupState,
+                             ws, draws: Optional[MultiSoupDraws] = None):
+    """One mixed generation on the stored populations ``ws`` in the
+    config's layout, (N_t, P_t) row-major or (P_t, N_t) population-major
     (``state.weights`` is carried only for metadata); the JAX package's
-    ``_evolve_multi_popmajor``.  Returns (new_state, events, new stored
-    wTs)."""
-    n, offs = config.total, config.offsets
-    dev = wTs[0].device
+    ``_evolve_multi_step`` and ``_evolve_multi_popmajor``.  Returns
+    (new_state, events, new stored ws in the same layout)."""
+    offs = config.offsets
+    rowmajor = config.layout == "rowmajor"
+    paxis = 0 if rowmajor else -1
+    dev = ws[0].device
     d = _resolve_draws(config, state, dev, draws)
-    wTs = [_upcast(config, wT, None if state.scales is None
-                   else state.scales[t], paxis=-1)
-           for t, wT in enumerate(wTs)]
-    wTs, attack_gate, attack_tgt = _attack(config, wTs, d, dev)
+    ws = [_upcast(config, w, None if state.scales is None
+                  else state.scales[t], paxis=paxis)
+          for t, w in enumerate(ws)]
+    ws, attack_gate, attack_tgt = _attack(config, ws, d, dev)
 
     all_uids = torch.cat(state.uids)
     attack_cp = all_uids[attack_tgt]
-    out_wTs, out_scales, new_uids = [], [], []
+    out_ws, out_scales, new_uids = [], [], []
     actions, counterparts, losses = [], [], []
     total_deaths = torch.zeros((), dtype=torch.int32, device=dev)
     for t, topo in enumerate(config.topos):
@@ -304,8 +346,11 @@ def _evolve_multi_popmajor(config: MultiSoupConfig, state: MultiSoupState,
         else:
             learn_gate = torch.zeros(n_t, dtype=torch.bool, device=dev)
             learn_tgt = torch.zeros(n_t, dtype=torch.int64, device=dev)
+        # learn, train and respawn on the lanes: a row-major type goes
+        # there and back, bitwise as a transpose around each SGD call
+        wT = ws[t].t().contiguous() if rowmajor else ws[t]
         wT, loss, dead_div, dead_zero = _type_generation(
-            config, topo, wTs[t], d.fresh[t], learn_gate, learn_tgt)
+            config, topo, wT, d.fresh[t], learn_gate, learn_tgt)
 
         # uid blocks type by type: base = next_uid + earlier types' deaths
         uids, deaths, death, death_cp = _respawn_uids(
@@ -317,7 +362,7 @@ def _evolve_multi_popmajor(config: MultiSoupConfig, state: MultiSoupState,
             state.uids[t][learn_tgt], config.train > 0, death, death_cp)
 
         stored, scales = _downcast(config, wT, paxis=-1)
-        out_wTs.append(stored)
+        out_ws.append(stored.t().contiguous() if rowmajor else stored)
         out_scales.append(scales)
         new_uids.append(uids)
         actions.append(action)
@@ -332,11 +377,12 @@ def _evolve_multi_popmajor(config: MultiSoupConfig, state: MultiSoupState,
         else None)
     events = MultiSoupEvents(tuple(actions), tuple(counterparts),
                              tuple(losses))
-    return new_state, events, out_wTs
+    return new_state, events, out_ws
 
 
-def _popmajor_multi(config: MultiSoupConfig,
-                    state: MultiSoupState) -> list:
+def _stored_multi(config: MultiSoupConfig, state: MultiSoupState) -> list:
+    """The state's per-type populations, checked, in the config's layout
+    (a population-major config transposes each)."""
     dtype = _pop_dtype(config)
     for t, (w, topo, n_t) in enumerate(zip(state.weights, config.topos,
                                            config.sizes)):
@@ -347,7 +393,16 @@ def _popmajor_multi(config: MultiSoupConfig,
     if (state.scales is None) != (config.population_dtype != "int8"):
         raise ValueError("state.scales must hold one (N_t,) float32 vector "
                          "per type for an int8 population, None otherwise")
+    if config.layout == "rowmajor":
+        return list(state.weights)
     return [w.t().contiguous() for w in state.weights]
+
+
+def _with_weights(config: MultiSoupConfig, state: MultiSoupState,
+                  ws) -> MultiSoupState:
+    if config.layout == "popmajor":
+        ws = [wT.t().contiguous() for wT in ws]
+    return state._replace(weights=tuple(ws))
 
 
 def evolve_multi_step(config: MultiSoupConfig, state: MultiSoupState,
@@ -356,29 +411,29 @@ def evolve_multi_step(config: MultiSoupConfig, state: MultiSoupState,
     left as it was.  ``draws`` replaces the generator's draws for this
     generation."""
     _check_multi(config)
-    new_state, events, wTs = _evolve_multi_popmajor(
-        config, _forked(state), _popmajor_multi(config, state), draws)
-    return new_state._replace(
-        weights=tuple(wT.t().contiguous() for wT in wTs)), events
+    new_state, events, ws = _evolve_multi_generation(
+        config, _forked(state), _stored_multi(config, state), draws)
+    return _with_weights(config, new_state, ws), events
 
 
 def evolve_multi(config: MultiSoupConfig, state: MultiSoupState,
                  generations: int = 1) -> MultiSoupState:
-    """Evolve ``generations`` mixed steps, every type kept (P_t, N_t)
-    between them (one transpose per type at entry and one at exit);
-    ``state`` is left as it was."""
+    """Evolve ``generations`` mixed steps, every type kept in the config's
+    layout between them (population-major: one transpose per type at
+    entry and one at exit); ``state`` is left as it was."""
     _check_multi(config)
-    wTs = _popmajor_multi(config, state)
+    ws = _stored_multi(config, state)
     state = _forked(state)
     for _ in range(generations):
-        state, _, wTs = _evolve_multi_popmajor(config, state, wTs)
-    return state._replace(weights=tuple(wT.t().contiguous() for wT in wTs))
+        state, _, ws = _evolve_multi_generation(config, state, ws)
+    return _with_weights(config, state, ws)
 
 
 def count_multi(config: MultiSoupConfig,
                 state: MultiSoupState) -> torch.Tensor:
     """(T, 5) per-type class histograms, each type classified by its own
-    transform from its stored view."""
+    transform from its stored view (the state is row-major in either
+    layout)."""
     rows = [count_classes(classify_batch(
                 config.topos[t],
                 _stored_view(config, state.weights[t],

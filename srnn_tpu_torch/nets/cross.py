@@ -19,6 +19,10 @@ sequence of any length.  Decisions kept from the JAX package:
     ``fft(src, n=k).real``, then ``ifft(., n=P_victim).real``, ``src`` the
     attacker's own weights unless ``fft_use_target``.
 
+The attacker's MLP runs as the explicit multiply-add chains of the
+self-application (``ops/mlp.mlp_apply``), which round alike on the card
+and the CPU; so the row-major mixed soup, like the homogeneous one, is the
+same soup on either device (the fft arm's ``torch.fft`` apart).
 ``cross_apply(t, a, t, v)`` with equal topologies equals
 ``apply_to_weights(t, a, v)`` for every variant but the max aggregators'
 quirk.  ``shuffler='random'`` is not ported and raises.  Every function
@@ -28,7 +32,7 @@ takes flat weights (..., P); leading dims are a batch of particles.
 import numpy as np
 import torch
 
-from ..ops.mlp import mlp_forward
+from ..ops.mlp import mlp_apply
 from ..topology import Topology, segments_for
 from . import recurrent as rnn_mod
 from . import weightwise as ww_mod
@@ -61,10 +65,10 @@ def cross_apply(attacker: Topology, attacker_flat: torch.Tensor,
     p_vic = victim_flat.shape[-1]
     if attacker.variant == "weightwise":
         pts = ww_mod.points(victim, victim_flat)
-        return ww_mod.forward(attacker, attacker_flat, pts)[..., 0]
+        return mlp_apply(attacker, attacker_flat, pts)[..., 0]
     if attacker.variant == "aggregating":
         aggs = cross_aggregate(attacker, victim_flat)
-        new = mlp_forward(attacker, attacker_flat, aggs[..., None, :])
+        new = mlp_apply(attacker, attacker_flat, aggs[..., None, :])
         seg, _ = segments_for(p_vic, attacker.aggregates)
         return new[..., 0, torch.as_tensor(seg, dtype=torch.long,
                                            device=new.device)]
@@ -72,7 +76,7 @@ def cross_apply(attacker: Topology, attacker_flat: torch.Tensor,
         src = victim_flat if attacker.fft_use_target else attacker_flat
         coeffs = torch.fft.fft(src, n=attacker.aggregates).real.to(
             victim_flat.dtype)
-        new = mlp_forward(attacker, attacker_flat, coeffs[..., None, :])
+        new = mlp_apply(attacker, attacker_flat, coeffs[..., None, :])
         return torch.fft.ifft(new[..., 0, :], n=p_vic).real.to(
             victim_flat.dtype)
     if attacker.variant == "recurrent":

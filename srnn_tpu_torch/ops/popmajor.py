@@ -10,15 +10,23 @@ JAX package's ``jax.grad`` chain; it is the independent oracle the tests
 hold the hand-derived backward of ``cuda_ww_train`` against, and no route
 of the soup runs it.
 
+The weightwise full batch (``ww_full_batch_epochs``: one step an epoch on
+the mean loss over the P samples, ``ww_fit_epoch_popmajor``'s
+``'full_batch'`` branch) has no TPU kernel: the JAX package takes its
+gradient with ``jax.grad`` in XLA.  Here it is plain torch on either
+device, the hand-derived backward of the SGD kernels summed over the
+samples in order s = 0..P-1, every operation elementwise over the lanes,
+so that the card and the CPU round alike.
+
 The dispatchers at the bottom are the surface the soup calls.  The train
-and learn_from chains always go to the variant's SGD kernel wrapper (K2
-weightwise, K4 aggregating/fft, K5 recurrent), and the recurrent attack to
-K6's, where the tensor's device picks the route: a CUDA tensor launches the
-kernel, a CPU tensor runs its plain chain.  The weightwise and k-vector
-attacks are plain torch, as in the JAX package (it has no kernel for
-them).  The weightwise chain takes only the sequential (batch-1) train
-mode; the other variants have one sample per epoch, so 'sequential' and
-'full_batch' are one program there and both are accepted.
+and learn_from chains go to the variant's SGD kernel wrapper (K2
+weightwise, K4 aggregating/fft, K5 recurrent), the weightwise full batch
+to ``ww_full_batch_epochs``, and the recurrent attack to K6's, where the
+tensor's device picks the route: a CUDA tensor launches the kernel, a CPU
+tensor runs its plain chain.  The weightwise and k-vector attacks are plain
+torch, as in the JAX package (it has no kernel for them).  The aggregating,
+fft and recurrent variants have one sample per epoch, so 'sequential' and
+'full_batch' are one program there, and both take the kernels.
 """
 
 from typing import Optional, Tuple
@@ -28,8 +36,11 @@ import torch
 from ..topology import Topology, normalized_weight_coords
 from .cuda_kvec_train import kvec_learn_epochs, kvec_train_epochs
 from .cuda_rnn_apply import rnn_apply
+from .activations import resolve_output_grad
 from .cuda_rnn_train import rnn_learn_epochs, rnn_train_epochs
-from .cuda_ww_train import ww_learn_epochs, ww_train_epochs
+from .cuda_sgd_common import check_variant
+from .cuda_ww_train import (mlp_backward_plain, ww_learn_epochs,
+                            ww_train_epochs)
 from .mlp import mlp_rows_plain, point_features
 from .popmajor_kvec import kvec_apply_popmajor
 
@@ -96,12 +107,61 @@ def _ww_seq_sgd_flat(topo: Topology, wT: torch.Tensor, epochs: int,
     return w, last
 
 
+def _check_sequential(mode: str) -> None:
+    if mode != "sequential":
+        raise ValueError(f"the autograd oracle runs the sequential chain, "
+                         f"not train mode {mode!r}")
+
+
+def ww_full_batch_epochs(topo: Topology, wT: torch.Tensor, epochs: int,
+                         lr: float = DEFAULT_LR,
+                         otherT: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``epochs`` full-batch steps of every particle: each one step on the
+    mean squared error over the P duplex points, x = y = the particle's
+    weights at the epoch's top (self-training, ``otherT`` None) or the
+    counterpart's fixed weights ``otherT`` (P, N) (imitation).  The
+    gradient is the SGD kernels' hand-derived backward
+    (``cuda_ww_train.mlp_backward_plain``) with dL/dpred = 2 (pred - y) / P,
+    summed over the samples in order.  Returns (new_wT, the last epoch's
+    PRE-update mean loss (N,))."""
+    check_variant(topo, "weightwise")
+    p, n = wT.shape
+    if p != topo.num_weights or (otherT is not None and
+                                 otherT.shape != wT.shape):
+        raise ValueError(f"wT (and otherT) must be ({topo.num_weights}, N)")
+    coords = normalized_weight_coords(topo)
+    act_grad = resolve_output_grad(topo.activation)
+    rows = list(wT.unbind(0))
+    fixed = None if otherT is None else list(otherT.unbind(0))
+    last = torch.zeros(n, dtype=wT.dtype, device=wT.device)
+    # a tensor divisor: on the card torch takes a Python scalar divisor as a
+    # multiply by its reciprocal, which would round otherwise than the CPU
+    count = torch.full_like(last, p)
+    inv = torch.full_like(last, 1.0 / p)
+    for _ in range(max(epochs, 0)):
+        snap = rows if fixed is None else fixed
+        loss_acc = torch.zeros_like(last)
+        grads = None
+        for s in range(p):
+            x = snap[s]
+            acts = mlp_rows_plain(topo, rows, point_features(coords, s, x))
+            err = acts[-1][0] - x
+            loss_acc = loss_acc + err * err
+            g = mlp_backward_plain(topo, rows, acts, [2.0 * err * inv],
+                                   act_grad)
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        rows = [r - lr * g for r, g in zip(rows, grads)]
+        last = loss_acc / count
+    return torch.stack(rows), last
+
+
 def ww_train_epochs_popmajor(topo: Topology, wT: torch.Tensor, epochs: int,
                              lr: float = DEFAULT_LR,
                              mode: str = "sequential"):
     """``epochs`` self-training calls (samples recomputed from the current
     weights before every epoch).  Returns (new_wT, last epoch loss (N,))."""
-    check_train_mode(topo, mode)
+    _check_sequential(mode)
     if epochs <= 0:
         return wT, torch.zeros(wT.shape[1], dtype=wT.dtype, device=wT.device)
     return _ww_seq_sgd_flat(topo, wT, epochs, lr)
@@ -113,7 +173,7 @@ def ww_learn_epochs_popmajor(topo: Topology, wT: torch.Tensor,
                              mode: str = "sequential"):
     """``severity`` imitation epochs toward the counterparts' samples
     (x = y = other's weights, fixed across the call)."""
-    check_train_mode(topo, mode)
+    _check_sequential(mode)
     if severity <= 0:
         return wT, torch.zeros(wT.shape[1], dtype=wT.dtype, device=wT.device)
     return _ww_seq_sgd_flat(topo, wT, severity, lr, otherT)
@@ -133,15 +193,9 @@ _SGD = {
 
 
 def check_train_mode(topo: Topology, mode: str) -> None:
-    """'sequential' for every variant; 'full_batch' too where an epoch has
-    one sample (every variant but weightwise), since there it is the same
-    program."""
+    """'sequential' or 'full_batch', for every variant."""
     if mode not in ("sequential", "full_batch"):
         raise ValueError(f"unknown train mode {mode!r}")
-    if mode == "full_batch" and topo.variant == "weightwise":
-        raise ValueError(
-            "train_mode='full_batch' is not ported for the weightwise "
-            "variant; srnn_tpu_torch runs its sequential (batch-1) chain")
 
 
 def apply_popmajor(topo: Topology, selfT: torch.Tensor,
@@ -160,9 +214,11 @@ def apply_popmajor(topo: Topology, selfT: torch.Tensor,
 def train_epochs_popmajor(topo: Topology, wT: torch.Tensor, epochs: int,
                           lr: float = DEFAULT_LR, mode: str = "sequential"):
     """``epochs`` self-training calls on the variant's SGD kernel (its
-    plain chain for a CPU tensor).  Returns (new_wT, last epoch loss
-    (N,))."""
+    plain chain for a CPU tensor), or the weightwise full batch.  Returns
+    (new_wT, last epoch loss (N,))."""
     check_train_mode(topo, mode)
+    if topo.variant == "weightwise" and mode == "full_batch":
+        return ww_full_batch_epochs(topo, wT, epochs, lr)
     return _SGD[topo.variant][0](topo, wT, epochs, lr)
 
 
@@ -170,6 +226,9 @@ def learn_epochs_popmajor(topo: Topology, wT: torch.Tensor,
                           otherT: torch.Tensor, severity: int,
                           lr: float = DEFAULT_LR, mode: str = "sequential"):
     """``severity`` imitation epochs toward ``otherT`` on the variant's SGD
-    kernel (its plain chain for a CPU tensor)."""
+    kernel (its plain chain for a CPU tensor), or the weightwise full
+    batch."""
     check_train_mode(topo, mode)
+    if topo.variant == "weightwise" and mode == "full_batch":
+        return ww_full_batch_epochs(topo, wT, severity, lr, otherT)
     return _SGD[topo.variant][1](topo, wT, otherT, severity, lr)

@@ -17,8 +17,9 @@ over wall time), and the device time by kernel, largest first.
 ``--population-dtype`` stores the populations in that dtype; ``--mixed``
 profiles instead the mixed-type soup at setups/mega_multisoup.py's split
 (the size in thirds: weightwise takes the remainder, then aggregating and
-recurrent), the same dynamics, on both population-major routes.  Needs a
-CUDA card.
+recurrent), the same dynamics, on the same three routes (``rowmajor``:
+the row-major cross attack in plain torch, the types' SGD kernels).  Needs
+a CUDA card.
 """
 
 import argparse
@@ -96,7 +97,8 @@ def main(argv=None) -> int:
         third = args.size // 3
         bases = [("mixed", MultiSoupConfig(
             topos=topos, sizes=(args.size - 2 * third, third, third),
-            population_dtype=args.population_dtype, **DYNAMICS))]
+            layout="popmajor", population_dtype=args.population_dtype,
+            **DYNAMICS))]
     else:
         bases = [(t.variant, SoupConfig(
             topo=t, size=args.size, layout="popmajor",
@@ -105,8 +107,7 @@ def main(argv=None) -> int:
     for variant, base in bases:
         routes = [(name, base._replace(generation_impl=name))
                   for name in ("fused", "phases")]
-        if not args.mixed:
-            routes.append(("rowmajor", base._replace(layout="rowmajor")))
+        routes.append(("rowmajor", base._replace(layout="rowmajor")))
         for name, cfg in routes:
             row = {"variant": variant, "route": name, "size": args.size,
                    "population_dtype": args.population_dtype,

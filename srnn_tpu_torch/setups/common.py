@@ -143,8 +143,9 @@ def count_soup_trials(cfg: soup.SoupConfig,
 
 
 def checkpoint_intact(path: str) -> bool:
-    """Is ``path`` a checkpoint directory a resume may trust?  Its
-    ``SRNN_CKPT_OK`` marker, published after the state file, is the proof,
+    """Is ``path`` a checkpoint directory a resume may trust (a soup's or
+    a mixed soup's)?  Its ``SRNN_CKPT_OK`` marker, published after the
+    state file, is the proof,
     with a state file that is not empty.  The port writes no checkpoint
     without the marker, so a directory without one is torn (the JAX
     package's structural test of pre-marker orbax trees has nothing to

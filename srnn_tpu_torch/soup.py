@@ -11,8 +11,9 @@ phase.  All particles step together from the start-of-phase state; attack
 collisions resolve last-attacker-wins, as in the JAX package.
 
 Scope of this port: all four variants (weightwise, aggregating, fft,
-recurrent), ``mode='parallel'``, full-width phases, the three population
-dtypes (``population_dtype`` 'f32' | 'bf16' | 'int8'), in either layout:
+recurrent), full-width phases, the three population dtypes
+(``population_dtype`` 'f32' | 'bf16' | 'int8'), ``mode='parallel'`` in
+either layout below, and ``mode='sequential'``:
 
   * ``layout='rowmajor'`` (the default, as in the JAX package): the
     population stays (N, P) between generations.  The attack is the
@@ -21,25 +22,35 @@ dtypes (``population_dtype`` 'f32' | 'bf16' | 'int8'), in either layout:
     ``ops/mlp.mlp_apply``, which round alike on the card and the CPU);
     learn_from and self-training run on the variant's SGD
     kernel over the (P, N) transpose (``train.py``'s route: K2
-    weightwise, K4 aggregating/fft, K5 recurrent), the weightwise variant
-    in either train mode (its ``'full_batch'`` by autograd, as in
-    ``train.py``).  A state may carry a leading trial axis -- B soups side
-    by side, each with its own generator (``stack``) -- and then one
-    kernel launch per phase per generation serves all of them.
-  * ``layout='popmajor'``: the population is held (P, N).  The weightwise
-    variant runs its sequential (batch-1) train mode only, the others
-    either mode (one sample per epoch makes them one program).
-    ``generation_impl='fused'`` runs the whole generation as one launch
-    of the variant's generation kernel; ``generation_impl='phases'`` runs
-    the phases one after another, the train and learn_from chains on the
-    variant's SGD kernel and the recurrent attack on its attack kernel.
+    weightwise, K4 aggregating/fft, K5 recurrent; the weightwise
+    ``'full_batch'`` takes ``ops/popmajor.ww_full_batch_epochs``, plain
+    torch).  A state may carry a leading trial axis -- B soups side by
+    side, each with its own generator (``stack``) -- and then one kernel
+    launch per phase per generation serves all of them.
+  * ``layout='popmajor'``: the population is held (P, N), in either train
+    mode.  ``generation_impl='fused'`` runs the whole generation as one
+    launch of the variant's generation kernel (the weightwise variant's in
+    its sequential train mode only); ``generation_impl='phases'`` runs the
+    phases one after another, the train and learn_from chains on the
+    variant's SGD kernel (the weightwise full batch on its plain step) and
+    the recurrent attack on its attack kernel.
+  * ``mode='sequential'`` (``_evolve_sequential``, ``soup.py:880-943`` of
+    the JAX package; row-major, float32, per-particle respawn draws, no
+    trial axis): the reference's strict particle-by-particle order, each
+    particle seeing every change the particles before it made this
+    generation.  Particle i's attack overwrites its victim's row with the
+    row-major transform; its learn_from and training run on its own row as
+    one lane of the variant's SGD kernel ((P, 1): one launch per learner
+    and one per particle a generation); it respawns from its own fresh row
+    and the next uid.  The generation's draws (``SoupDraws``, read particle
+    by particle) depend on no state, so they are made up front and read on
+    the host once a generation.
 
-Any other setting raises (``mode='sequential'`` is not ported: ROADMAP.md,
-queue A).  The population's device picks the route inside each kernel's
-wrapper: CUDA tensors launch the kernels, CPU tensors run their plain
-versions.  ``train_impl`` and ``apply_impl`` ('plain' | 'kernel', the JAX
-package's 'xla' | 'pallas') are kept so that the JAX package's configs
-convert; they select nothing here.
+Any other setting raises.  The population's device picks the route inside
+each kernel's wrapper: CUDA tensors launch the kernels, CPU tensors run
+their plain versions.  ``train_impl`` and ``apply_impl`` ('plain' |
+'kernel', the JAX package's 'xla' | 'pallas') are kept so that the JAX
+package's configs convert; they select nothing here.
 
 On the CPU the row-major weightwise and aggregating soups equal the
 population-major phase chain bitwise: their transforms agree bitwise and
@@ -77,14 +88,14 @@ import torch
 from .engine import classify_batch
 from .init import (fresh_lanes, init_population, make_generator,
                    resolve_device)
-from .nets.dispatch import apply_to_weights, compute_samples
+from .nets.dispatch import apply_to_weights
 from .ops.cuda_generation import fused_kernel_supported, generation_popmajor
 from .ops.popmajor import (DEFAULT_LR, apply_popmajor, check_train_mode,
                            learn_epochs_popmajor, train_epochs_popmajor)
 from .ops.predicates import (DEFAULT_EPSILON, count_classes, is_diverged,
                              is_zero)
 from .topology import Topology
-from .train import fit_epochs_flat, on_sgd_kernels
+from .train import fit_epochs_flat
 
 # action codes for the event log (reference action strings, soup.py:60-85)
 ACTION_NAMES = ("none", "init", "attacking", "learn_from", "train_self",
@@ -250,12 +261,21 @@ def _check_config(config: SoupConfig) -> None:
     if config.layout not in ("rowmajor", "popmajor"):
         raise ValueError(f"unknown soup layout {config.layout!r}")
     rowmajor = config.layout == "rowmajor"
-    if config.mode == "sequential":
-        raise ValueError("mode='sequential' is not ported (ROADMAP.md, "
-                         "queue A); srnn_tpu_torch runs mode='parallel'")
-    if config.mode != "parallel":
+    if config.mode not in ("parallel", "sequential"):
         raise ValueError(f"unknown soup mode {config.mode!r}")
+    sequential = config.mode == "sequential"
+    if sequential and config.respawn_draws != "perparticle":
+        raise ValueError("mode='sequential' is the strict-parity mode and "
+                         "requires respawn_draws='perparticle'")
     _pop_dtype(config)
+    if sequential and config.population_dtype != "f32":
+        raise ValueError("mode='sequential' is the strict-parity mode and "
+                         "requires population_dtype='f32'")
+    if sequential and not rowmajor:
+        raise ValueError(
+            "layout='popmajor' requires mode='parallel'; the "
+            "sequential-parity scan mutates one particle at a time and "
+            "cannot ride the lane layout")
     if config.generation_impl not in ("phases", "fused"):
         raise ValueError(
             f"unknown generation_impl {config.generation_impl!r}")
@@ -279,24 +299,26 @@ def _check_config(config: SoupConfig) -> None:
             config.topo.rnn_scan != "sequential":
         raise ValueError(f"rnn_scan={config.topo.rnn_scan!r} is not ported; "
                          "srnn_tpu_torch runs the serial scan")
-    if rowmajor:
-        on_sgd_kernels(config.topo, config.train_mode)  # validates the mode
-    else:
-        check_train_mode(config.topo, config.train_mode)
+    check_train_mode(config.topo, config.train_mode)
     if config.respawn_draws not in ("perparticle", "fused"):
         raise ValueError(f"unknown respawn_draws {config.respawn_draws!r}")
     for field in ("train_impl", "apply_impl"):
         if getattr(config, field) not in ("plain", "kernel"):
             raise ValueError(f"unknown {field} {getattr(config, field)!r}")
-    # the kernels' envelope; the row-major weightwise full batch trains by
-    # autograd, but its activation is fenced like the sequential one's
-    if not fused_kernel_supported(
-            config.topo, "sequential" if rowmajor else config.train_mode):
+    # the kernels' envelope; the weightwise full batch runs no kernel, but
+    # its activation is fenced like the sequential one's
+    if not fused_kernel_supported(config.topo, "sequential"):
         raise ValueError(
             "the soup's kernels need an activation with an "
             "output-expressible derivative (linear/sigmoid/tanh/relu) and "
             f"at most 64 weights; got {config.topo.activation!r}, "
             f"P={config.topo.num_weights}")
+    if config.generation_impl == "fused" and not fused_kernel_supported(
+            config.topo, config.train_mode):
+        raise ValueError(
+            "generation_impl='fused' fuses the weightwise variant's "
+            "sequential (batch-1) chain only; train_mode="
+            f"{config.train_mode!r} needs generation_impl='phases'")
 
 
 def draw(config: SoupConfig, gen: torch.Generator,
@@ -551,16 +573,10 @@ def _rowmajor_generation(config: SoupConfig, state: SoupState,
         learn_gate, learn_tgt = rows_of("learn_gate"), rows_of("learn_tgt")
         if config.learn_from_severity > 0:
             other = rows[learn_tgt + off]
-            if on_sgd_kernels(topo, config.train_mode):
-                learned, _ = learn_epochs_popmajor(
-                    topo, rows.t().contiguous(), other.t().contiguous(),
-                    config.learn_from_severity, config.lr, config.train_mode)
-                learned = learned.t()
-            else:
-                learned, _ = fit_epochs_flat(
-                    topo, rows, config.learn_from_severity, config.lr,
-                    config.train_mode, xy=compute_samples(topo, other))
-            rows = torch.where(learn_gate[:, None], learned, rows)
+            learned, _ = learn_epochs_popmajor(
+                topo, rows.t().contiguous(), other.t().contiguous(),
+                config.learn_from_severity, config.lr, config.train_mode)
+            rows = torch.where(learn_gate[:, None], learned.t(), rows)
     else:
         learn_gate, learn_tgt = none, zero_tgt
 
@@ -590,6 +606,83 @@ def _rowmajor_generation(config: SoupConfig, state: SoupState,
         None if scales is None else scales.reshape(b, n))
     return new_state, SoupEvents(act.reshape(b, n), cp.reshape(b, n),
                                  train_loss.reshape(b, n))
+
+
+def _evolve_sequential(config: SoupConfig, state: SoupState,
+                       draws: Optional[SoupDraws] = None):
+    """One sequential generation (``_evolve_sequential``, ``soup.py:880-943``
+    of the JAX package) of a lone row-major float32 soup.  Returns
+    (new_state, events).
+
+    The particles act in index order on one population that each of them
+    mutates in place.  Draw i is particle i's: attack gate and victim,
+    learn gate and counterpart, and replacement ``fresh[:, i]``.  The event
+    record keeps the JAX package's reading of the counterpart's uid AFTER
+    particle i's own respawn: a particle j <= i shows its new uid, j > i
+    its old one."""
+    n, topo = config.size, config.topo
+    w = state.weights.clone()
+    dev = w.device
+    d = _resolve_draws(config, state.key, dev, draws)
+    attack_gate, attack_tgt, _, learn_gate, learn_tgt = _gates(config, d, n,
+                                                               dev)
+    # the gates steer the host's loop: one read of them a generation
+    attacks = attack_gate.tolist()
+    victims = attack_tgt.tolist()
+    learns = learn_gate.tolist() if config.learn_from_severity > 0 \
+        else [False] * n
+    teachers = learn_tgt.tolist()
+    fresh = d.fresh.t()
+    dead_div = torch.zeros(n, dtype=torch.bool, device=dev)
+    dead_zero = torch.zeros(n, dtype=torch.bool, device=dev)
+    loss = torch.zeros(n, dtype=w.dtype, device=dev)
+    for i in range(n):
+        if attacks[i]:  # overwrite the VICTIM's row
+            v = victims[i]
+            w[v] = apply_to_weights(topo, w[i], w[v])
+        wT = w[i][:, None]  # particle i as one lane (P, 1)
+        if learns[i]:
+            t = teachers[i]
+            wT, _ = learn_epochs_popmajor(
+                topo, wT.contiguous(), w[t][:, None].contiguous(),
+                config.learn_from_severity, config.lr, config.train_mode)
+        if config.train > 0:
+            wT, loss_i = train_epochs_popmajor(
+                topo, wT.contiguous(), config.train, config.lr,
+                config.train_mode)
+            loss[i:i + 1] = loss_i
+        if config.remove_divergent:
+            dead_div[i:i + 1] = is_diverged(wT, axis=0)
+        if config.remove_zero:
+            dead_zero[i:i + 1] = is_zero(wT, config.epsilon, axis=0) & \
+                ~dead_div[i:i + 1]
+        dead = dead_div[i:i + 1] | dead_zero[i:i + 1]
+        w[i] = torch.where(dead, fresh[i], wT[:, 0])
+
+    # the uids were minted in index order: the cumsum rank of the dead
+    uids, deaths, death_action, death_cp = _respawn_uids(
+        state.uids, state.next_uid, dead_div, dead_zero)
+    order = torch.arange(n, device=dev)
+
+    def uid_seen(tgt):
+        return torch.where(tgt <= order, uids[tgt], state.uids[tgt])
+
+    act, cp = _event_record(n, attack_gate, uid_seen(attack_tgt), learn_gate,
+                            uid_seen(learn_tgt), config.train > 0,
+                            death_action, death_cp)
+    new_state = SoupState(w, uids, state.next_uid + deaths, state.time + 1,
+                          state.key, None)
+    return new_state, SoupEvents(act, cp, loss)
+
+
+def _sequential(config: SoupConfig, state: SoupState) -> SoupState:
+    """``state`` checked for the sequential mode: one soup, no trial
+    axis."""
+    if isinstance(state.key, tuple):
+        raise ValueError("mode='sequential' takes one soup, not a stacked "
+                         "state (trial axis)")
+    _check_lone(config, state)
+    return _forked(state)
 
 
 def stack(states: Sequence[SoupState]) -> SoupState:
@@ -639,10 +732,9 @@ def _unstacked(state: SoupState, is_stacked: bool) -> SoupState:
                      None if state.scales is None else state.scales[0])
 
 
-def _popmajor(config: SoupConfig, state: SoupState) -> torch.Tensor:
-    if isinstance(state.key, tuple):
-        raise ValueError("a stacked state (trial axis) needs "
-                         "layout='rowmajor'")
+def _check_lone(config: SoupConfig, state: SoupState) -> None:
+    """Raise unless ``state`` is one soup (no trial axis) of ``config``'s
+    shape and storage dtype."""
     shape = (config.size, config.topo.num_weights)
     dtype = _pop_dtype(config)
     if tuple(state.weights.shape) != shape or state.weights.dtype != dtype:
@@ -653,6 +745,13 @@ def _popmajor(config: SoupConfig, state: SoupState) -> torch.Tensor:
             tuple(state.scales.shape) != (config.size,)):
         raise ValueError("state.scales must be (N,) float32 for an int8 "
                          "population and None otherwise")
+
+
+def _popmajor(config: SoupConfig, state: SoupState) -> torch.Tensor:
+    if isinstance(state.key, tuple):
+        raise ValueError("a stacked state (trial axis) needs "
+                         "layout='rowmajor'")
+    _check_lone(config, state)
     return state.weights.t().contiguous()
 
 
@@ -676,6 +775,8 @@ def evolve_step(config: SoupConfig, state: SoupState, draws=None):
     ``SoupDraws``; for a stacked state, one per trial) replaces the
     generator's draws for this generation."""
     _check_config(config)
+    if config.mode == "sequential":
+        return _evolve_sequential(config, _sequential(config, state), draws)
     if config.layout == "popmajor":
         new_state, events, wT = _evolve_parallel_popmajor(
             config, _forked(state), _popmajor(config, state), draws)
@@ -741,7 +842,16 @@ def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
             "evolve(metrics=, health=, lineage=): the device telemetry "
             "carries are not ported to srnn_tpu_torch (ROADMAP.md, A.4)")
     rec = None
-    if config.layout == "popmajor":
+    if config.mode == "sequential":
+        state = _sequential(config, state)
+        if record:
+            rec = _Record(config, generations, (), state.weights.device)
+        for g in range(generations):
+            state, events = _evolve_sequential(config, state)
+            if record:
+                rec.put(g, events, state.weights, state.uids)
+        final = state
+    elif config.layout == "popmajor":
         wT = _popmajor(config, state)
         state = _forked(state)
         if record:

@@ -25,10 +25,14 @@ Routes:
   * ``'full_batch'``: one gradient step on the mean loss over the samples
     (a documented deviation).  The aggregating, fft and recurrent variants
     have one sample per epoch, so there it is the sequential program and
-    takes the same kernels; the weightwise variant takes one autograd step,
-    as the JAX package's ``jax.value_and_grad`` does (no kernel computes
-    it).  For a batch the gradient of the summed per-net losses is each
-    net's own gradient.
+    takes the same kernels; the weightwise variant takes the
+    population-major full-batch step on the transpose
+    (``ops/popmajor.ww_full_batch_epochs``: the hand-derived gradient in
+    plain torch, which no kernel computes and which rounds alike on the
+    card and the CPU), or, for an activation without an output-expressible
+    derivative, one autograd step on the rows, as the JAX package's
+    ``jax.value_and_grad`` does.  For a batch the gradient of the summed
+    per-net losses is each net's own gradient.
   * ``fit_epoch`` on an arbitrary ``(x, y)`` (and ``fit_epochs_flat`` with
     ``xy``) is autograd in both modes: no kernel computes it.
 
@@ -41,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from .nets.dispatch import _MODULES, compute_samples
+from .ops.activations import output_grad_activations
 from .ops.popmajor import learn_epochs_popmajor, train_epochs_popmajor
 from .topology import Topology
 
@@ -54,12 +59,16 @@ def _check_key(key) -> None:
             "kernel takes a per-lane sample order (ROADMAP.md, queue A)")
 
 
-def on_sgd_kernels(topo: Topology, mode: str) -> bool:
-    """True where an epoch is the population-major SGD chain (the SGD
-    kernels on the card): every mode but the weightwise full batch."""
+def on_lanes(topo: Topology, mode: str) -> bool:
+    """True where an epoch runs population-major (``ops/popmajor``'s
+    dispatch: the SGD kernels on the card, and the weightwise full batch's
+    hand-derived step): everything but the weightwise full batch of an
+    activation without an output-expressible derivative, which takes
+    autograd."""
     if mode not in ("sequential", "full_batch"):
         raise ValueError(f"unknown train mode {mode!r}")
-    return not (topo.variant == "weightwise" and mode == "full_batch")
+    return not (topo.variant == "weightwise" and mode == "full_batch" and
+                topo.activation not in output_grad_activations())
 
 
 def _lanes(flat: torch.Tensor) -> torch.Tensor:
@@ -133,9 +142,9 @@ def train_epochs(topo: Topology, w: torch.Tensor, epochs: int,
     the current weights before every epoch (``network.py:613-618``), of a
     net (P,) or a batch held row-major (N, P), or population-major (P, N)
     where ``lanes``.  Returns (new weights in the same layout, the last
-    epoch's mean pre-update loss).  The one place that picks the SGD
-    kernels' chain or autograd (``on_sgd_kernels``); ``epochs`` >= 1."""
-    if on_sgd_kernels(topo, mode):
+    epoch's mean pre-update loss).  The one place that picks the
+    population-major chains or autograd (``on_lanes``); ``epochs`` >= 1."""
+    if on_lanes(topo, mode):
         wT = w if lanes else _lanes(w)
         wT, loss = train_epochs_popmajor(topo, wT, epochs, lr, mode)
         return (wT, loss) if lanes else _unlanes(w, wT, loss)
@@ -178,7 +187,7 @@ def learn_from(topo: Topology, flat: torch.Tensor, other_flat: torch.Tensor,
     """One ``learn_from(other)`` call: fit one epoch on *other's*
     samples."""
     _check_key(key)
-    if on_sgd_kernels(topo, mode):
+    if on_lanes(topo, mode):
         wT, loss = learn_epochs_popmajor(topo, _lanes(flat),
                                          _lanes(other_flat), 1, lr, mode)
         return _unlanes(flat, wT, loss)

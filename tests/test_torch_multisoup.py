@@ -150,13 +150,19 @@ def test_multisoup_own_draws_and_fences():
     assert counts.shape == (3, 5)
     assert counts.sum(dim=1).tolist() == list(cfg.sizes)
     assert ms.fused_supported_multi(cfg)
-    for bad in (dict(layout="rowmajor"), dict(population_dtype="f16"),
+    for bad in (dict(layout="rowmajor", generation_impl="fused"),
+                dict(layout="columnar"), dict(population_dtype="f16"),
                 dict(sizes=(12, 11)), dict(sizes=(12, 0, 11)),
                 dict(topos=(st.Topology("weightwise"),
                             st.Topology("aggregating", shuffler="random"),
                             st.Topology("recurrent")))):
         with pytest.raises(ValueError):
             ms.evolve_multi_step(cfg._replace(**bad), s0)
-    with pytest.raises(ValueError, match="not ported"):
-        ms.seed_multi(cfg._replace(layout="rowmajor"), 0, device="cpu")
-    assert not ms.fused_supported_multi(cfg._replace(layout="rowmajor"))
+    # the row-major layout runs (tests/test_torch_multisoup_rowmajor.py),
+    # and refuses the fused spelling, as the JAX package's does
+    row = cfg._replace(layout="rowmajor")
+    assert int(ms.evolve_multi(row, ms.seed_multi(row, 0, device="cpu"),
+                               1).time) == 1
+    with pytest.raises(ValueError, match="megakernel"):
+        ms.seed_multi(row._replace(generation_impl="fused"), 0, device="cpu")
+    assert not ms.fused_supported_multi(row)

@@ -183,13 +183,17 @@ def test_port_soup_own_draws_and_fences():
     assert int(torch.unique(a.uids).numel()) == cfg.size
     for bad in (dict(layout="columnar"), dict(population_dtype="f16"),
                 dict(mode="sequential"), dict(attack_impl="compact"),
-                dict(apply_impl="pallas"), dict(train_mode="full_batch"),
+                dict(apply_impl="pallas"),
+                dict(train_mode="full_batch", generation_impl="fused"),
                 dict(train_impl="pallas"),
                 dict(topo=st.Topology("weightwise", activation="elu")),
                 dict(topo=st.Topology("recurrent", rnn_scan="associative")),
                 dict(topo=st.Topology("aggregating", shuffler="random"))):
         with pytest.raises(ValueError):
             st.evolve_step(cfg._replace(**bad), s0)
+    # the weightwise full batch runs on the phase chain (its plain step)
+    assert int(st.evolve(cfg._replace(train_mode="full_batch"), s0,
+                         1).time) == 1
     # apply_impl='kernel' is a converted spelling that selects nothing
     c = st.evolve(cfg._replace(apply_impl="kernel"), s0, 2)
     assert torch.equal(c.weights, a.weights) and torch.equal(c.uids, a.uids)

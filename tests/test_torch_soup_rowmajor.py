@@ -235,8 +235,9 @@ def test_rowmajor_against_popmajor_phases(variant):
 
 
 def test_rowmajor_refusals_and_default():
-    """(h): the JAX package's refusals of the row-major layout, the
-    sequential mode (not ported), and the default layout."""
+    """(h): the JAX package's refusals of the row-major layout and of the
+    sequential mode (float32 only), and the default layout and mode; the
+    sequential mode runs (tests/test_torch_soup_sequential.py)."""
     topo = st.Topology("weightwise", width=2, depth=2)
     cfg = st.SoupConfig(topo=topo, size=N)
     assert (cfg.layout, cfg.mode) == ("rowmajor", "parallel")
@@ -244,12 +245,14 @@ def test_rowmajor_refusals_and_default():
     for bad, match in ((dict(generation_impl="fused"), "megakernel"),
                        (dict(attack_impl="compact"), "compact"),
                        (dict(learn_from_impl="compact"), "compact"),
-                       (dict(mode="sequential"), "sequential"),
+                       (dict(mode="sequential", population_dtype="bf16"),
+                        "sequential"),
                        (dict(layout="columnar"), "layout")):
         with pytest.raises(ValueError, match=match):
             st.evolve_step(cfg._replace(**bad), s0)
         with pytest.raises(ValueError, match=match):
             st.evolve(cfg._replace(**bad), s0, 1)
+    assert int(st.evolve(cfg._replace(mode="sequential"), s0, 1).time) == 1
     with pytest.raises(NotImplementedError, match="A.4"):
         st.evolve(cfg, s0, 1, metrics=True)
     # the popmajor layout takes no trial axis

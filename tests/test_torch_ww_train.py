@@ -95,8 +95,14 @@ def test_zero_epochs_and_fences():
     wT = torch.from_numpy(_pop(topo, 8, 8, 1.0))
     w, loss = cuda_ww_train.ww_train_epochs(topo, wT, 0)
     assert torch.equal(w, wT) and torch.equal(loss, torch.zeros(8))
+    # the full batch runs its own step (no kernel); the autograd oracle of
+    # the sequential chain refuses it
+    w, loss = popmajor.train_epochs_popmajor(topo, wT, 1, mode="full_batch")
+    ref = popmajor.ww_full_batch_epochs(topo, wT, 1)
+    assert torch.equal(w, ref[0]) and torch.equal(loss, ref[1])
+    assert not torch.equal(w, wT)
     with pytest.raises(ValueError, match="full_batch"):
-        popmajor.train_epochs_popmajor(topo, wT, 1, mode="full_batch")
+        popmajor.ww_train_epochs_popmajor(topo, wT, 1, mode="full_batch")
     with pytest.raises(ValueError, match="derivative"):
         cuda_ww_train.ww_train_epochs(
             Topology("weightwise", activation="elu"), wT, 1)
