@@ -25,7 +25,11 @@ Phases, each fatal on failure:
    and the mean loss equal where finite with the same non-finite pattern),
    and K3's bodies also timed with no attack and no learn operand (train
    only), which puts a number on their gated phases; the SM clock and power
-   draw (nvidia-smi, sampled meanwhile) beside K1's and K3's times;
+   draw (nvidia-smi, sampled meanwhile) beside K1's and K3's times; K2's
+   shuffled instantiation (keras' shuffled epoch, uniform per-lane orders)
+   train 10 and learn 1 against its plain twin bitwise, in the identity
+   order against the unshuffled K2 bitwise, its bound the unshuffled
+   operations and the order's bytes;
 4. the main path through the public entry points, each of its runs with
    the launch counts set to 0 just before it and checked just after against
    the launches that run must make: the N = 1M full-dynamics soup (attack
@@ -46,13 +50,23 @@ Phases, each fatal on failure:
    kernel, counted after a warm-up generation; the cross attack is plain
    torch); then the weightwise, aggregating and
    recurrent soups with population_dtype='bf16' on the fused route (K3's
-   bfloat16 bodies); then the applications/s program, N = 1M, steps = 2000
+   bfloat16 bodies); then each particle on its route: the mixed phase
+   chain at the same split with an elu weightwise third (the autograd
+   chain: no K2 launch), the aggregating third on K4 and an associative
+   recurrent third on K5 and K6 (the population-major serial scan), 20
+   generations, its per-type routes printed as the JAX package's
+   mega_multisoup writes them; the row-major soups of an elu weightwise
+   particle and of a width-3 / depth-3 one (P = 33), 10 generations each
+   at N = 1M with no kernel launch at all; then the applications/s
+   program, N = 1M, steps = 2000
    (self-application kernel only, through ``srnn_tpu_torch.bench``); then,
    to inform, ``run_fixpoint`` class counts of fresh aggregating and
    recurrent nets;
 5. the fixpoint engines and setups: at N = 1M, weightwise ``run_fixpoint``
    (100 steps: K1 once a step), ``run_training`` (100 epochs: K2 once an
-   epoch), ``run_mixed_fixpoint`` (4 steps x 50 trains: K1 and K2 once a
+   epoch), ``run_training`` with a shuffle generator (100 epochs: K2's
+   shuffled instantiation once an epoch, no unshuffled launch, its wall
+   beside the unshuffled run's), ``run_mixed_fixpoint`` (4 steps x 50 trains: K1 and K2 once a
    step), ``run_known_fixpoint_variation`` (100 steps: K1 once a step and
    once more) and ``fixpoint_density`` (no kernel), and ``run_training`` of
    the aggregating and recurrent variants (100 epochs: K4 / K5 once an
@@ -64,7 +78,8 @@ Phases, each fatal on failure:
    (SRNN_LAUNCH_COUNTS) exact, the soup setups' science printed beside the
    CPU reference's (BASELINE.md) to inform; then every
    engine on 512 trials of each standard variant on the card against the
-   same call on the CPU (integers exact, floats bitwise);
+   same call on the CPU (integers exact, floats bitwise), the weightwise
+   run_training also shuffled, in the same orders;
 6. a small soup of each variant, a small mixed soup, and small bf16 and
    int8 soups, each on the card against the same soup on the CPU, fed the
    same draws, over 3 generations on both routes; the same for the
@@ -80,12 +95,19 @@ Phases, each fatal on failure:
    trip; the sequential soup (mode='sequential') of each standard variant
    and of the weightwise full batch, card against CPU bitwise with each
    generation's launches exact; the population-major weightwise full batch
-   card against CPU, and its step's time at N = 1M (to inform);
+   card against CPU, and its step's time at N = 1M (to inform); small
+   soups off the kernels card against CPU a generation at a time (elu,
+   swish, gelu and softmax weightwise, an aggregating particle with 6
+   aggregates, the row-major associative recurrent soup; rtol 1e-5 / atol
+   1e-6 with the non-finite pattern exact, whether bitwise logged), and the
+   random shuffler's transforms with the same permutations (bitwise but
+   fft);
    then, to inform, the sequential weightwise soup at soup_trajectorys'
    size (exactly one K2 launch per particle a generation), its ms per
    generation and final classes beside BASELINE.md's;
 7. one JSON line listing every kernel (K3 once per variant body and
-   population dtype, K6 once per victim length), then the
+   population dtype, K6 once per victim length, K2's shuffled
+   instantiation on its own row), then the
    card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -470,6 +492,45 @@ def check_kernels(torch, rows):
     rows["ww_sgd"].update(max_abs_err=max(errs), ms=k2_ms,
                           device_ms=k2_device, plain_ms=k2_plain, bound_ms=b,
                           bound_by=by)
+
+    # K2 shuffled: keras' shuffled epoch, a uniform per-lane sample order
+    log(f"K2 ww_sgd_shuffled N={N}")
+    order10, order1 = (torch.rand((e, p, N), generator=gen, device="cuda")
+                       .argsort(dim=1).to(torch.uint8) for e in (10, 1))
+    errs = []
+    for what, fn, fn_plain in (
+            ("train epochs=10",
+             lambda: cuda_ww_train.ww_train_epochs(topo, w, 10,
+                                                   order=order10),
+             lambda: cuda_ww_train.ww_sgd_plain(topo, w, None, 10, 0.01,
+                                                order10)),
+            ("learn severity=1",
+             lambda: cuda_ww_train.ww_learn_epochs(topo, w, other, 1,
+                                                   order=order1),
+             lambda: cuda_ww_train.ww_sgd_plain(topo, w, other, 1, 0.01,
+                                                order1))):
+        errs.append(check_sgd(torch, what, fn, fn_plain))
+    ident = torch.arange(p, dtype=torch.uint8, device="cuda")[
+        None, :, None].expand(10, p, N).contiguous()
+    check_sgd(torch, "identity order against the unshuffled kernel",
+              lambda: cuda_ww_train.ww_train_epochs(topo, w, 10, order=ident),
+              lambda: cuda_ww_train.ww_train_epochs(topo, w, 10))
+    del ident
+    k2s_run = lambda: cuda_ww_train.ww_train_epochs(topo, w, 10,
+                                                    order=order10)
+    k2s_ms = timed_ms(torch, k2s_run, 10)
+    k2s_device = device_ms(k2s_run)
+    k2s_plain = timed_ms(torch, lambda: cuda_ww_train.ww_sgd_plain(
+        topo, w, None, 10, 0.01, order10), 1, warm=False)
+    b, by = bound_ms((2 * p + 1) * N * 4 + 10 * p * N, N * 10 * epoch_ops)
+    log(f"  train epochs=10: kernel {k2s_ms:.3f} ms (device "
+        f"{k2s_device:.4f}; the unshuffled kernel's device time "
+        f"{k2_device:.4f}), plain {k2s_plain:.3f} ms, bound {b:.3f} ms "
+        f"({by}; {epoch_ops} operations an epoch and the order's "
+        f"{10 * p * N} bytes)")
+    rows["ww_sgd_shuffled"].update(max_abs_err=max(errs), ms=k2s_ms,
+                                   device_ms=k2s_device, plain_ms=k2s_plain,
+                                   bound_ms=b, bound_by=by)
 
     # K3: all phases on, both removals
     log(f"K3 generation N={N}")
@@ -995,6 +1056,76 @@ def rowmajor_multisoup_run(torch, kernels, totals):
         totals[name] += n
 
 
+def routes_multisoup_run(torch, kernels, totals):
+    """The mixed phase chain at mega_multisoup's split, N = 1M, the full
+    dynamics, 20 generations after a warm-up generation, each type on its
+    route: the weightwise third elu (the autograd chain, no K2 launch), the
+    aggregating third on K4 twice a generation, the recurrent third with
+    rnn_scan='associative' on K5 twice and K6 once per victim type (the
+    population-major serial scan, as in the JAX package); launch counts
+    exact, added to ``totals``."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+
+    base = mega_multi_config(layout="popmajor")
+    cfg = base._replace(topos=(
+        st.Topology("weightwise", width=2, depth=2, activation="elu"),
+        base.topos[1],
+        st.Topology("recurrent", width=2, depth=2, rnn_scan="associative")))
+    what = "mixed soup routes"
+    log(f"{what}: train_impl {ms.resolved_train_impls(cfg)}")
+    state = ms.seed_multi(cfg, 0, device="cuda")
+    for k in kernels:
+        k.launches = 0
+    ms.evolve_multi(cfg, state, 1)  # warm-up generation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ms.evolve_multi(cfg, state, GENERATIONS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_multi_state(torch, cfg, state, what, dt)
+    per_gen = {"kvec_sgd": 2, "rnn_sgd": 2, "rnn_apply_t14": 1,
+               "rnn_apply_t20": 1, "rnn_apply": 1}
+    for name, n in check_launches(kernels, what, {
+            k: n * (GENERATIONS + 1) for k, n in per_gen.items()}).items():
+        totals[name] += n
+
+
+def autograd_soup_run(torch, kernels, topo, generations=10):
+    """The N = 1M full-dynamics row-major soup of a particle outside every
+    kernel's instantiation (its attack plain torch, its learn_from and
+    training the autograd chain): ``generations`` after a warm-up
+    generation, exactly no kernel launch from the warm-up on;
+    generations/s, to inform."""
+    import srnn_tpu_torch as st
+
+    cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
+                        learn_from_rate=0.1, learn_from_severity=1, train=10,
+                        remove_divergent=True, remove_zero=True,
+                        respawn_draws="fused")
+    for k in kernels:
+        k.launches = 0
+    state = st.evolve(cfg, st.seed(cfg, 0, device="cuda"), 1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = st.evolve(cfg, state, generations)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    what = (f"{topo.variant} {topo.activation} width {topo.width} depth "
+            f"{topo.depth} rowmajor soup (autograd route)")
+    check_launches(kernels, what, {})
+    counts = st.count(cfg, state)
+    n_unique = int(torch.unique(state.uids).numel())
+    if n_unique != N or int(counts.sum()) != N or not bool(
+            torch.isfinite(state.weights).all()):
+        raise AssertionError(f"{what}: uids, counts {counts.tolist()} or "
+                             "non-finite weights after respawn")
+    log(f"{what}: {generations / dt:.3f} generations/s at N={N}, "
+        f"P={topo.num_weights} ({dt * 1e3 / generations:.3f} "
+        f"ms/generation), counts [divergent, fix_zero, fix_other, fix_sec, "
+        f"other] {counts.tolist()}, unique uids {n_unique}")
+
+
 def main_path(torch, kernels):
     """Phase 4: the soups and the applications/s program at N = 1M through
     the public entry points, each run with its own launch counts; returns
@@ -1031,6 +1162,15 @@ def main_path(torch, kernels):
     # the mixed soup in the row-major layout (the default): the types' SGD
     # kernels only
     rowmajor_multisoup_run(torch, kernels, totals)
+    # every particle the JAX package trains: the mixed phase chain with an
+    # elu weightwise type (the autograd route: no K2) and an associative
+    # recurrent one (K5 and K6, popmajor's serial scan); row-major soups
+    # wholly off the kernels (no launch at all)
+    routes_multisoup_run(torch, kernels, totals)
+    for topo in (st.Topology("weightwise", width=2, depth=2,
+                             activation="elu"),
+                 st.Topology("weightwise", width=3, depth=3)):
+        autograd_soup_run(torch, kernels, topo)
     # bfloat16 populations on the fused route: K3's bfloat16 bodies
     for variant, kernel in (("weightwise", "generation_bf16"),
                             ("aggregating", "generation_kvec_bf16"),
@@ -1149,6 +1289,7 @@ def engine_runs(torch, kernels, totals):
     steps = ENGINE_STEPS
     agg_pop = st.init_population(agg, gen, N, CARD)
     rnn_pop = st.init_population(rnn, gen, N, CARD)
+    walls = {}
     for what, fn, expect, n_steps in (
             (f"run_fixpoint weightwise {steps} steps",
              lambda: st.run_fixpoint(ww, pop, steps), {"ww_apply": steps},
@@ -1156,6 +1297,11 @@ def engine_runs(torch, kernels, totals):
             (f"run_training weightwise {steps} epochs",
              lambda: st.run_training(ww, pop, steps), {"ww_sgd": steps},
              steps),
+            (f"run_training weightwise {steps} epochs shuffled",
+             lambda: st.run_training(
+                 ww, pop, steps, shuffle_key=torch.Generator(
+                     device=CARD).manual_seed(7)),
+             {"ww_sgd_shuffled": steps}, steps),
             ("run_mixed_fixpoint weightwise 4 steps x 50 trains",
              lambda: st.run_mixed_fixpoint(ww, pop, 50, 4),
              {"ww_apply": 4, "ww_sgd": 4}, 4),
@@ -1173,6 +1319,10 @@ def engine_runs(torch, kernels, totals):
                 raise AssertionError(f"{what}: losses {tuple(res.losses.shape)}")
             extra = (f", last epoch's mean loss over finite trials "
                      f"{float(res.losses[-1][torch.isfinite(res.losses[-1])].mean()):.6e}")
+        walls[what] = dt
+        if what.endswith("shuffled"):
+            extra += (f"; the unshuffled run's wall "
+                      f"{walls[what[:-len(' shuffled')]]:.4f} s")
         log(f"{what}: {dt:.4f} s at N={N} ({dt * 1e3 / n_steps:.4f} ms a "
             f"step or epoch), counts [divergent, fix_zero, fix_other, "
             f"fix_sec, other] {counts}{extra}")
@@ -1220,6 +1370,7 @@ def engines_vs_cpu(torch):
     too: its step is the hand-derived elementwise chain)."""
     import srnn_tpu_torch as st
     from srnn_tpu_torch.fixtures import identity_fixpoint_flat, vary
+    from srnn_tpu_torch.train import sample_order
 
     n = 512
     cpu = torch.Generator().manual_seed(5)
@@ -1247,6 +1398,11 @@ def engines_vs_cpu(torch):
         if topo.variant == "weightwise":
             calls["run_training full_batch"] = lambda p: st.run_training(
                 topo, p, 10, train_mode="full_batch")
+            # keras' shuffled epoch: K2's shuffled instantiation on the
+            # card, its plain twin on the CPU, the same orders
+            order = sample_order(cpu, 20, topo.num_weights, n, "cpu")
+            calls["run_training shuffled"] = lambda p: st.run_training(
+                topo, p, 20, order=order)
         for name, fn in calls.items():
             p = varied if name == "run_known_fixpoint_variation" else pop
             got, ref = fn(p.to(CARD)), fn(p)
@@ -1415,6 +1571,8 @@ def small_soup_vs_cpu(torch, kernels):
     multisoup_checkpoint(torch)
     small_sequential_vs_cpu(torch, cpu, kernels)
     popmajor_full_batch_vs_cpu(torch, cpu)
+    small_routes_vs_cpu(torch, cpu)
+    shuffler_vs_cpu(torch, cpu)
 
 
 def small_multisoup_vs_cpu(torch, cpu):
@@ -1900,6 +2058,89 @@ def popmajor_full_batch_vs_cpu(torch, cpu):
         f" chain on the same population {k2:.3f} ms")
 
 
+#: (topology, layout) of the small autograd-route soups card vs CPU
+ROUTE_SOUPS = (
+    (dict(variant="weightwise", activation="elu"), "popmajor"),
+    (dict(variant="weightwise", activation="elu"), "rowmajor"),
+    (dict(variant="weightwise", activation="swish"), "rowmajor"),
+    (dict(variant="weightwise", activation="gelu"), "popmajor"),
+    (dict(variant="weightwise", activation="softmax"), "rowmajor"),
+    (dict(variant="aggregating", aggregates=6), "popmajor"),
+    (dict(variant="recurrent", rnn_scan="associative"), "rowmajor"),
+)
+def small_routes_vs_cpu(torch, cpu):
+    """Small soups off the kernels on the card against the same soup on
+    the CPU, fed the same draws, each generation from the CPU's state: the
+    autograd route (elu, swish, gelu and softmax weightwise; an
+    aggregating particle with 6 aggregates) and the row-major associative
+    recurrent soup.  Integers exact; weights and losses within rtol 1e-5 /
+    atol 1e-6 with the non-finite pattern exact, whether bitwise logged
+    (the activations take their exp / expm1 / tanh in float64, rounded
+    once, so that the card and the CPU round alike; autograd's reductions,
+    as the associative scan's over the broadcast recurrent kernel, may sum
+    in another order on the card)."""
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.init import init_population
+
+    n = 2048
+    rng = np.random.default_rng(8)
+    for fields, layout in ROUTE_SOUPS:
+        topo = st.Topology(**fields)
+        cfg = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
+                            learn_from_rate=0.3, learn_from_severity=1,
+                            train=2, remove_divergent=True, remove_zero=True,
+                            layout=layout)
+        b = st.seed(cfg, cpu, device="cpu")
+        for g in range(3):
+            dr = st.SoupDraws(rng.random(n) < 0.3, rng.integers(0, n, n),
+                              rng.random(n) < 0.3, rng.integers(0, n, n),
+                              init_population(topo, cpu, n, "cpu").t()
+                              .numpy())
+            a, ev_a = st.evolve_step(cfg, _state_on(torch, st, b, "cuda"),
+                                     dr)
+            b, ev_b = st.evolve_step(cfg, b, dr)
+            tag = (f"{topo.variant} {topo.activation} {topo.rnn_scan} "
+                   f"k={topo.aggregates} {layout} card vs cpu gen {g}")
+            for f in ("uids", "next_uid"):
+                equal_ints(torch, f"{tag} {f}", getattr(a, f), getattr(b, f))
+            equal_ints(torch, f"{tag} actions", ev_a.action, ev_b.action)
+            compare(torch, f"{tag} weights", a.weights.cpu(), b.weights)
+            compare(torch, f"{tag} loss", ev_a.loss.cpu(), ev_b.loss)
+
+
+def shuffler_vs_cpu(torch, cpu):
+    """shuffler='random' transforms on the card against the CPU with the
+    same permutations: the aggregating apply and an aggregating attack on
+    weightwise victims bitwise (one-hot chains and a gather), the fft
+    apply within rtol 1e-5 / atol 1e-6 (cuFFT and the CPU's FFT sum
+    apart)."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.nets import apply_to_weights
+    from srnn_tpu_torch.nets.aggregating import random_perm
+    from srnn_tpu_torch.nets.cross import cross_apply
+
+    n = 4096
+    for att, vic, ulps in (
+            (st.Topology("aggregating", shuffler="random"), None, 0),
+            (st.Topology("aggregating", shuffler="random"),
+             st.Topology("weightwise"), 0),
+            (st.Topology("fft", shuffler="random"), None, None)):
+        v = vic or att
+        a = st.init_population(att, cpu, n, "cpu")
+        x = st.init_population(v, cpu, n, "cpu")
+        perm = random_perm(cpu, (n,), v.num_weights, "cpu")
+        if vic is None:
+            fn = lambda d: apply_to_weights(att, a.to(d), x.to(d),
+                                            perm=perm.to(d))
+        else:
+            fn = lambda d: cross_apply(att, a.to(d), vic, x.to(d),
+                                       perm=perm.to(d))
+        compare(torch, f"shuffled {att.variant} on {v.variant} card vs cpu",
+                fn("cuda").cpu(), fn("cpu"), ulps)
+
+
 def sequential_trajectory(torch, kernels):
     """To inform: the sequential weightwise soup at soup_trajectorys' size
     (20 particles, attack 0.1, no learn_from, train 30, both removals, 100
@@ -1961,12 +2202,12 @@ def main() -> int:
     from srnn_tpu_torch.ops.cuda_rnn_apply import RNN_APPLY_BY_T
     from srnn_tpu_torch.ops.cuda_rnn_train import RNN_SGD
     from srnn_tpu_torch.ops.cuda_ww import WW_APPLY
-    from srnn_tpu_torch.ops.cuda_ww_train import WW_SGD
+    from srnn_tpu_torch.ops.cuda_ww_train import WW_SGD, WW_SGD_SHUFFLED
 
     kernels = (WW_APPLY, WW_SGD, GENERATION, KVEC_SGD, RNN_SGD,
                RNN_APPLY_BY_T[17], GENERATION_KVEC, GENERATION_RNN,
                RNN_APPLY_BY_T[14], RNN_APPLY_BY_T[20], GENERATION_BF16,
-               GENERATION_KVEC_BF16, GENERATION_RNN_BF16)
+               GENERATION_KVEC_BF16, GENERATION_RNN_BF16, WW_SGD_SHUFFLED)
     rows = {k.name: {"name": k.name, "route": "cuda",
                      "source": f"srnn_tpu_torch/csrc/{k.source}.cu",
                      "replaces": k.replaces, "library_ms": None}

@@ -17,8 +17,12 @@ soups and mixed soups), the six fixpoint setups and the three soup setups
 population-major) in float32, bfloat16 and int8 storage, and the
 sequential (strict-parity) soup; the mixed-type soup (``multisoup``) in
 both layouts; both train modes everywhere -- on the kernels of ``csrc/``
-(chained self-application, the SGD chains, the recurrent attack, the
-fused generation).
+(chained self-application, the SGD chains in enumeration order and in
+keras' shuffled order, the recurrent attack, the fused generation) for
+the particles they are instantiated for, on the autograd chains for every
+other particle the JAX package trains (any activation, width, depth and
+aggregates; ``rnn_scan='associative'``; ``shuffler='random'`` where the
+JAX package runs it).
 """
 
 from .engine import (FixpointRunResult, TrainingRunResult, VariationResult,

@@ -22,7 +22,9 @@ in each of ``--rounds`` rounds, the variants in turn, each time the median
 of ``--reps`` CUDA-event timings (20 times as many for K3's short launches),
 K1's and K3's with the SM clock and the power draw that ``nvidia-smi``
 sampled meanwhile: K1 at steps 2000 on damped glorot lanes; K2 and K5
-self-training 10 epochs; K3's bodies in float32 and bfloat16 on
+self-training 10 epochs; K2's shuffled instantiation self-training 10
+epochs and imitating 1 in random per-lane sample orders (``k2s``, where a
+variant's ``ww_train.cu`` has it); K3's bodies in float32 and bfloat16 on
 ``chip_smoke.py``'s inputs (glorot lanes, 100 forced divergent and 100
 forced zero, attack 0.1, learn_from 0.1, severity 1, train 10, both
 removals) and with no attack and no learn operand (train only), the
@@ -51,10 +53,12 @@ each source, ptxas' registers, stack frame, spills and shared memory per
 block of the linear instantiations (for the k-vector sources the linear
 average ones) and the resident blocks and warps per SM those admit, the
 SASS census of those instantiations (``cuobjdump -sass``: instructions,
-FMUL, FADD, FFMA, MOV, local loads and stores) and a digest of the whole
+FMUL, FADD, FFMA, MOV, local loads and stores), a digest of the whole
 library's SASS (the anonymous namespace's hash masked, so that two builds
-of the same code agree); then each time per round.  Needs a CUDA card and
-nvcc.
+of the same code agree) and one per kernel template (``ww_sgd_kernel``,
+``ww_sgd_shuffled_kernel``, ...), so that a source that gains a kernel
+shows its other kernels' SASS unchanged; then each time per round.  Needs
+a CUDA card and nvcc.
 """
 
 import argparse
@@ -110,7 +114,8 @@ STREAMED = 200
 #: calls traced for their kernels' durations (device_ms)
 TRACED = 50
 #: the port's kernels, by a part of the name the profiler gives them
-KERNEL_NAMES = ("ww_apply_kernel", "ww_sgd_kernel", "generation_kernel",
+KERNEL_NAMES = ("ww_apply_kernel", "ww_sgd_kernel", "ww_sgd_shuffled_kernel",
+                "generation_kernel",
                 "kvec_sgd_kernel", "rnn_sgd_kernel", "rnn_apply_kernel")
 
 
@@ -231,18 +236,54 @@ def sass_text(lib: Path) -> str:
 def sass_digest(sass: str) -> str:
     """Hash of a library's SASS: the multiset of its kernels' instruction
     streams, names left out (the anonymous namespace's name differs between
-    two builds of the same source)."""
+    two builds of the same source), whitespace runs collapsed (cuobjdump
+    pads its columns to the library's longest instruction) and branch
+    labels (``.L_x_<n>``, numbered across the library) renumbered per
+    kernel in order of first use, so that a kernel's stream does not change
+    when the library gains another kernel."""
     kernels, cur = [], None
     for line in sass.splitlines():
         if re.search(r"Function : \S+", line):
             cur = []
+            labels = {}
             kernels.append(cur)
         elif cur is not None and re.match(r"\s+/\*[0-9a-f]+\*/", line):
-            cur.append(line.strip())
+            cur.append(re.sub(
+                r"\.L_x_\d+",
+                lambda m: labels.setdefault(m.group(0), f".L{len(labels)}"),
+                re.sub(r"\s+", " ", line.strip())))
     h = hashlib.sha256()
     for code in sorted("\n".join(k) for k in kernels):
         h.update(hashlib.sha256(code.encode()).digest())
     return h.hexdigest()[:16]
+
+
+def kernel_template(mangled: str) -> str:
+    """The template's name in a kernel's mangled name: the first
+    length-prefixed identifier that ends in ``_kernel`` (a length may
+    follow other digits, as in ``_GLOBAL__N_113ww_sgd_kernel``)."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group(0)
+        for k in range(len(digits)):
+            name = mangled[m.end():m.end() + int(digits[k:])]
+            if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
+                                                         name):
+                return name
+    return mangled
+
+
+def sass_digests_by_kernel(sass: str) -> Dict[str, str]:
+    """``sass_digest`` of each kernel template's instantiations on their
+    own: template name -> digest."""
+    parts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = parts.setdefault(kernel_template(m.group(1)), [])
+        if cur is not None:
+            cur.append(line)
+    return {name: sass_digest("\n".join(lines))
+            for name, lines in sorted(parts.items())}
 
 
 def sass_census(sass: str, frag: str = LINEAR) -> Dict[str, dict]:
@@ -557,6 +598,16 @@ def ww_cases(n: int, gen) -> Dict[str, tuple]:
     out["k2_learn1"] = (lambda: cwt.ww_learn_epochs(ww, w, other, 1),
                         lambda: cwt.ww_sgd_plain(ww, w, other, 1, 0.01),
                         False)
+    p = ww.num_weights
+    order10, order1 = (
+        torch.rand((e, p, n), generator=gen, device="cuda").argsort(dim=1)
+        .to(torch.uint8) for e in (10, 1))
+    out["k2s_train10"] = (
+        lambda: cwt.ww_train_epochs(ww, w, 10, order=order10),
+        lambda: cwt.ww_sgd_plain(ww, w, None, 10, 0.01, order10), True)
+    out["k2s_learn1"] = (
+        lambda: cwt.ww_learn_epochs(ww, w, other, 1, order=order1),
+        lambda: cwt.ww_sgd_plain(ww, w, other, 1, 0.01, order1), False)
     out.update(generation_cases(ww, w, gen))
     probe = SoupProbe(n)
     out["k3ww_f32_soup"] = (probe.launch, probe.plain, True)
@@ -685,10 +736,16 @@ def main(argv=None) -> int:
     runs = cases(args.size, groups)
     refs = {name: plain() for name, (_, plain, _) in runs.items() if plain}
     results, failed = {}, []
+    avail = {}
     for v in variants:
         install(libs[v.label])
+        # K2's shuffled instantiation only where the variant has it
+        shuffled = "ww_train" not in libs[v.label] or hasattr(
+            _build._LOADED["ww_train"], cwt.WW_SGD_SHUFFLED.symbol)
+        avail[v.label] = {name: r for name, r in runs.items()
+                          if shuffled or not name.startswith("k2s")}
         try:
-            check(v.label, runs, refs)
+            check(v.label, avail[v.label], refs)
         except AssertionError as e:
             # reported, and left out of the timing; the run fails at the end
             print(f"{v.label}: {e}", flush=True)
@@ -707,8 +764,12 @@ def main(argv=None) -> int:
                      for name in libs[v.label]},
             "sass_digest": {name: sass_digest(sass[name])
                             for name in libs[v.label]},
-            "ms": {name: [] for name, (_, _, t) in runs.items() if t},
-            "clocks": {name: [] for name, (_, _, t) in runs.items()
+            "sass_digest_by_kernel": {
+                name: sass_digests_by_kernel(sass[name])
+                for name in libs[v.label]},
+            "ms": {name: [] for name, (_, _, t) in avail[v.label].items()
+                   if t},
+            "clocks": {name: [] for name, (_, _, t) in avail[v.label].items()
                        if t and name.startswith(("k1", "k3"))}}
     smi_log = SmiSampler()
     windows = []

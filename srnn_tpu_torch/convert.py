@@ -3,7 +3,12 @@
 Everything here takes plain values -- numpy arrays, ints, dicts of fields
 (``dataclasses.asdict(topo)``, ``config._asdict()``) -- so it needs no
 import of the JAX package.  The JAX config names its implementations 'xla'
-and 'pallas'; here they are 'plain' and 'kernel'.  Weights keep their
+and 'pallas'; here they are 'plain' and 'kernel', with the JAX package's
+meaning: 'plain' (the default, as 'xla' is there) runs every particle, on
+the hand-written kernels where they are instantiated for it and on the
+autograd chains elsewhere (``ops/popmajor.train_route``); 'kernel' asks
+for the kernels and raises upfront where a particle is outside them, as
+'pallas' raises outside the Pallas envelope.  Weights keep their
 storage dtype: float32, bfloat16 (numpy's ``ml_dtypes`` bfloat16, as
 ``np.asarray`` gives it for a JAX bfloat16 array) or int8 codes, the last
 with their per-particle float32 ``scales``.

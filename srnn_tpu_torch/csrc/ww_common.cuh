@@ -1,6 +1,7 @@
 // Device code shared by the three weightwise kernels (ww_apply.cu,
-// ww_train.cu, generation.cu): the unrolled weightwise MLP and the
-// hand-derived batch-1 SGD chain.  Layout, threading and rounding rules:
+// ww_train.cu, generation.cu): the unrolled weightwise MLP, the
+// hand-derived batch-1 SGD chain, and that chain in a per-lane sample order
+// (sgd_chain_shuffled, K2's shuffled instantiation).  Layout, threading and rounding rules:
 // lane_common.cuh.
 //
 // The topology is template parameters (W = width, D = depth, A =
@@ -292,6 +293,83 @@ __device__ __forceinline__ void sgd_step(float (&rows)[WW<W, D>::P], float x,
   for (int r = 0; r < P; ++r) rows[r] = rows[r] - lr * grads[r];
 }
 
+// sgd_step on a sample whose coordinates c[0..2] are known only at run time
+// (sgd_chain_shuffled): the same rounded operations, every coordinate
+// product issued (IEEE gives 1.0 * v == v, and a product with 0.0 is
+// issued in both).  A twin of sgd_step rather than a body shared with it,
+// so that the unshuffled instantiations keep their SASS byte for byte.
+template <int W, int D, int A>
+__device__ __forceinline__ void sgd_step_rt(float (&rows)[WW<W, D>::P],
+                                            float x, const float (&c)[3],
+                                            float& loss_acc, float lr) {
+  using T = WW<W, D>;
+  constexpr int P = T::P, b0 = T::fan_out(0);
+  // forward, keeping every layer's post-activations for the backward;
+  // acts[0] holds only x
+  float acts[T::L + 1][T::M];
+  acts[0][0] = x;
+#pragma unroll
+  for (int j = 0; j < b0; ++j) {
+    float acc = x * rows[j];
+    acc = acc + c[0] * rows[b0 + j];
+    acc = acc + c[1] * rows[2 * b0 + j];
+    acc = acc + c[2] * rows[3 * b0 + j];
+    acts[1][j] = act<A>(acc);
+  }
+#pragma unroll
+  for (int l = 1; l < T::L; ++l) {
+    const int a = T::fan_in(l), b = T::fan_out(l), o = T::offset(l);
+#pragma unroll
+    for (int j = 0; j < b; ++j) {
+      float acc = acts[l][0] * rows[o + j];
+#pragma unroll
+      for (int i = 1; i < a; ++i) acc = acc + acts[l][i] * rows[o + i * b + j];
+      acts[l + 1][j] = act<A>(acc);
+    }
+  }
+  const float pred = acts[T::L][0];
+  loss_acc = loss_acc + (pred - x) * (pred - x);
+  // backward; dh is the gradient w.r.t. a layer's post-activation output
+  float dh[T::M];
+  dh[0] = 2.0f * (pred - x);
+  float grads[P];
+#pragma unroll
+  for (int li = T::L - 1; li >= 1; --li) {
+    const int a = T::fan_in(li), b = T::fan_out(li), o = T::offset(li);
+    if constexpr (A != LINEAR) {
+#pragma unroll
+      for (int j = 0; j < b; ++j) dh[j] = act_grad_mul<A>(dh[j], acts[li + 1][j]);
+    }
+    float dprev[T::M];
+#pragma unroll
+    for (int i = 0; i < a; ++i) {
+      float acc = dh[0] * rows[o + i * b];
+#pragma unroll
+      for (int j = 1; j < b; ++j) acc = acc + dh[j] * rows[o + i * b + j];
+      dprev[i] = acc;
+#pragma unroll
+      for (int j = 0; j < b; ++j) grads[o + i * b + j] = dh[j] * acts[li][i];
+    }
+#pragma unroll
+    for (int i = 0; i < a; ++i) dh[i] = dprev[i];
+  }
+  // layer 0: its input gradient is never read; its weights' gradients are
+  // dz[j] times the sample's features
+  if constexpr (A != LINEAR) {
+#pragma unroll
+    for (int j = 0; j < b0; ++j) dh[j] = act_grad_mul<A>(dh[j], acts[1][j]);
+  }
+#pragma unroll
+  for (int j = 0; j < b0; ++j) {
+    grads[j] = dh[j] * x;
+    grads[b0 + j] = c[0] * dh[j];
+    grads[2 * b0 + j] = c[1] * dh[j];
+    grads[3 * b0 + j] = c[2] * dh[j];
+  }
+#pragma unroll
+  for (int r = 0; r < P; ++r) rows[r] = rows[r] - lr * grads[r];
+}
+
 template <int W, int D, int A, int... S>
 __device__ __forceinline__ float sgd_epoch(float (&rows)[WW<W, D>::P],
                                            const float (&snap)[WW<W, D>::P],
@@ -319,6 +397,49 @@ __device__ __forceinline__ float sgd_chain(float (&rows)[WW<W, D>::P],
     for (int r = 0; r < P; ++r) snap[r] = REFRESH ? rows[r] : target[r];
     const float loss_acc = sgd_epoch<W, D, A>(
         rows, snap, lr, std::make_integer_sequence<int, P>{});
+    last = loss_acc / static_cast<float>(P);
+  }
+  return last;
+}
+
+// sgd_chain in a per-lane sample order, keras' shuffled epoch: step j of
+// epoch e trains on sample order[(e * P + j) * order_stride].  A runtime
+// index into a register array would send it to local memory, so the
+// sample's weight feature and coordinates are read from memory the caller
+// gives: ``snap``, this lane's snapshot (P values ``snap_stride`` apart; the
+// kernel gives each thread a column of shared memory, conflict-free), and
+// ``coords``, the (P, 3) table (the block's, in shared memory).  An epoch's
+// P order bytes are loaded at its top, all at once, so that their latency
+// is paid once an epoch and the unrolled steps read them from registers.
+// Every rounded operation is sgd_chain's on the ordered samples.
+template <int W, int D, int A, bool REFRESH>
+__device__ __forceinline__ float sgd_chain_shuffled(
+    float (&rows)[WW<W, D>::P], const float (&target)[WW<W, D>::P],
+    float* snap, int snap_stride, const unsigned char* order,
+    long long order_stride, const float* coords, int epochs, float lr) {
+  constexpr int P = WW<W, D>::P;
+  float last = 0.0f;
+  if constexpr (!REFRESH) {
+#pragma unroll
+    for (int r = 0; r < P; ++r) snap[r * snap_stride] = target[r];
+  }
+  for (int e = 0; e < epochs; ++e) {
+    const unsigned char* step_order =
+        order + static_cast<long long>(e) * P * order_stride;
+    int ord[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) ord[j] = step_order[j * order_stride];
+    if constexpr (REFRESH) {
+#pragma unroll
+      for (int r = 0; r < P; ++r) snap[r * snap_stride] = rows[r];
+    }
+    float loss_acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int s = ord[j];
+      const float c[3] = {coords[3 * s], coords[3 * s + 1], coords[3 * s + 2]};
+      sgd_step_rt<W, D, A>(rows, snap[s * snap_stride], c, loss_acc, lr);
+    }
     last = loss_acc / static_cast<float>(P);
   }
   return last;

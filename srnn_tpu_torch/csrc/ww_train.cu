@@ -19,6 +19,16 @@
 // are compile-time constants (ww_common.cuh), so the forward's and the
 // layer-0 gradients' products with a coordinate of 1.0 are not issued: 52
 // of the reference's 1,079 operations an epoch.
+//
+// The shuffled instantiation (srnn_ww_sgd_shuffled: keras' per-epoch sample
+// shuffle, engine.run_training(shuffle_key=) of the JAX package) takes a
+// per-lane order, uint8 (epochs, P, n), and trains step j of epoch e on
+// sample order[e, j, lane].  Its sample index is known only at run time, so
+// the snapshot sits in a shared-memory column per thread and the coordinate
+// table in shared memory (ww_common.cuh, sgd_chain_shuffled), and an
+// epoch's P order bytes are loaded at its top; every coordinate product is
+// issued, the products with 1.0 too, plus one snapshot and three coordinate
+// loads a step.  The unshuffled instantiations are untouched by it.
 
 #include "ww_common.cuh"
 
@@ -40,6 +50,36 @@ ww_sgd_kernel(const float* __restrict__ wT, const float* __restrict__ otherT,
     target[r] = REFRESH ? 0.0f : otherT[srnn::lane(r, n, i)];
   }
   const float last = srnn::sgd_chain<W, D, A, REFRESH>(rows, target, epochs, lr);
+#pragma unroll
+  for (int r = 0; r < P; ++r) out[srnn::lane(r, n, i)] = rows[r];
+  loss[i] = last;
+}
+
+template <int W, int D, int A, bool REFRESH>
+__global__ void __launch_bounds__(srnn::kThreads)
+ww_sgd_shuffled_kernel(const float* __restrict__ wT,
+                       const float* __restrict__ otherT,
+                       const unsigned char* __restrict__ order,
+                       float* __restrict__ out, float* __restrict__ loss,
+                       long long n, int epochs, float lr) {
+  constexpr int P = srnn::WW<W, D>::P;
+  __shared__ float coords[3 * P];
+  __shared__ float snap[P * srnn::kThreads];
+  for (int t = threadIdx.x; t < 3 * P; t += blockDim.x)
+    coords[t] = srnn::WW<W, D>::coord(t / 3, t % 3);
+  __syncthreads();
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float rows[P];
+  float target[P];
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    rows[r] = wT[srnn::lane(r, n, i)];
+    target[r] = REFRESH ? 0.0f : otherT[srnn::lane(r, n, i)];
+  }
+  const float last = srnn::sgd_chain_shuffled<W, D, A, REFRESH>(
+      rows, target, &snap[threadIdx.x], srnn::kThreads, order + i, n, coords,
+      epochs, lr);
 #pragma unroll
   for (int r = 0; r < P; ++r) out[srnn::lane(r, n, i)] = rows[r];
   loss[i] = last;
@@ -68,6 +108,33 @@ extern "C" int srnn_ww_sgd(const float* wT, const float* otherT, float* out,
     SRNN_DISPATCH_ACT(act_code,
         ww_sgd_kernel<W, D, A, false><<<g, srnn::kThreads, 0, s>>>(
             wT, otherT, out, loss, n, epochs, lr));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// srnn_ww_sgd's arguments and order: (epochs, P, n) uint8, a sample index
+// in [0, P) per step and lane (the wrapper checks the range).
+extern "C" int srnn_ww_sgd_shuffled(const float* wT, const float* otherT,
+                                    float* out, float* loss, long long n,
+                                    int epochs, float lr, int width,
+                                    int depth, int act_code,
+                                    const float* coords,
+                                    const unsigned char* order,
+                                    void* stream) {
+  constexpr int W = 2, D = 2;
+  if (width != W || depth != D || n <= 0 || epochs < 0 ||
+      (epochs > 0 && order == nullptr) || !srnn::coords_match<W, D>(coords))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const unsigned int g = srnn::blocks_for(n);
+  if (otherT == nullptr) {
+    SRNN_DISPATCH_ACT(act_code,
+        ww_sgd_shuffled_kernel<W, D, A, true><<<g, srnn::kThreads, 0, s>>>(
+            wT, otherT, order, out, loss, n, epochs, lr));
+  } else {
+    SRNN_DISPATCH_ACT(act_code,
+        ww_sgd_shuffled_kernel<W, D, A, false><<<g, srnn::kThreads, 0, s>>>(
+            wT, otherT, order, out, loss, n, epochs, lr));
   }
   return static_cast<int>(cudaGetLastError());
 }

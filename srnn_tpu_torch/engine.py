@@ -12,25 +12,36 @@ they were given, and transposes once on the way in and once on the way
 out to the layout its steps run in:
 
   * self-application: weightwise on K1 (``ops/cuda_ww``, one launch a
-    step on the population-major (P, N) transpose), aggregating and fft in
-    plain torch on the same layout (``ops/popmajor.apply_popmajor``, as in
-    the JAX package).  The recurrent variant keeps its row-major transform:
-    the population-major recurrence (K6's plain chain) rounds differently,
-    which would move class counts off the JAX package's.
-  * training: one population-major SGD call (K2 weightwise, K4
-    aggregating/fft, K5 recurrent; their plain chains on a CPU tensor) per
-    epoch where every epoch's loss is kept (``run_training``), per outer
-    step where only the last is (``run_mixed_fixpoint``), all through
-    ``train.train_epochs``, which picks the route.  Weightwise
-    ``train_mode='full_batch'`` takes the population-major full-batch step
-    (``ops/popmajor.ww_full_batch_epochs``, plain torch on either device).
-    Where a run's training and self-application layouts differ (the
-    recurrent variant), it transposes around each training call.
+    step on the population-major (P, N) transpose) where K1 is
+    instantiated for the topology, else its plain chain
+    (``ops/popmajor.ww_forward_popmajor``, on either device); aggregating
+    and fft in plain torch on the same layout
+    (``ops/popmajor.apply_popmajor``, as in the JAX package).  The recurrent
+    variant keeps its row-major transform (the associative scan for
+    ``rnn_scan='associative'``): the population-major recurrence (K6's
+    plain chain) rounds differently, which would move class counts off the
+    JAX package's.
+  * training: one population-major call per epoch where every epoch's loss
+    is kept (``run_training``), per outer step where only the last is
+    (``run_mixed_fixpoint``), all through ``train.train_epochs``, whose
+    route (``ops/popmajor.train_route``) is the variant's SGD kernel (K2,
+    K4, K5; their plain chains on a CPU tensor) inside the kernels'
+    instantiations, the weightwise full batch's hand-derived step, or the
+    autograd chains for every other particle.  The recurrent variant
+    transposes around each training call.
+  * keras' shuffled epoch (``run_training(shuffle_key=)``, a
+    ``torch.Generator``, or the orders themselves, ``order=``): each epoch
+    each trial takes its batch-1 steps in its own order -- on the card K2's
+    shuffled instantiation, one launch an epoch.
   * classification (the final classes, ``fixpoint_density``): plain torch
     in the self-application's layout; it launches no kernel.
 
 On either device every step and the classification run the same IEEE
-operations, so a run on the card equals the same run on the CPU.
+operations, so a run on the card equals the same run on the CPU (the
+autograd route's exp and tanh, which torch's card and CPU kernels may
+round apart in the last bit, aside).  An aggregating or fft topology with
+``shuffler='random'`` raises before a step, as the JAX package's engines
+do: their transforms take no key.
 ``record=True`` stacks the whole (steps+1, N, P) history, as the JAX
 package does: at a million particles, do not record.
 """
@@ -39,13 +50,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .init import on_device
 from .nets.dispatch import apply_to_weights
+from .ops.cuda_sgd_common import kernel_supported
 from .ops.cuda_ww import ww_apply_population
-from .ops.popmajor import apply_popmajor
+from .ops.popmajor import apply_popmajor, check_train_mode, ww_forward_popmajor
 from .ops.predicates import (DEFAULT_EPSILON, classify, count_classes,
                              is_close, is_diverged, is_zero)
 from .topology import Topology
-from .train import DEFAULT_LR, on_lanes, train_epochs
+from .train import DEFAULT_LR, sample_order, shuffles, train_epochs
 
 
 class FixpointRunResult(NamedTuple):
@@ -100,10 +113,20 @@ def _per_trial(mask: torch.Tensor, lanes: bool) -> torch.Tensor:
     return mask[None, :] if lanes else mask[:, None]
 
 
+def _check_keyless(topo: Topology) -> None:
+    """The engines' transforms take no key: a random shuffler raises, as
+    ``nets.aggregating.shuffle`` does (and the JAX package's engines)."""
+    if topo.variant in ("aggregating", "fft") and topo.shuffler == "random":
+        raise ValueError("shuffler='random' requires a PRNG key (perm= or "
+                         "generator=); the engines' transforms take none")
+
+
 def _self_apply(topo: Topology, w: torch.Tensor) -> torch.Tensor:
     """Every trial applied to itself, in the self-application layout."""
     if topo.variant == "weightwise":
-        return ww_apply_population(topo, w, 1)
+        if kernel_supported(topo):
+            return ww_apply_population(topo, w, 1)
+        return ww_forward_popmajor(topo, w, w)
     if _applies_on_lanes(topo):
         return apply_popmajor(topo, w, w)
     return apply_to_weights(topo, w, w)
@@ -148,6 +171,7 @@ def run_fixpoint(topo: Topology, pop: torch.Tensor, step_limit: int = 100,
     application that then becomes the step.  Weightwise: one K1 launch a
     step on the card.
     """
+    _check_keyless(topo)
     lanes = _applies_on_lanes(topo)
     ax = _axis(lanes)
     w = _to(pop, False, lanes)
@@ -176,7 +200,8 @@ def run_mixed_fixpoint(topo: Topology, pop: torch.Tensor,
     train epochs, gated by the same diverged/fixpoint mask.  On the card
     one self-application launch (weightwise) and one SGD launch per outer
     step (none where ``trains_per_application`` is 0)."""
-    on_lanes(topo, train_mode)  # an unknown mode raises before a step
+    check_train_mode(topo, train_mode)  # raises before a step
+    _check_keyless(topo)
     lanes = _applies_on_lanes(topo)
     ax = _axis(lanes)
     w = _to(pop, False, lanes)
@@ -199,33 +224,53 @@ def run_mixed_fixpoint(topo: Topology, pop: torch.Tensor,
 def run_training(topo: Topology, pop: torch.Tensor, epochs: int = 1000,
                  epsilon: float = DEFAULT_EPSILON, lr: float = DEFAULT_LR,
                  train_mode: str = "sequential", record: bool = False,
-                 shuffle_key=None) -> TrainingRunResult:
+                 shuffle_key: Optional[torch.Generator] = None,
+                 order: Optional[torch.Tensor] = None) -> TrainingRunResult:
     """Pure self-training, all trials at once (``training-fixpoints.py:52-56``:
     N trials x ``epochs`` train calls, no self-attacks, then classify).  Each
     epoch recomputes the samples from the current weights, the reference's
     moving-target regression toward being a fixpoint
-    (``network.py:613-618``).  On the card one SGD launch per epoch, which
-    keeps every epoch's (N,) loss.  ``shuffle_key`` (keras' per-epoch
-    sample shuffle) is not ported and raises."""
-    if shuffle_key is not None:
-        raise NotImplementedError(
-            "shuffle_key is not ported to srnn_tpu_torch: no kernel takes a "
-            "per-lane sample order (ROADMAP.md, queue A)")
-    lanes = on_lanes(topo, train_mode)
-    w = _to(pop, False, lanes)
+    (``network.py:613-618``).  One training call per epoch on the
+    population-major transpose (one kernel launch an epoch on the card,
+    inside the kernels' instantiations), which keeps every epoch's (N,)
+    loss.
+
+    ``shuffle_key`` (a ``torch.Generator``) is keras ``fit``'s per-epoch
+    sample shuffle, which the reference runs used (the JAX package's
+    ``shuffle_key``): each epoch each trial takes its batch-1 steps in an
+    independent uniform order, drawn an epoch at a time
+    (``train.sample_order``, on the generator's device).  ``order``, uint8
+    (epochs, P, N), gives those orders instead (the tests feed the JAX
+    package's ``jax.random.permutation`` draws).  Only the weightwise
+    variant has multi-sample epochs, and the full batch takes no order, so
+    both are bitwise no-ops elsewhere, as in the JAX package."""
+    _check_keyless(topo)
+    n, p = pop.shape
+    shuffled = shuffles(topo, train_mode) and (shuffle_key is not None
+                                               or order is not None)
+    if shuffled and order is not None:
+        order = on_device(order, pop.device, torch.uint8)
+        if tuple(order.shape) != (epochs, p, n):
+            raise ValueError(f"order must be ({epochs}, {p}, {n}), got "
+                             f"{tuple(order.shape)}")
+    w = _to(pop, False, True)
     losses = []
     traj = [w] if record else None
-    for _ in range(epochs):
-        w, loss = train_epochs(topo, w, 1, lr, train_mode, lanes)
+    for e in range(epochs):
+        o = None
+        if shuffled:
+            o = order[e:e + 1] if order is not None else sample_order(
+                shuffle_key, 1, p, n, pop.device)
+        w, loss = train_epochs(topo, w, 1, lr, train_mode, True, o)
         losses.append(loss)
         if record:
             traj.append(w)
-    classes = _classify(topo, w, lanes, epsilon)
+    classes = _classify(topo, w, True, epsilon)
     losses = torch.stack(losses) if losses else torch.zeros(
         (0, pop.shape[0]), dtype=pop.dtype, device=pop.device)
     return TrainingRunResult(
-        _to(w, lanes, False), losses, classes, count_classes(classes),
-        None if traj is None else _history(traj, lanes))
+        _to(w, True, False), losses, classes, count_classes(classes),
+        None if traj is None else _history(traj, True))
 
 
 def run_known_fixpoint_variation(topo: Topology, pop: torch.Tensor,
@@ -244,6 +289,7 @@ def run_known_fixpoint_variation(topo: Topology, pop: torch.Tensor,
     both, so the run makes ``max_steps + 1`` (one K1 launch each on the
     card for the weightwise variant).
     """
+    _check_keyless(topo)
     lanes = _applies_on_lanes(topo)
     ax = _axis(lanes)
     w = _to(pop, False, lanes)
@@ -276,4 +322,5 @@ def fixpoint_density(topo: Topology, pop: torch.Tensor,
                      epsilon: float = DEFAULT_EPSILON) -> torch.Tensor:
     """Immediate classification of freshly-initialized nets, no dynamics
     (``fixpoint-density.py``).  Returns the (5,) int32 class histogram."""
+    _check_keyless(topo)
     return count_classes(_classify(topo, pop, False, epsilon))

@@ -43,6 +43,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def on_device(x, device, dtype) -> torch.Tensor:
+    """A caller's tensor or array (a numpy array copied: one from a JAX
+    array is read-only) as a contiguous ``dtype`` tensor on ``device``."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.array(x))
+    return torch.as_tensor(x).to(device=device, dtype=dtype).contiguous()
+
+
 def make_generator(seed: SeedLike, device="cuda") -> torch.Generator:
     """A generator on ``device``: an int seeds a new one, a generator is
     checked against the device and returned as is."""

@@ -15,11 +15,14 @@ respawn, last-action-wins events), with the JAX package's typed choices:
   * learn_from: the gate is a slice of one global uniform over n, the
     counterpart is drawn from the learner's OWN type (imitation needs the
     teacher's sample space to match);
-  * learn, train and respawn run per type: through the type's SGD kernel
-    (K2, K4, K5; the weightwise full batch's plain step), the predicates
-    and the fresh select, or, on the fused route, as one launch of the
-    type's generation kernel (K3) with no attack operand (the cross-type
-    attack already ran) and the imitation columns gathered post-attack;
+  * learn, train and respawn run per type: on the type's route
+    (``ops/popmajor.train_route``: its SGD kernel, K2, K4 or K5, inside the
+    kernels' instantiations; the weightwise full batch's hand-derived step;
+    the autograd chains for every other type, so that an elu type sits
+    beside kernel types), the predicates and the fresh select, or, on the
+    fused route, as one launch of the type's generation kernel (K3) with no
+    attack operand (the cross-type attack already ran) and the imitation
+    columns gathered post-attack;
   * respawned uids come in blocks type by type: type t's base is
     ``next_uid`` plus the deaths of the types before it.
 
@@ -38,7 +41,12 @@ Layouts (``layout``):
   * ``'popmajor'``: every type is a (P_t, N_t) lane matrix between
     generations (``evolve_multi`` transposes once per type at entry and
     exit); the recurrent attackers run K6 once per victim type a
-    generation; ``generation_impl`` 'phases' or 'fused'.
+    generation where K6 is instantiated for the pair (``apply_route``),
+    its plain version elsewhere; ``generation_impl`` 'phases' or 'fused',
+    the latter per type where the generation kernel is instantiated for it
+    and the phases elsewhere, as the JAX package falls back per type
+    (``resolved_generation_impl``).  A random shuffler is refused here, as
+    in the JAX package.
 
 The types share ``population_dtype``: weights upcast to float32 at
 generation entry and round once at exit, as in ``soup.py`` (the fused
@@ -61,7 +69,7 @@ from .engine import classify_batch
 from .init import fresh_lanes, init_population, make_generator
 from .nets.cross import cross_apply
 from .ops.cuda_generation import fused_kernel_supported, generation_popmajor
-from .ops.popmajor import DEFAULT_LR
+from .ops.popmajor import DEFAULT_LR, apply_route, resolved_train_impl
 from .ops.popmajor_cross import cross_apply_popmajor
 from .ops.predicates import DEFAULT_EPSILON, count_classes
 from .soup import (SoupConfig, _check_config, _downcast, _event_record,
@@ -73,9 +81,12 @@ from .topology import Topology
 class MultiSoupConfig(NamedTuple):
     """Mixed-soup hyperparameters; the fields of the JAX package's
     ``MultiSoupConfig``, with its defaults ('xla' reads 'plain' here).
-    ``train_impl`` and ``apply_impl`` select nothing (as in ``soup.py``);
-    their 'kernel' spelling is refused by the row-major layout, as the JAX
-    package refuses 'pallas' there."""
+    ``train_impl`` 'plain' routes each type (``resolved_train_impls``);
+    'kernel' asks for the kernels for every type and raises upfront where a
+    type is outside their instantiations.  ``apply_impl`` 'kernel' asks for
+    K6 for every recurrent attacker and victim type.  Their 'kernel'
+    spellings are refused by the row-major layout, as the JAX package
+    refuses 'pallas' there."""
     topos: Tuple[Topology, ...]
     sizes: Tuple[int, ...]
     attacking_rate: float = 0.1
@@ -89,8 +100,8 @@ class MultiSoupConfig(NamedTuple):
     train_mode: str = "sequential"
     layout: str = "rowmajor"            # 'rowmajor' | 'popmajor'
     respawn_draws: str = "perparticle"
-    train_impl: str = "plain"           # selects nothing
-    apply_impl: str = "plain"           # selects nothing
+    train_impl: str = "plain"           # 'plain' | 'kernel' (routes)
+    apply_impl: str = "plain"           # 'plain' | 'kernel' (K6)
     generation_impl: str = "phases"     # 'phases' | 'fused'
     population_dtype: str = "f32"       # 'f32' | 'bf16' | 'int8'
 
@@ -170,9 +181,24 @@ def _check_multi(config: MultiSoupConfig) -> None:
     if any(s < 1 for s in config.sizes):
         raise ValueError(f"every type needs at least one particle, got "
                          f"sizes {config.sizes}")
+    if config.layout == "popmajor" and any(
+            t.shuffler == "random" for t in config.topos):
+        raise ValueError(
+            "layout='popmajor' requires shuffler='not' on every topo "
+            "(per-lane permutation — use layout='rowmajor')")
     for t, topo in enumerate(config.topos):
         _check_config(config.type_config(t)._replace(
             generation_impl=resolved_generation_impl(config, topo)))
+    if config.apply_impl == "kernel":
+        for att in config.topos:
+            for vic in config.topos:
+                if att.variant == "recurrent" and apply_route(
+                        att, vic.num_weights) != "kernel":
+                    raise ValueError(
+                        "apply_impl='kernel' runs every recurrent attack on "
+                        "K6, instantiated for victims of 14, 17 and 20 "
+                        f"weights; a victim of {vic.num_weights} needs "
+                        "apply_impl='plain'")
 
 
 def fused_supported_multi(config: MultiSoupConfig) -> bool:
@@ -187,12 +213,26 @@ def fused_supported_multi(config: MultiSoupConfig) -> bool:
     return True
 
 
+def resolved_train_impls(config: MultiSoupConfig) -> str:
+    """The route each type's train phase takes, as the JAX package's
+    mega_multisoup writes it in its run header
+    (``weightwise=autograd,aggregating=kernel,...``;
+    ``ops/popmajor.resolved_train_impl``), 'fused' for a type that the
+    fused route runs on its generation kernel."""
+    return ",".join(
+        f"{t.variant}=" + ("fused" if resolved_generation_impl(config, t)
+                           == "fused" else resolved_train_impl(
+                               t, config.train_mode, config.train_impl,
+                               config.layout))
+        for t in config.topos)
+
+
 def resolved_generation_impl(config: MultiSoupConfig,
                              topo: Topology) -> str:
     """The generation route type ``topo`` takes: 'fused' where the config
-    asks for it and the generation kernel takes the topology, else
-    'phases' (the port's configs reject a type off that envelope, so a
-    valid fused config runs every type fused)."""
+    asks for it and the generation kernel is instantiated for the topology
+    (``fused_kernel_supported``), else 'phases', per type, as the JAX
+    package falls back (``multisoup.resolved_generation_impl``)."""
     return "fused" if (config.generation_impl == "fused" and
                        fused_kernel_supported(topo, config.train_mode)) \
         else "phases"

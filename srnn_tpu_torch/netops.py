@@ -19,8 +19,10 @@ caller decides where results land, there is no hidden mutation):
 Plus the static helpers ``weights_to_string`` (``network.py:31-41``) and
 ``are_weights_within`` (``network.py:54-62``).  Every operator takes flat
 weights (..., P), a batch of particles along the leading dims.  The JAX
-package's ``key`` argument (``shuffler='random'``) has no counterpart: that
-shuffler is not ported and the transforms raise for it.
+package's ``key`` (``shuffler='random'``) is ``perm=`` (the permutation,
+(..., P), or for ``self_attack`` one per iteration, (iterations, ..., P))
+or ``generator=`` (a ``torch.Generator`` that draws them) here
+(``nets/aggregating.shuffle``).
 """
 
 import torch
@@ -31,40 +33,46 @@ from .topology import Topology
 
 
 def attack(topo: Topology, self_flat: torch.Tensor,
-           other_flat: torch.Tensor) -> torch.Tensor:
+           other_flat: torch.Tensor, perm=None,
+           generator=None) -> torch.Tensor:
     """Self applied to other's weights -> other's NEW weights.
 
     The caller stores the result into the victim's slot, which is what the
     reference's in-place ``other_network.set_weights(...)`` does."""
-    return apply_to_weights(topo, self_flat, other_flat)
+    return apply_to_weights(topo, self_flat, other_flat, perm, generator)
 
 
 def fuck(topo: Topology, self_flat: torch.Tensor,
-         other_flat: torch.Tensor) -> torch.Tensor:
+         other_flat: torch.Tensor, perm=None,
+         generator=None) -> torch.Tensor:
     """Self applied to other's weights -> SELF's new weights
     (the reference's name for absorbing an other, ``network.py:120-122``)."""
-    return apply_to_weights(topo, self_flat, other_flat)
+    return apply_to_weights(topo, self_flat, other_flat, perm, generator)
 
 
 absorb = fuck  # polite alias
 
 
-def self_attack(topo: Topology, flat: torch.Tensor,
-                iterations: int = 1) -> torch.Tensor:
+def self_attack(topo: Topology, flat: torch.Tensor, iterations: int = 1,
+                perm=None, generator=None) -> torch.Tensor:
     """``iterations`` rounds of attacking oneself (``network.py:124-127``).
     The reference re-reads its own (just-updated) weights each round, so
-    iteration i+1 uses the output of iteration i as BOTH net and target."""
+    iteration i+1 uses the output of iteration i as BOTH net and target.
+    ``perm`` holds one permutation per iteration (the JAX package splits
+    its key into ``iterations`` keys)."""
     w = flat
-    for _ in range(iterations):
-        w = apply_to_weights(topo, w, w)
+    for i in range(iterations):
+        w = apply_to_weights(topo, w, w, None if perm is None else perm[i],
+                             generator)
     return w
 
 
 def meet(topo: Topology, self_flat: torch.Tensor,
-         other_flat: torch.Tensor) -> torch.Tensor:
+         other_flat: torch.Tensor, perm=None,
+         generator=None) -> torch.Tensor:
     """Attack a deepcopy of other (``network.py:129-131``): functionally
     identical to :func:`attack`, provided for API parity."""
-    return apply_to_weights(topo, self_flat, other_flat)
+    return apply_to_weights(topo, self_flat, other_flat, perm, generator)
 
 
 def are_weights_within(flat: torch.Tensor, lower: float,

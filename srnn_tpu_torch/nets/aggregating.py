@@ -13,15 +13,23 @@ The JAX package collects and deaggregates with a one-hot matmul, whose
 0.0-weighted out-of-segment terms turn a non-finite weight into NaN in
 every other aggregate (0 * Inf = NaN).  Here both are written as explicit
 multiply-add chains over the one-hot constants, so that the poisoning does
-not hang on a BLAS that skips zero operands.  ``shuffler='random'`` is not
-ported and raises.
+not hang on a BLAS that skips zero operands.
+
+``shuffler='random'`` permutes the deaggregated weights (the functional
+analog of ``shuffle_random``, ``network.py:318-322``): the JAX package's
+``jax.random.permutation(key, flat)`` is ``flat[perm]`` here, with the
+permutation given (``perm=``, (..., P) indices, one per particle) or drawn
+from a ``torch.Generator`` (``generator=``, one permutation per particle).
+Without either it raises the JAX package's ``ValueError``.
 """
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..init import on_device
 from ..ops.mlp import mlp_apply, mlp_forward
 from ..topology import Topology, aggregation_segments
 
@@ -33,11 +41,34 @@ def segment_onehot(topo: Topology) -> np.ndarray:
     return np.eye(topo.aggregates, dtype=np.float32)[seg]
 
 
-def check_shuffler(topo: Topology) -> None:
-    if topo.shuffler != "not":
-        raise ValueError(
-            f"shuffler={topo.shuffler!r} is not ported; srnn_tpu_torch runs "
-            "shuffler='not'")
+def random_perm(generator: torch.Generator, lead, p: int,
+                device) -> torch.Tensor:
+    """One uniform permutation of ``p`` indices per particle, (*lead, p),
+    drawn on the generator's device (argsort of uniforms) and moved to
+    ``device``."""
+    u = torch.rand((*lead, p), generator=generator, device=generator.device)
+    return u.argsort(dim=-1).to(device)
+
+
+def shuffle(topo: Topology, flat: torch.Tensor,
+            perm: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``flat`` (..., P) as it leaves a transform of ``topo``: permuted
+    per particle (``out[..., i] = flat[..., perm[..., i]]``) under
+    ``shuffler='random'``, as it is under 'not'."""
+    if topo.shuffler != "random":
+        return flat
+    if perm is None:
+        if generator is None:
+            raise ValueError("shuffler='random' requires a PRNG key (perm= "
+                             "or generator=)")
+        perm = random_perm(generator, flat.shape[:-1], flat.shape[-1],
+                           flat.device)
+    perm = on_device(perm, flat.device, torch.long)
+    if perm.shape[-1] != flat.shape[-1]:
+        raise ValueError(f"perm must permute the last axis of length "
+                         f"{flat.shape[-1]}, got {tuple(perm.shape)}")
+    return flat.gather(-1, perm.expand(flat.shape))
 
 
 def onehot_chain(x: torch.Tensor, onehot: np.ndarray) -> torch.Tensor:
@@ -84,21 +115,22 @@ def forward(topo: Topology, self_flat: torch.Tensor,
     return mlp_forward(topo, self_flat, x)
 
 
-def deaggregate(topo: Topology, aggs: torch.Tensor) -> torch.Tensor:
+def deaggregate(topo: Topology, aggs: torch.Tensor, perm=None,
+                generator=None) -> torch.Tensor:
     """Replicate (..., k) aggregates back over their collections ->
-    (..., P)."""
-    check_shuffler(topo)
-    return onehot_chain(aggs, segment_onehot(topo).T)
+    (..., P), permuted under ``shuffler='random'`` (``shuffle``)."""
+    return shuffle(topo, onehot_chain(aggs, segment_onehot(topo).T), perm,
+                   generator)
 
 
 def apply(topo: Topology, self_flat: torch.Tensor,
-          target_flat: torch.Tensor) -> torch.Tensor:
+          target_flat: torch.Tensor, perm=None,
+          generator=None) -> torch.Tensor:
     """collect -> aggregate -> one forward -> deaggregate
     (``apply_to_weights``, ``network.py:359-386``)."""
-    check_shuffler(topo)
     aggs = aggregate(topo, target_flat)
     new_aggs = mlp_apply(topo, self_flat, aggs[..., None, :])[..., 0, :]
-    return deaggregate(topo, new_aggs)
+    return deaggregate(topo, new_aggs, perm, generator)
 
 
 def samples(topo: Topology, flat: torch.Tensor):

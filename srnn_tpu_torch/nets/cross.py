@@ -25,8 +25,11 @@ and the CPU; so the row-major mixed soup, like the homogeneous one, is the
 same soup on either device (the fft arm's ``torch.fft`` apart).
 ``cross_apply(t, a, t, v)`` with equal topologies equals
 ``apply_to_weights(t, a, v)`` for every variant but the max aggregators'
-quirk.  ``shuffler='random'`` is not ported and raises.  Every function
-takes flat weights (..., P); leading dims are a batch of particles.
+quirk.  An aggregating or fft attacker with ``shuffler='random'`` permutes
+the victim's new weights (``aggregating.shuffle``: ``perm=``, (...,
+P_victim), or ``generator=``; without either it raises, as the JAX
+package's row-major soup does, which passes no key).  Every function takes
+flat weights (..., P); leading dims are a batch of particles.
 """
 
 import numpy as np
@@ -36,7 +39,7 @@ from ..ops.mlp import mlp_apply
 from ..topology import Topology, segments_for
 from . import recurrent as rnn_mod
 from . import weightwise as ww_mod
-from .aggregating import check_shuffler, onehot_chain
+from .aggregating import onehot_chain, shuffle
 
 
 def cross_aggregate(attacker: Topology,
@@ -58,10 +61,10 @@ def cross_aggregate(attacker: Topology,
 
 
 def cross_apply(attacker: Topology, attacker_flat: torch.Tensor,
-                victim: Topology, victim_flat: torch.Tensor) -> torch.Tensor:
+                victim: Topology, victim_flat: torch.Tensor, perm=None,
+                generator=None) -> torch.Tensor:
     """The attacker's transform applied to the victim's weights; returns
     the victim's new (..., P_victim) weights."""
-    check_shuffler(attacker)
     p_vic = victim_flat.shape[-1]
     if attacker.variant == "weightwise":
         pts = ww_mod.points(victim, victim_flat)
@@ -70,15 +73,15 @@ def cross_apply(attacker: Topology, attacker_flat: torch.Tensor,
         aggs = cross_aggregate(attacker, victim_flat)
         new = mlp_apply(attacker, attacker_flat, aggs[..., None, :])
         seg, _ = segments_for(p_vic, attacker.aggregates)
-        return new[..., 0, torch.as_tensor(seg, dtype=torch.long,
-                                           device=new.device)]
+        return shuffle(attacker, new[..., 0, torch.as_tensor(
+            seg, dtype=torch.long, device=new.device)], perm, generator)
     if attacker.variant == "fft":
         src = victim_flat if attacker.fft_use_target else attacker_flat
         coeffs = torch.fft.fft(src, n=attacker.aggregates).real.to(
             victim_flat.dtype)
         new = mlp_apply(attacker, attacker_flat, coeffs[..., None, :])
-        return torch.fft.ifft(new[..., 0, :], n=p_vic).real.to(
-            victim_flat.dtype)
+        return shuffle(attacker, torch.fft.ifft(new[..., 0, :], n=p_vic)
+                       .real.to(victim_flat.dtype), perm, generator)
     if attacker.variant == "recurrent":
         return rnn_mod.forward(attacker, attacker_flat,
                                victim_flat[..., None])[..., 0]

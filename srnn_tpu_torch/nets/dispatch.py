@@ -3,9 +3,12 @@
 
 Every variant has the same surface:
 
-  ``apply_to_weights(topo, self_flat, target_flat) -> new_target``
+  ``apply_to_weights(topo, self_flat, target_flat, perm=None,
+  generator=None) -> new_target``
       the self-application operator (reference ``apply_to_weights``,
-      ``network.py:265/359/494/544``);
+      ``network.py:265/359/494/544``); ``perm`` / ``generator`` stand in
+      for the JAX package's ``key`` (``shuffler='random'``,
+      ``aggregating.shuffle``);
   ``compute_samples(topo, flat) -> (x, y)``
       the self-training data (reference ``compute_samples``).
 """
@@ -20,8 +23,10 @@ _MODULES = {
 }
 
 
-def apply_to_weights(topo, self_flat, target_flat):
-    return _MODULES[topo.variant].apply(topo, self_flat, target_flat)
+def apply_to_weights(topo, self_flat, target_flat, perm=None,
+                     generator=None):
+    return _MODULES[topo.variant].apply(topo, self_flat, target_flat, perm,
+                                        generator)
 
 
 def compute_samples(topo, flat):

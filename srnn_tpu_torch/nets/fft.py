@@ -13,14 +13,15 @@ package's deliberate choices:
 
 The forward transform truncates to k coefficients (``fft(flat, n=k)``), the
 inverse expands back to P samples: a low-pass reconstruction.
-``shuffler='random'`` is not ported and raises.
+``shuffler='random'`` permutes the output per particle, as
+``aggregating.shuffle`` says (``perm=`` or ``generator=``).
 """
 
 import torch
 
 from ..ops.mlp import mlp_apply, mlp_forward
 from ..topology import Topology
-from .aggregating import check_shuffler
+from .aggregating import shuffle
 
 
 def coefficients(topo: Topology, flat: torch.Tensor) -> torch.Tensor:
@@ -41,10 +42,10 @@ def forward(topo: Topology, self_flat: torch.Tensor,
 
 
 def apply(topo: Topology, self_flat: torch.Tensor,
-          target_flat: torch.Tensor) -> torch.Tensor:
+          target_flat: torch.Tensor, perm=None,
+          generator=None) -> torch.Tensor:
     """FFT -> one forward over k coefficients -> inverse FFT to P weights
     (``apply_to_weights``, ``network.py:494-516``)."""
-    check_shuffler(topo)
     src = target_flat if topo.fft_use_target else self_flat
     coeffs = coefficients(topo, src)
     new = mlp_apply(topo, self_flat, coeffs[..., None, :])[..., 0, :]
@@ -52,7 +53,7 @@ def apply(topo: Topology, self_flat: torch.Tensor,
         out = torch.fft.irfft(new, n=topo.num_weights)
     else:
         out = torch.fft.ifft(new, n=topo.num_weights).real
-    return out.to(target_flat.dtype)
+    return shuffle(topo, out.to(target_flat.dtype), perm, generator)
 
 
 def samples(topo: Topology, flat: torch.Tensor):

@@ -30,9 +30,12 @@ def points(topo: Topology, target_flat: torch.Tensor) -> torch.Tensor:
 
 
 def apply(topo: Topology, self_flat: torch.Tensor,
-          target_flat: torch.Tensor) -> torch.Tensor:
+          target_flat: torch.Tensor, perm=None,
+          generator=None) -> torch.Tensor:
     """Self-application: rewrite every target weight via the net
-    (``apply_to_weights``, ``network.py:265-279``)."""
+    (``apply_to_weights``, ``network.py:265-279``); ``perm`` and
+    ``generator`` are not read (no shuffler acts here, as in the JAX
+    package)."""
     return mlp_apply(topo, self_flat, points(topo, target_flat))[..., 0]
 
 

@@ -28,15 +28,15 @@ from typing import Tuple
 import torch
 
 from ..topology import Topology
-from .activations import KERNEL_ACT_CODES, output_grad_activations
+from .activations import KERNEL_ACT_CODES
 from .cuda_kvec_train import (REDUCE_CODES, kvec_apply_rows_plain,
                               kvec_sgd_chain_plain, kvec_tables,
                               reduce_kind, reduce_rows_plain)
 from .cuda_rnn_train import rnn_apply_rows_plain, rnn_sgd_chain_plain
 from .cuda_sgd_common import (_F, _I, _LL, _P, LaneKernel,
                               check_kernel_topology, check_lanes,
-                              check_variant, coords_arg, is_cpu, ptr,
-                              stream_arg, topo_args)
+                              check_variant, coords_arg, is_cpu,
+                              kernel_supported, ptr, stream_arg, topo_args)
 from .cuda_ww_train import apply_rows_plain, sgd_chain_plain
 
 _REPLACES = "srnn_tpu/ops/pallas_generation.py:382"
@@ -83,12 +83,13 @@ _PLAIN_BODIES = {
 
 def fused_kernel_supported(topo: Topology, train_mode: str) -> bool:
     """Can this topology's generation run as the fused generation?  The
-    JAX package's envelope (``pallas_generation.fused_kernel_supported``):
-    an output-expressible activation, up to 64 weights, no random
-    shuffler, and the sequential train mode for the weightwise variant."""
-    if topo.activation not in output_grad_activations():
-        return False
-    if topo.num_weights > 64:
+    JAX package's envelope (``pallas_generation.fused_kernel_supported``:
+    an output-expressible activation, no random shuffler, and the
+    sequential train mode for the weightwise variant) within the
+    instantiations of the generation kernels (width 2, depth 2, 4
+    aggregates; ``cuda_sgd_common.kernel_supported``), decided alike on
+    either device."""
+    if not kernel_supported(topo):
         return False
     if topo.variant == "weightwise" and train_mode != "sequential":
         return False
@@ -175,6 +176,9 @@ def generation_popmajor(topo: Topology, wT, freshT, attackerT=None,
     bool, dead_zero (N,) bool)``.
     """
     check_variant(topo, "weightwise", "aggregating", "fft", "recurrent")
+    if topo.shuffler == "random":
+        raise ValueError("the generation's attack takes no permutation: "
+                         "shuffler='random' needs the row-major soup")
     if severity < 0 or train < 0:
         raise ValueError("severity and train must be >= 0")
     learn = otherT is not None and severity > 0

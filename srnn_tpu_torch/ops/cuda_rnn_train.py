@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..topology import Topology
-from .activations import resolve_activation, resolve_output_grad
+from .activations import resolve_layer_activation, resolve_output_grad
 from .cuda_sgd_common import (_I, _P, SGD_HEAD, KERNEL_ACT_CODES, LaneKernel,
                               check_lanes, check_variant, is_cpu, lane_call)
 
@@ -42,7 +42,7 @@ def rnn_forward_rows_plain(topo: Topology, rows: Sequence[torch.Tensor],
     ``rows`` the net's P parameter rows, ``x_rows`` the length-T input
     sequence.  Returns every layer's output sequence, ``seqs[0]`` the input
     and ``seqs[-1][t][0]`` the prediction at step t."""
-    act = resolve_activation(topo.activation)
+    act = resolve_layer_activation(topo.activation)
     t_len = len(x_rows)
     seqs = [[[x_rows[t]] for t in range(t_len)]]
     for layer, (ind, units) in enumerate(topo.rnn_layer_dims):
@@ -52,14 +52,15 @@ def rnn_forward_rows_plain(topo: Topology, rows: Sequence[torch.Tensor],
         out = []
         h = [torch.zeros_like(rows[0])] * units  # explicit zero h_{-1}
         for t in range(t_len):
-            nxt = []
+            accs = []
             for u in range(units):
                 acc = inp[t][0] * rows[ko + u]
                 for i in range(1, ind):
                     acc = acc + inp[t][i] * rows[ko + i * units + u]
                 for v in range(units):
                     acc = acc + h[v] * rows[ro + v * units + u]
-                nxt.append(act(acc))
+                accs.append(acc)
+            nxt = act(accs)
             out.append(nxt)
             h = nxt
         seqs.append(out)

@@ -77,8 +77,10 @@ def is_cpu(t: torch.Tensor) -> bool:
 
 def check_variant(topo: Topology, *variants: str) -> None:
     """Raise unless ``topo`` is one of ``variants`` with an activation the
-    hand-derived chains can differentiate, and with the options the port
-    has (no random shuffler, the serial RNN scan)."""
+    hand-derived chains can differentiate.  (The SGD chains read no
+    deaggregation, so they take a random shuffler; the recurrent ones run
+    the serial scan, which is the population-major layout's for either
+    ``rnn_scan``, as in the JAX package.)"""
     if topo.variant not in variants:
         raise ValueError(
             f"variant {topo.variant!r} does not run on this kernel; it takes "
@@ -87,10 +89,16 @@ def check_variant(topo: Topology, *variants: str) -> None:
         raise ValueError(
             f"activation {topo.activation!r} has no output-expressible "
             f"derivative; the kernels take {sorted(KERNEL_ACT_CODES)}")
-    if topo.shuffler != "not":
-        raise ValueError(f"shuffler={topo.shuffler!r} is not ported")
-    if topo.variant == "recurrent" and topo.rnn_scan != "sequential":
-        raise ValueError(f"rnn_scan={topo.rnn_scan!r} is not ported")
+
+
+def kernel_supported(topo: Topology) -> bool:
+    """Are the CUDA templates instantiated for ``topo`` (its activation,
+    width, depth and, for the k-vector variants, aggregates)?"""
+    try:
+        check_kernel_topology(topo)
+    except ValueError:
+        return False
+    return True
 
 
 def check_kernel_topology(topo: Topology) -> None:

@@ -13,12 +13,12 @@ the CUDA kernels use (``pallas_generation._mlp_rows``).  Every plain
 version of a kernel forwards through it, so they all round alike.
 """
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .activations import resolve_activation
+from .activations import resolve_activation, resolve_layer_activation
 from .flatten import unflatten
 
 
@@ -55,17 +55,17 @@ def mlp_rows_plain(topo, rows: Sequence[torch.Tensor],
     (N,)), ``feats`` the input features (each broadcasting against a row).
     Returns every layer's activations, the input features first, so that a
     backward pass can read them; ``[-1][0]`` is the net's output."""
-    act = resolve_activation(topo.activation)
+    act = resolve_layer_activation(topo.activation)
     layers = [list(feats)]
     for (a, b), o in zip(topo.layer_shapes, topo.offsets):
         h = layers[-1]
-        nxt = []
+        accs = []
         for j in range(b):
             acc = h[0] * rows[o + j]
             for i in range(1, a):
                 acc = acc + h[i] * rows[o + i * b + j]
-            nxt.append(act(acc))
-        layers.append(nxt)
+            accs.append(acc)
+        layers.append(act(accs))
     return layers
 
 
@@ -74,3 +74,20 @@ def point_features(coords: np.ndarray, s: int,
     """The features of duplex point ``s``: its weight ``x`` and the three
     normalised coordinates ``coords[s]``, each filled out like ``x``."""
     return [x] + [torch.full_like(x, float(coords[s, k])) for k in range(3)]
+
+
+def step_features(coords: np.ndarray, snap: Sequence[torch.Tensor], s: int,
+                  order: Optional[torch.Tensor] = None,
+                  snapT: Optional[torch.Tensor] = None):
+    """The weight feature x and the input features of step ``s`` of a
+    batch-1 epoch over the snapshot ``snap`` (P rows, each (N,)): sample s
+    (``point_features``), or, in a shuffled epoch, sample ``order[n]`` of
+    each lane n (``order`` the step's (N,) sample indices, ``snapT`` the
+    snapshot stacked (P, N)), its coordinates gathered per lane.  Returns
+    (x, features)."""
+    if order is None:
+        return snap[s], point_features(coords, s, snap[s])
+    idx = order.long()
+    x = snapT.gather(0, idx[None])[0]
+    table = torch.as_tensor(coords, dtype=x.dtype, device=x.device)
+    return x, [x] + [table[:, k][idx] for k in range(3)]

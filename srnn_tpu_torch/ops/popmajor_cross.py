@@ -24,14 +24,15 @@ constants taken from the victim side, decision for decision as in
     victims of length 14, 17 and 20.
 
 The weightwise, aggregating and fft arms are plain torch, as they are XLA
-in the JAX package (it has no kernel for them).  ``shuffler='random'`` is
-not ported and raises.
+in the JAX package (it has no kernel for them).  ``shuffler='random'``
+stays row-major-only, as in the JAX package: a per-particle permutation is
+a per-lane gather, and an attacker with it raises here (the
+population-major soups refuse it upfront).
 """
 
 import numpy as np
 import torch
 
-from ..nets.aggregating import check_shuffler
 from ..topology import Topology, segments_for
 from .popmajor import apply_popmajor, ww_forward_popmajor
 from .popmajor_kvec import onehot_rows, mlp_forward_lanes
@@ -68,12 +69,19 @@ def _fft_cross(att: Topology, selfT: torch.Tensor,
         targetT.dtype).contiguous()
 
 
+def _check_lane_capable(att: Topology) -> None:
+    if att.shuffler == "random":
+        raise ValueError(
+            "shuffler='random' is a per-lane permutation — use the "
+            "row-major multisoup layout")
+
+
 def cross_apply_popmajor(att: Topology, selfT: torch.Tensor, vic: Topology,
                          targetT: torch.Tensor) -> torch.Tensor:
     """Attacker n (parameters ``selfT[:, n]``, (P_att, N)) rewrites victim
     n (``targetT[:, n]``, (P_vic, N)); returns the victims' new (P_vic, N)
     weights."""
-    check_shuffler(att)
+    _check_lane_capable(att)
     if att.variant == "weightwise":
         return ww_forward_popmajor(att, selfT, targetT, coords_of=vic)
     if att.variant == "aggregating":

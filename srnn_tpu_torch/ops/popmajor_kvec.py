@@ -16,10 +16,12 @@ coefficients) and an expand (k outputs -> P weights):
 Self-training has ONE sample per epoch (x = y = the k-vector,
 ``network.py:414-417``/``:518-521``), so a batch-1 epoch is one full-batch
 step and 'sequential' and 'full_batch' are the same program.  The
-gradients here come from autograd: this module is the independent oracle
-that the tests hold the hand-derived chain of K4 (``cuda_kvec_train``)
-against; the soup runs it only for the attack of the phase chain
-(``kvec_apply_popmajor``).
+gradients here come from autograd: this module is the autograd route of
+the k-vector particles K4 is not instantiated for
+(``popmajor.train_route``: another activation, width, depth or
+aggregates), on either device, and the independent oracle that the tests
+hold the hand-derived chain of K4 (``cuda_kvec_train``) against; the soup
+also runs its attack (``kvec_apply_popmajor``) in the phase chain.
 """
 
 from typing import Optional, Tuple

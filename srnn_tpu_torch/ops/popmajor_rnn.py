@@ -10,16 +10,22 @@ batch-1 epoch is one full-batch step and 'sequential' and 'full_batch' are
 the same program.
 
 The gradients here come from autograd through the time loop: this module
-is the independent oracle that the tests hold the hand-derived BPTT of K5
-(``cuda_rnn_train``) against; no route of the soup runs it.
+is the autograd route of the recurrent particles K5 is not instantiated
+for (``popmajor.train_route``), on either device, and the independent
+oracle that the tests hold the hand-derived BPTT of K5
+(``cuda_rnn_train``) against.  With ``scan='associative'`` (a row-major
+particle with ``rnn_scan='associative'``, whose JAX train differentiates
+through the associative forward) the forward is the row-major transform's
+associative scan (``nets/recurrent.py``) on the lanes' transpose.
 """
 
 from typing import Optional, Tuple
 
 import torch
 
+from ..nets import recurrent
 from ..topology import Topology
-from .activations import resolve_activation
+from .activations import resolve_layer_activation
 
 DEFAULT_LR = 0.01  # keras SGD default
 
@@ -31,7 +37,7 @@ def rnn_forward_popmajor(topo: Topology, wT: torch.Tensor,
     h_t = act(x_t @ K + h_{t-1} @ R), K[i, u] at flat ``ko + i*units + u``
     and R[v, u] at ``ro + v*units + u``.  Returns the last layer's (T, N)
     output sequence."""
-    act = resolve_activation(topo.activation)
+    act = resolve_layer_activation(topo.activation)
     x = [[row] for row in xT.unbind(0)]  # (T, in = 1) lane vectors
     for layer, (ind, units) in enumerate(topo.rnn_layer_dims):
         ko = topo.offsets[2 * layer]
@@ -39,28 +45,40 @@ def rnn_forward_popmajor(topo: Topology, wT: torch.Tensor,
         h = [torch.zeros_like(xT[0])] * units
         out = []
         for x_t in x:
-            nxt = []
+            accs = []
             for u in range(units):
                 acc = x_t[0] * wT[ko + u]
                 for i in range(1, ind):
                     acc = acc + x_t[i] * wT[ko + i * units + u]
                 for v in range(units):
                     acc = acc + h[v] * wT[ro + v * units + u]
-                nxt.append(act(acc))
+                accs.append(acc)
+            nxt = act(accs)
             out.append(nxt)
             h = nxt
         x = out
     return torch.stack([x_t[0] for x_t in x])
 
 
-def _epoch_grad(topo: Topology, wT: torch.Tensor,
-                xT: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _forward(topo: Topology, wT: torch.Tensor, xT: torch.Tensor,
+             scan: str) -> torch.Tensor:
+    """The (T, N) prediction: the serial lane scan, or the row-major
+    associative scan on the transpose."""
+    if scan == "associative":
+        return recurrent.forward(topo, wT.t(), xT.t()[..., None])[..., 0].t()
+    if scan != "sequential":
+        raise ValueError(f"unknown rnn scan {scan!r}")
+    return rnn_forward_popmajor(topo, wT, xT)
+
+
+def _epoch_grad(topo: Topology, wT: torch.Tensor, xT: torch.Tensor,
+                scan: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """One MSE-SGD gradient on the single sequence sample x = y = ``xT``
     (T, N).  Returns (grads, per-particle pre-update loss (N,))."""
     xT = xT.detach()
     wi = wT.detach().requires_grad_(True)
     with torch.enable_grad():
-        pred = rnn_forward_popmajor(topo, wi, xT)
+        pred = _forward(topo, wi, xT, scan)
         per_particle = ((pred - xT) ** 2).mean(dim=0)
         (grads,) = torch.autograd.grad(per_particle.sum(), wi)
     return grads, per_particle.detach()
@@ -72,30 +90,33 @@ def _check_mode(mode: str) -> None:
 
 
 def _epochs(topo: Topology, wT: torch.Tensor, epochs: int, lr: float,
-            fixed_xT: Optional[torch.Tensor]):
+            fixed_xT: Optional[torch.Tensor], scan: str):
     w = wT.detach()
     last = torch.zeros(wT.shape[1], dtype=wT.dtype, device=wT.device)
     for _ in range(epochs):
-        grads, last = _epoch_grad(topo, w, w if fixed_xT is None else fixed_xT)
+        grads, last = _epoch_grad(topo, w, w if fixed_xT is None else fixed_xT,
+                                  scan)
         w = w - lr * grads
     return w, last
 
 
 def rnn_train_epochs_popmajor(topo: Topology, wT: torch.Tensor, epochs: int,
                               lr: float = DEFAULT_LR,
-                              mode: str = "sequential"):
+                              mode: str = "sequential",
+                              scan: str = "sequential"):
     """``epochs`` self-training calls, the sample sequence re-snapshotted
     from the CURRENT weights before every epoch (``network.py:613-618``).
     Returns (new_wT, last epoch per-particle loss (N,))."""
     _check_mode(mode)
-    return _epochs(topo, wT, max(epochs, 0), lr, None)
+    return _epochs(topo, wT, max(epochs, 0), lr, None, scan)
 
 
 def rnn_learn_epochs_popmajor(topo: Topology, wT: torch.Tensor,
                               otherT: torch.Tensor, severity: int,
                               lr: float = DEFAULT_LR,
-                              mode: str = "sequential"):
+                              mode: str = "sequential",
+                              scan: str = "sequential"):
     """``severity`` imitation epochs toward the counterparts' sequence,
     fixed across the call (``network.py:620-626``)."""
     _check_mode(mode)
-    return _epochs(topo, wT, max(severity, 0), lr, otherT.detach())
+    return _epochs(topo, wT, max(severity, 0), lr, otherT.detach(), scan)

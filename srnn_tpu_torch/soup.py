@@ -11,20 +11,18 @@ phase.  All particles step together from the start-of-phase state; attack
 collisions resolve last-attacker-wins, as in the JAX package.
 
 Scope of this port: all four variants (weightwise, aggregating, fft,
-recurrent), full-width phases, the three population dtypes
-(``population_dtype`` 'f32' | 'bf16' | 'int8'), ``mode='parallel'`` in
-either layout below, and ``mode='sequential'``:
+recurrent) with every activation, width, depth and aggregates, either
+``rnn_scan`` and, row-major, either shuffler; full-width phases, the three
+population dtypes (``population_dtype`` 'f32' | 'bf16' | 'int8'),
+``mode='parallel'`` in either layout below, and ``mode='sequential'``:
 
   * ``layout='rowmajor'`` (the default, as in the JAX package): the
     population stays (N, P) between generations.  The attack is the
     row-major transform (``nets.dispatch.apply_to_weights``, plain torch,
     every variant; its nets run as explicit multiply-add chains,
     ``ops/mlp.mlp_apply``, which round alike on the card and the CPU);
-    learn_from and self-training run on the variant's SGD
-    kernel over the (P, N) transpose (``train.py``'s route: K2
-    weightwise, K4 aggregating/fft, K5 recurrent; the weightwise
-    ``'full_batch'`` takes ``ops/popmajor.ww_full_batch_epochs``, plain
-    torch).  A state may carry a leading trial axis -- B soups side by
+    learn_from and self-training run over the (P, N) transpose on the
+    particle's route (``train.py``'s, below).  A state may carry a leading trial axis -- B soups side by
     side, each with its own generator (``stack``) -- and then one kernel
     launch per phase per generation serves all of them.
   * ``layout='popmajor'``: the population is held (P, N), in either train
@@ -40,17 +38,34 @@ either layout below, and ``mode='sequential'``:
     particle seeing every change the particles before it made this
     generation.  Particle i's attack overwrites its victim's row with the
     row-major transform; its learn_from and training run on its own row as
-    one lane of the variant's SGD kernel ((P, 1): one launch per learner
-    and one per particle a generation); it respawns from its own fresh row
+    one lane (P, 1) on its route (on the variant's SGD kernel: one launch
+    per learner and one per particle a generation); it respawns from its
+    own fresh row
     and the next uid.  The generation's draws (``SoupDraws``, read particle
     by particle) depend on no state, so they are made up front and read on
     the host once a generation.
 
-Any other setting raises.  The population's device picks the route inside
-each kernel's wrapper: CUDA tensors launch the kernels, CPU tensors run
-their plain versions.  ``train_impl`` and ``apply_impl`` ('plain' |
-'kernel', the JAX package's 'xla' | 'pallas') are kept so that the JAX
-package's configs convert; they select nothing here.
+Routes (``ops/popmajor.train_route``, decided from the configuration
+before any launch): the learn_from and train phases run on the variant's
+SGD kernel (K2 weightwise, K4 aggregating/fft, K5 recurrent) for the
+particles the kernels are instantiated for (an output-expressible
+activation, width 2, depth 2, 4 aggregates), on the weightwise full
+batch's hand-derived step (``ops/popmajor.ww_full_batch_epochs``), or on
+the autograd chains (elu, softmax, swish, gelu; other widths, depths and
+aggregates; row-major ``rnn_scan='associative'``, whose JAX train
+differentiates through the associative forward).  The population's device
+picks the side inside each kernel's wrapper: CUDA tensors launch the
+kernels, CPU tensors run their plain versions; nothing gives way to a plain
+version at run time.  ``train_impl`` ('plain' | 'kernel', the JAX
+package's 'xla' | 'pallas'): 'plain' (the default) takes those routes;
+'kernel' asks for the kernels and raises upfront for a particle outside
+their instantiations, and in the row-major layout, as the JAX package's
+'pallas' does.  ``apply_impl`` 'kernel' asks for K6 for the
+population-major recurrent attack (raising where K6 has no instantiation
+for the particle) and selects nothing elsewhere; the recurrent attack
+takes K6 under 'plain' too, where it is instantiated.  A random shuffler needs the
+row-major layout (the JAX package's refusal); its row-major attack passes
+no permutation, so it raises where the JAX package's does.
 
 On the CPU the row-major weightwise and aggregating soups equal the
 population-major phase chain bitwise: their transforms agree bitwise and
@@ -82,16 +97,17 @@ over the JAX package's own draws.
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from .engine import classify_batch
 from .init import (fresh_lanes, init_population, make_generator,
                    resolve_device)
+from .init import on_device as _on
 from .nets.dispatch import apply_to_weights
 from .ops.cuda_generation import fused_kernel_supported, generation_popmajor
-from .ops.popmajor import (DEFAULT_LR, apply_popmajor, check_train_mode,
-                           learn_epochs_popmajor, train_epochs_popmajor)
+from .ops.popmajor import (DEFAULT_LR, apply_popmajor, apply_route,
+                           check_train_mode, learn_epochs_popmajor,
+                           resolved_train_impl, train_epochs_popmajor)
 from .ops.predicates import (DEFAULT_EPSILON, count_classes, is_diverged,
                              is_zero)
 from .topology import Topology
@@ -121,10 +137,10 @@ class SoupConfig(NamedTuple):
     mode: str = "parallel"
     layout: str = "rowmajor"            # 'rowmajor' | 'popmajor'
     respawn_draws: str = "perparticle"  # 'perparticle' | 'fused': one law
-    train_impl: str = "kernel"          # accepted, selects nothing
+    train_impl: str = "plain"           # 'plain' | 'kernel' (routes)
     attack_impl: str = "full"
     learn_from_impl: str = "full"
-    apply_impl: str = "plain"           # accepted, selects nothing
+    apply_impl: str = "plain"           # 'plain' | 'kernel' (K6)
     generation_impl: str = "phases"     # 'phases' | 'fused'
     population_dtype: str = "f32"
 
@@ -257,7 +273,8 @@ def seed(config: SoupConfig, seed, device="cuda") -> SoupState:
 
 def _check_config(config: SoupConfig) -> None:
     """The JAX package's ``_evolve_step`` checks (``soup.py:945-982``) and
-    ``_check_popmajor``, plus the limits of this port."""
+    ``_check_popmajor``, with the kernels' instantiations as the envelope
+    of 'kernel' and of the fused generation."""
     if config.layout not in ("rowmajor", "popmajor"):
         raise ValueError(f"unknown soup layout {config.layout!r}")
     rowmajor = config.layout == "rowmajor"
@@ -292,33 +309,43 @@ def _check_config(config: SoupConfig) -> None:
                 "popmajor layout; layout='rowmajor' needs 'full'")
         raise ValueError(f"{field}={getattr(config, field)!r} is not "
                          "ported; srnn_tpu_torch runs 'full'")
-    if config.topo.shuffler == "random":
-        raise ValueError(f"layout={config.layout!r} requires shuffler='not' "
-                         "(shuffler='random' is not ported)")
-    if config.topo.variant == "recurrent" and \
-            config.topo.rnn_scan != "sequential":
-        raise ValueError(f"rnn_scan={config.topo.rnn_scan!r} is not ported; "
-                         "srnn_tpu_torch runs the serial scan")
-    check_train_mode(config.topo, config.train_mode)
+    topo = config.topo
+    if not rowmajor and topo.shuffler == "random":
+        raise ValueError(
+            "layout='popmajor' requires shuffler='not': a per-particle "
+            "random permutation of the weight axis is a per-lane gather "
+            "that defeats the lane layout — use layout='rowmajor'")
+    check_train_mode(topo, config.train_mode)
     if config.respawn_draws not in ("perparticle", "fused"):
         raise ValueError(f"unknown respawn_draws {config.respawn_draws!r}")
     for field in ("train_impl", "apply_impl"):
         if getattr(config, field) not in ("plain", "kernel"):
             raise ValueError(f"unknown {field} {getattr(config, field)!r}")
-    # the kernels' envelope; the weightwise full batch runs no kernel, but
-    # its activation is fenced like the sequential one's
-    if not fused_kernel_supported(config.topo, "sequential"):
+    if rowmajor and config.train_impl == "kernel":
         raise ValueError(
-            "the soup's kernels need an activation with an "
-            "output-expressible derivative (linear/sigmoid/tanh/relu) and "
-            f"at most 64 weights; got {config.topo.activation!r}, "
-            f"P={config.topo.num_weights}")
+            "train_impl='kernel' is the popmajor lane kernel; "
+            "layout='rowmajor' needs train_impl='plain'")
+    resolved_train_impl(topo, config.train_mode, config.train_impl,
+                        config.layout)
+    if (not rowmajor and config.apply_impl == "kernel"
+            and topo.variant == "recurrent" and apply_route(topo) != "kernel"):
+        raise ValueError(
+            "apply_impl='kernel' runs the recurrent attack on its kernel "
+            "(K6), instantiated for an output-expressible activation, "
+            "width 2 and depth 2; this config "
+            f"(activation={topo.activation!r}, width={topo.width}, "
+            f"depth={topo.depth}) needs apply_impl='plain'")
     if config.generation_impl == "fused" and not fused_kernel_supported(
-            config.topo, config.train_mode):
+            topo, config.train_mode):
         raise ValueError(
-            "generation_impl='fused' fuses the weightwise variant's "
-            "sequential (batch-1) chain only; train_mode="
-            f"{config.train_mode!r} needs generation_impl='phases'")
+            "generation_impl='fused' fuses the whole generation on the "
+            "generation kernel, instantiated for an output-expressible "
+            "activation (linear/sigmoid/tanh/relu), width 2, depth 2, 4 "
+            "aggregates and shuffler='not' (the weightwise variant "
+            "additionally needs train_mode='sequential'); this config "
+            f"(variant={topo.variant!r}, activation={topo.activation!r}, "
+            f"train_mode={config.train_mode!r}, P={topo.num_weights}) "
+            "needs generation_impl='phases'")
 
 
 def draw(config: SoupConfig, gen: torch.Generator,
@@ -335,12 +362,6 @@ def draw(config: SoupConfig, gen: torch.Generator,
     return SoupDraws(*(t.to(device) for t in (
         u_att < config.attacking_rate, t_att,
         u_lrn < config.learn_from_rate, t_lrn, fresh)))
-
-
-def _on(x, device, dtype) -> torch.Tensor:
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.array(x))  # a copy: the caller's may be read-only
-    return x.to(device=device, dtype=dtype).contiguous()
 
 
 def _resolve_draws(config: SoupConfig, gen: torch.Generator, device,
@@ -449,11 +470,12 @@ def _learn_train_respawn(config, topo: Topology, wT, fresh, learn_gate,
     if config.learn_from_rate > 0 and config.learn_from_severity > 0:
         learned, _ = learn_epochs_popmajor(
             topo, wT, wT[:, learn_tgt], config.learn_from_severity,
-            config.lr, config.train_mode)
+            config.lr, config.train_mode, layout=config.layout)
         wT = torch.where(learn_gate[None, :], learned, wT)
     if config.train > 0:
         wT, train_loss = train_epochs_popmajor(
-            topo, wT, config.train, config.lr, config.train_mode)
+            topo, wT, config.train, config.lr, config.train_mode,
+            layout=config.layout)
     else:
         train_loss = torch.zeros(n, dtype=wT.dtype, device=dev)
     none = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -575,7 +597,8 @@ def _rowmajor_generation(config: SoupConfig, state: SoupState,
             other = rows[learn_tgt + off]
             learned, _ = learn_epochs_popmajor(
                 topo, rows.t().contiguous(), other.t().contiguous(),
-                config.learn_from_severity, config.lr, config.train_mode)
+                config.learn_from_severity, config.lr, config.train_mode,
+                layout="rowmajor")
             rows = torch.where(learn_gate[:, None], learned.t(), rows)
     else:
         learn_gate, learn_tgt = none, zero_tgt
@@ -645,11 +668,12 @@ def _evolve_sequential(config: SoupConfig, state: SoupState,
             t = teachers[i]
             wT, _ = learn_epochs_popmajor(
                 topo, wT.contiguous(), w[t][:, None].contiguous(),
-                config.learn_from_severity, config.lr, config.train_mode)
+                config.learn_from_severity, config.lr, config.train_mode,
+                layout="rowmajor")
         if config.train > 0:
             wT, loss_i = train_epochs_popmajor(
                 topo, wT.contiguous(), config.train, config.lr,
-                config.train_mode)
+                config.train_mode, layout="rowmajor")
             loss[i:i + 1] = loss_i
         if config.remove_divergent:
             dead_div[i:i + 1] = is_diverged(wT, axis=0)

@@ -3,9 +3,10 @@
 The port's own copy of ``srnn_tpu/topology.py`` (numpy only; importing the
 JAX package would load its engine).  Its tables -- ``layer_shapes``,
 ``offsets``, ``weight_coords``, ``normalized_weight_coords`` -- are held
-equal to the JAX package's by ``tests/test_torch_topology.py``.  Fields that
-only the JAX package's paths read (``precision``, ``rnn_scan``) are kept so
-that a JAX ``Topology`` converts field for field (``convert.py``).
+equal to the JAX package's by ``tests/test_torch_topology.py``.  The field
+that only the JAX package's paths read (``precision``: the port's float32
+products run in full float32) is kept so that a JAX ``Topology`` converts
+field for field (``convert.py``).
 
 A *topology* captures everything shape-related about one network variant so
 that a particle's parameters can live as a single flat ``(P,)`` vector.  This

@@ -16,59 +16,69 @@ Reference semantics (``TrainingNeuralNetworkDecorator``,
 Every function takes a single net ``(P,)`` or a batch ``(N, P)`` and gives
 back the same shape, with a scalar or ``(N,)`` loss.
 
-Routes:
-  * ``'sequential'`` (the default) self-training and ``learn_from`` go to
-    the population-major dispatch (``ops/popmajor.train_epochs_popmajor``
-    / ``learn_epochs_popmajor``) on the ``(P, N)`` transpose: on a CUDA
-    tensor the variant's SGD kernel (K2 weightwise, K4 aggregating/fft, K5
-    recurrent), on a CPU tensor its plain chain.
-  * ``'full_batch'``: one gradient step on the mean loss over the samples
-    (a documented deviation).  The aggregating, fft and recurrent variants
-    have one sample per epoch, so there it is the sequential program and
-    takes the same kernels; the weightwise variant takes the
-    population-major full-batch step on the transpose
-    (``ops/popmajor.ww_full_batch_epochs``: the hand-derived gradient in
-    plain torch, which no kernel computes and which rounds alike on the
-    card and the CPU), or, for an activation without an output-expressible
-    derivative, one autograd step on the rows, as the JAX package's
-    ``jax.value_and_grad`` does.  For a batch the gradient of the summed
-    per-net losses is each net's own gradient.
-  * ``fit_epoch`` on an arbitrary ``(x, y)`` (and ``fit_epochs_flat`` with
-    ``xy``) is autograd in both modes: no kernel computes it.
+Routes (``ops/popmajor.train_route`` with ``layout='rowmajor'``, decided
+from the topology and train mode alone): ``train_epochs``,
+``learn_epochs``, ``train_step`` and ``learn_from`` run on the
+population-major ``(P, N)`` transpose
 
-The JAX package's ``key`` (keras' per-epoch sample shuffle) is not ported:
-no kernel takes a per-lane order.
+  * on the variant's SGD kernel (K2 weightwise, K4 aggregating/fft, K5
+    recurrent) for a CUDA tensor, its plain chain for a CPU tensor, where
+    the kernels are instantiated for the particle;
+  * on the weightwise full batch's hand-derived step
+    (``ops/popmajor.ww_full_batch_epochs``, plain torch, rounding alike on
+    the card and the CPU) for an output-expressible activation: one
+    gradient step on the mean loss over the samples, a documented
+    deviation.  The aggregating, fft and recurrent variants have one
+    sample per epoch, so there 'full_batch' is the sequential program;
+  * on the autograd chains, on either device, for every other particle:
+    another activation (elu, softmax, swish, gelu), width, depth or
+    aggregates; a recurrent particle with ``rnn_scan='associative'``
+    differentiates through the associative forward, as the JAX package
+    does.  For a batch the gradient of the summed per-net losses is each
+    net's own gradient.
+
+``fit_epoch`` on an arbitrary ``(x, y)`` (and ``fit_epochs_flat`` with
+``xy``) is autograd on the rows: no kernel computes it.
+
+keras' per-epoch sample shuffle: the JAX package's ``key`` is a
+``torch.Generator`` here (``key=``, drawing each net's permutation of the
+samples, ``sample_order``), or the permutation itself (``order=``: (S,)
+for a net, (N, S) for a batch; ``train_epochs`` and ``learn_epochs`` take
+the lane layout (epochs, S, N)).  Only the weightwise variant has more
+than one sample an epoch, and the full batch takes no order, so elsewhere
+it is a bitwise no-op, as in the JAX package.  On the card a shuffled
+weightwise epoch inside the kernels' instantiations is K2's shuffled
+instantiation.
 """
 
 from typing import Optional, Tuple
 
 import torch
 
-from .nets.dispatch import _MODULES, compute_samples
-from .ops.activations import output_grad_activations
-from .ops.popmajor import learn_epochs_popmajor, train_epochs_popmajor
+from .init import on_device
+from .nets.dispatch import _MODULES
+from .ops.popmajor import (check_train_mode, learn_epochs_popmajor,
+                           train_epochs_popmajor)
 from .topology import Topology
 
 DEFAULT_LR = 0.01  # keras SGD default learning rate
 
 
-def _check_key(key) -> None:
-    if key is not None:
-        raise NotImplementedError(
-            "the shuffled epoch (key=) is not ported to srnn_tpu_torch: no "
-            "kernel takes a per-lane sample order (ROADMAP.md, queue A)")
+def sample_order(generator: torch.Generator, epochs: int, samples: int,
+                 n: int, device) -> torch.Tensor:
+    """uint8 (epochs, samples, n): an independent uniform permutation of
+    the samples per epoch and lane (an argsort of uniforms drawn on the
+    generator's device), on ``device``."""
+    u = torch.rand((epochs, samples, n), generator=generator,
+                   device=generator.device)
+    return u.argsort(dim=1).to(device=device, dtype=torch.uint8)
 
 
-def on_lanes(topo: Topology, mode: str) -> bool:
-    """True where an epoch runs population-major (``ops/popmajor``'s
-    dispatch: the SGD kernels on the card, and the weightwise full batch's
-    hand-derived step): everything but the weightwise full batch of an
-    activation without an output-expressible derivative, which takes
-    autograd."""
-    if mode not in ("sequential", "full_batch"):
-        raise ValueError(f"unknown train mode {mode!r}")
-    return not (topo.variant == "weightwise" and mode == "full_batch" and
-                topo.activation not in output_grad_activations())
+def shuffles(topo: Topology, mode: str) -> bool:
+    """Does a sample order act on this epoch (more than one sample, the
+    batch-1 mode)?"""
+    check_train_mode(topo, mode)
+    return topo.variant == "weightwise" and mode == "sequential"
 
 
 def _lanes(flat: torch.Tensor) -> torch.Tensor:
@@ -82,6 +92,18 @@ def _unlanes(flat: torch.Tensor, wT: torch.Tensor, loss: torch.Tensor):
     if flat.dim() == 1:
         return wT[:, 0], loss[0]
     return wT.t().contiguous(), loss
+
+
+def _lane_order(topo: Topology, flat: torch.Tensor, mode: str, key,
+                order) -> Optional[torch.Tensor]:
+    """One epoch's order in the lane layout (1, P, N), from ``order`` ((P,)
+    or (N, P)) or drawn from ``key``; None where no order acts."""
+    if not shuffles(topo, mode) or (key is None and order is None):
+        return None
+    if order is None:
+        p, n = topo.num_weights, (1 if flat.dim() == 1 else flat.shape[0])
+        return sample_order(key, 1, p, n, flat.device)
+    return _lanes(on_device(order, flat.device, torch.uint8))[None]
 
 
 def predict(topo: Topology, flat: torch.Tensor,
@@ -116,43 +138,68 @@ def _grad_step(topo: Topology, flat: torch.Tensor, x: torch.Tensor,
 
 def fit_epoch(topo: Topology, flat: torch.Tensor, x: torch.Tensor,
               y: torch.Tensor, lr: float = DEFAULT_LR,
-              mode: str = "sequential",
-              key=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One epoch of mse-SGD on fixed (x, y), autograd.  Returns
-    (new_flat, epoch_loss)."""
-    _check_key(key)
+              mode: str = "sequential", key=None,
+              order=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One epoch of mse-SGD on fixed (x, y), autograd; the batch-1 steps
+    in the sample ``order`` ((S,), or (N, S) for a batch) or in one drawn
+    from ``key``.  Returns (new_flat, epoch_loss)."""
     x, y = x.detach(), y.detach()
     if mode == "full_batch":
         return _grad_step(topo, flat, x, y, lr)
     if mode != "sequential":
         raise ValueError(f"unknown train mode {mode!r}")
     axis = 0 if flat.dim() == 1 else 1  # the sample axis of x and y
+    n_samples = x.shape[axis]
+    if order is None and key is not None:
+        order = sample_order(key, 1, n_samples, flat.shape[0] if axis else 1,
+                             x.device)[0].t()
+        order = order[0] if flat.dim() == 1 else order
+    if order is not None:
+        order = on_device(order, x.device, torch.long)
+
+    def sample(t: torch.Tensor, i: int) -> torch.Tensor:
+        if order is None:
+            return t.narrow(axis, i, 1)
+        idx = order[..., i].reshape(*order.shape[:-1], 1,
+                                    *([1] * (t.dim() - axis - 1)))
+        return torch.take_along_dim(t, idx, dim=axis)
+
     losses = []
-    for i in range(x.shape[axis]):
-        flat, loss = _grad_step(topo, flat, x.narrow(axis, i, 1),
-                                y.narrow(axis, i, 1), lr)
+    for i in range(n_samples):
+        flat, loss = _grad_step(topo, flat, sample(x, i), sample(y, i), lr)
         losses.append(loss)
     return flat, torch.stack(losses).mean(dim=0)
 
 
 def train_epochs(topo: Topology, w: torch.Tensor, epochs: int,
                  lr: float = DEFAULT_LR, mode: str = "sequential",
-                 lanes: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                 lanes: bool = False, order: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``epochs`` repeated ``train()`` calls, the samples recomputed from
     the current weights before every epoch (``network.py:613-618``), of a
     net (P,) or a batch held row-major (N, P), or population-major (P, N)
-    where ``lanes``.  Returns (new weights in the same layout, the last
-    epoch's mean pre-update loss).  The one place that picks the
-    population-major chains or autograd (``on_lanes``); ``epochs`` >= 1."""
-    if on_lanes(topo, mode):
-        wT = w if lanes else _lanes(w)
-        wT, loss = train_epochs_popmajor(topo, wT, epochs, lr, mode)
-        return (wT, loss) if lanes else _unlanes(w, wT, loss)
-    rows = w.t().contiguous() if lanes else w
-    for _ in range(epochs):
-        x, y = compute_samples(topo, rows)
-        rows, loss = fit_epoch(topo, rows, x, y, lr, mode)
-    return (rows.t().contiguous() if lanes else rows), loss
+    where ``lanes``, on the route of ``topo`` (module docstring);
+    ``order``, uint8 (epochs, P, N), each lane's sample order.  Returns
+    (new weights in the same layout, the last epoch's mean pre-update
+    loss); ``epochs`` >= 1."""
+    wT = w if lanes else _lanes(w)
+    wT, loss = train_epochs_popmajor(topo, wT, epochs, lr, mode, order,
+                                     layout="rowmajor")
+    return (wT, loss) if lanes else _unlanes(w, wT, loss)
+
+
+def learn_epochs(topo: Topology, w: torch.Tensor, other: torch.Tensor,
+                 severity: int, lr: float = DEFAULT_LR,
+                 mode: str = "sequential", lanes: bool = False,
+                 order: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``severity`` ``learn_from(other)`` epochs toward other's fixed
+    samples, in the layouts ``train_epochs`` takes, on the route of
+    ``topo``."""
+    wT, oT = (w, other) if lanes else (_lanes(w), _lanes(other))
+    wT, loss = learn_epochs_popmajor(topo, wT, oT, severity, lr, mode, order,
+                                     layout="rowmajor")
+    return (wT, loss) if lanes else _unlanes(w, wT, loss)
 
 
 def fit_epochs_flat(topo: Topology, flat: torch.Tensor, epochs: int,
@@ -173,23 +220,19 @@ def fit_epochs_flat(topo: Topology, flat: torch.Tensor, epochs: int,
 
 
 def train_step(topo: Topology, flat: torch.Tensor, lr: float = DEFAULT_LR,
-               mode: str = "sequential",
-               key=None) -> Tuple[torch.Tensor, torch.Tensor]:
+               mode: str = "sequential", key=None,
+               order=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ``train()`` call: fit one epoch on the net's own samples
-    (self-training toward being a fixpoint)."""
-    _check_key(key)
-    return fit_epochs_flat(topo, flat, 1, lr, mode)
+    (self-training toward being a fixpoint), shuffled by ``key`` or
+    ``order`` (module docstring)."""
+    return train_epochs(topo, flat, 1, lr, mode,
+                        order=_lane_order(topo, flat, mode, key, order))
 
 
 def learn_from(topo: Topology, flat: torch.Tensor, other_flat: torch.Tensor,
                lr: float = DEFAULT_LR, mode: str = "sequential",
-               key=None) -> Tuple[torch.Tensor, torch.Tensor]:
+               key=None, order=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ``learn_from(other)`` call: fit one epoch on *other's*
-    samples."""
-    _check_key(key)
-    if on_lanes(topo, mode):
-        wT, loss = learn_epochs_popmajor(topo, _lanes(flat),
-                                         _lanes(other_flat), 1, lr, mode)
-        return _unlanes(flat, wT, loss)
-    x, y = compute_samples(topo, other_flat)
-    return fit_epoch(topo, flat, x, y, lr, mode)
+    samples, shuffled by ``key`` or ``order``."""
+    return learn_epochs(topo, flat, other_flat, 1, lr, mode,
+                        order=_lane_order(topo, flat, mode, key, order))

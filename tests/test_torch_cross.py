@@ -140,8 +140,10 @@ def test_cross_average_inf_poisons_every_aggregate(victim):
 
 def test_card_fences(monkeypatch):
     """What the card's kernels do not take raises before any launch: a
-    victim length K6 has no instantiation for, and (as in the port's soup)
-    the random shuffler."""
+    victim length K6 has no instantiation for; and the random shuffler
+    raises without a permutation (row-major, as the JAX package's keyless
+    attack does) and in the population-major layout (the JAX package's
+    refusal)."""
     att = TOPOS["recurrent"]
     selfT = torch.from_numpy(_rows((att.num_weights, N), 11))
     monkeypatch.setattr(cra, "is_cpu", lambda t: False)  # as for the card
@@ -153,5 +155,5 @@ def test_card_fences(monkeypatch):
                                    torch.zeros(17)),
                lambda: cross_apply_popmajor(shuffled, torch.zeros(20, 4), att,
                                             torch.zeros(17, 4))):
-        with pytest.raises(ValueError, match="not ported"):
+        with pytest.raises(ValueError, match="shuffler='random'"):
             fn()

@@ -214,10 +214,15 @@ def test_train_single_net_shapes(train_runs, variant):
 def test_train_unported_and_fences():
     topo = VARIANTS["weightwise"]
     w = torch.zeros(2, 14)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.train_step(topo, w, key=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.run_training(topo, w, epochs=1, shuffle_key=0)
+    # keras' shuffled epoch runs (tests/test_torch_shuffled_epoch.py holds
+    # it against the JAX package); an order of the wrong shape raises
+    gen = torch.Generator().manual_seed(0)
+    assert train.train_step(topo, w, key=gen)[0].shape == w.shape
+    assert engine.run_training(topo, w, epochs=1,
+                               shuffle_key=gen).losses.shape == (1, 2)
+    with pytest.raises(ValueError, match="order"):
+        engine.run_training(topo, w, epochs=2,
+                            order=torch.zeros(1, 14, 2, dtype=torch.uint8))
     for fn in (lambda: train.train_step(topo, w, mode="adam"),
                lambda: engine.run_training(topo, w, 1, train_mode="adam")):
         with pytest.raises(ValueError, match="unknown train mode"):

@@ -117,13 +117,18 @@ def test_kernel_topology_fence():
                        (Topology("aggregating", width=3), "width"),
                        (Topology("aggregating", aggregates=5), "aggregates"),
                        (Topology("fft", aggregates=5), "aggregates"),
-                       (Topology("recurrent", depth=3), "depth"),
-                       (Topology("recurrent", rnn_scan="associative"),
-                        "rnn_scan"),
-                       (Topology("aggregating", shuffler="random"),
-                        "shuffler")):
+                       (Topology("recurrent", depth=3), "depth")):
         with pytest.raises(ValueError, match=what):
             check_kernel_topology(topo)
+    # the SGD chains read no deaggregation and the population-major
+    # recurrence is the serial scan for either rnn_scan: the kernels take
+    # both options; the fused generation's attack refuses the shuffler
+    from srnn_tpu_torch.ops.cuda_generation import fused_kernel_supported
+
+    check_kernel_topology(Topology("recurrent", rnn_scan="associative"))
+    shuffled = Topology("aggregating", shuffler="random")
+    check_kernel_topology(shuffled)
+    assert not fused_kernel_supported(shuffled, "sequential")
 
 
 def test_engine_layer_entry_points_default_to_cuda(monkeypatch):

@@ -186,11 +186,17 @@ def test_port_soup_own_draws_and_fences():
                 dict(apply_impl="pallas"),
                 dict(train_mode="full_batch", generation_impl="fused"),
                 dict(train_impl="pallas"),
-                dict(topo=st.Topology("weightwise", activation="elu")),
-                dict(topo=st.Topology("recurrent", rnn_scan="associative")),
+                dict(train_impl="kernel",
+                     topo=st.Topology("weightwise", activation="elu")),
                 dict(topo=st.Topology("aggregating", shuffler="random"))):
         with pytest.raises(ValueError):
             st.evolve_step(cfg._replace(**bad), s0)
+    # the particles outside the kernels run on their routes (the autograd
+    # chains; an associative recurrent one on K5's serial scan here)
+    for topo in (st.Topology("weightwise", activation="elu"),
+                 st.Topology("recurrent", rnn_scan="associative")):
+        c = cfg._replace(topo=topo)
+        assert int(st.evolve(c, st.seed(c, 5, device="cpu"), 1).time) == 1
     # the weightwise full batch runs on the phase chain (its plain step)
     assert int(st.evolve(cfg._replace(train_mode="full_batch"), s0,
                          1).time) == 1

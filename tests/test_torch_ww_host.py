@@ -2,8 +2,10 @@
 for the CPU with the host's C++ compiler, against the plain torch versions
 on the CPU, bitwise.
 
-The header holds K1's application (``apply_rows``) and the batch-1 SGD chain
-of K2 and K3 (``sgd_chain``), with the duplex coordinates as compile-time
+The header holds K1's application (``apply_rows``), the batch-1 SGD chain
+of K2 and K3 (``sgd_chain``) and K2's shuffled chain (``sgd_chain_shuffled``,
+a per-lane sample order, its snapshot and coordinate table read at run
+time), with the duplex coordinates as compile-time
 constants (``WW::coord``), layer 0's coordinate products shared between the
 points of an application and products with a coordinate of 1.0 not taken.
 Those savings change no rounded operation, so on the same inputs the chains
@@ -83,6 +85,27 @@ void sgd(const float* wT, const float* otherT, float* out, float* loss,
     for (int r = 0; r < P; ++r) out[r * n + i] = rows[r];
   }
 }
+template <int A>
+void sgd_shuffled(const float* wT, const float* otherT,
+                  const unsigned char* order, float* out, float* loss,
+                  long long n, int epochs, float lr) {
+  float coords[3 * P];
+  for (int t = 0; t < 3 * P; ++t)
+    coords[t] = srnn::WW<W, D>::coord(t / 3, t % 3);
+  for (long long i = 0; i < n; ++i) {
+    float rows[P], target[P], snap[P];
+    for (int r = 0; r < P; ++r) {
+      rows[r] = wT[r * n + i];
+      target[r] = otherT ? otherT[r * n + i] : 0.0f;
+    }
+    loss[i] = otherT
+        ? srnn::sgd_chain_shuffled<W, D, A, false>(
+              rows, target, snap, 1, order + i, n, coords, epochs, lr)
+        : srnn::sgd_chain_shuffled<W, D, A, true>(
+              rows, target, snap, 1, order + i, n, coords, epochs, lr);
+    for (int r = 0; r < P; ++r) out[r * n + i] = rows[r];
+  }
+}
 }  // namespace
 
 extern "C" int host_weights() { return P; }
@@ -107,6 +130,16 @@ extern "C" void host_sgd(const float* wT, const float* otherT, float* out,
                          int act) {
   if (act == srnn::RELU) sgd<srnn::RELU>(wT, otherT, out, loss, n, epochs, lr);
   else sgd<srnn::LINEAR>(wT, otherT, out, loss, n, epochs, lr);
+}
+
+extern "C" void host_sgd_shuffled(const float* wT, const float* otherT,
+                                  const unsigned char* order, float* out,
+                                  float* loss, long long n, int epochs,
+                                  float lr, int act) {
+  if (act == srnn::RELU)
+    sgd_shuffled<srnn::RELU>(wT, otherT, order, out, loss, n, epochs, lr);
+  else
+    sgd_shuffled<srnn::LINEAR>(wT, otherT, order, out, loss, n, epochs, lr);
 }
 """
 
@@ -133,6 +166,7 @@ def lib(tmp_path_factory):
     h.host_coords_match.argtypes = [p]
     h.host_apply.argtypes = [p, p, ll, i, i]
     h.host_sgd.argtypes = [p, p, p, p, ll, i, f, i]
+    h.host_sgd_shuffled.argtypes = [p, p, p, p, p, ll, i, f, i]
     return h
 
 
@@ -211,3 +245,47 @@ def test_sgd_chain_bitwise(lib, activation, mode, epochs):
         None if other is None else torch.from_numpy(other), epochs, LR)
     _assert_ulps(got, ref_w.numpy(), 0)
     _assert_ulps(loss, ref_l.numpy(), 1)
+
+
+def _orders(p: int, epochs: int, seed: int) -> np.ndarray:
+    """uint8 (epochs, P, N): an independent permutation of the P samples
+    per epoch and lane."""
+    rng = np.random.default_rng(seed)
+    return np.ascontiguousarray(
+        rng.random((epochs, p, N)).argsort(axis=1).astype(np.uint8))
+
+
+@pytest.mark.parametrize("activation", list(ACTS))
+@pytest.mark.parametrize("mode,epochs", [("train", 2), ("learn", 1)])
+def test_shuffled_chain_bitwise(lib, activation, mode, epochs):
+    """K2's shuffled chain against the plain chain in the same per-lane
+    order, bitwise; in the identity order against the unshuffled chain,
+    bitwise (a runtime multiply by a coordinate of 1.0 is the skipped
+    product)."""
+    topo = Topology("weightwise", width=2, depth=2, activation=activation)
+    p = topo.num_weights
+    w = _population(topo, 40 + epochs, 0.5)
+    other = _population(topo, 50 + epochs, 0.5) if mode == "learn" else None
+    optr = None if other is None else _ptr(other)
+    order = _orders(p, epochs, 60 + epochs)
+    got = np.empty_like(w)
+    loss = np.empty(N, dtype=np.float32)
+    lib.host_sgd_shuffled(_ptr(w), optr, _ptr(order), _ptr(got), _ptr(loss),
+                          N, epochs, LR, ACTS[activation])
+    ref_w, ref_l = ww_sgd_plain(
+        topo, torch.from_numpy(w),
+        None if other is None else torch.from_numpy(other), epochs, LR,
+        torch.from_numpy(order))
+    _assert_ulps(got, ref_w.numpy(), 0)
+    _assert_ulps(loss, ref_l.numpy(), 0)
+
+    ident = np.ascontiguousarray(np.broadcast_to(
+        np.arange(p, dtype=np.uint8)[None, :, None], (epochs, p, N)))
+    lib.host_sgd_shuffled(_ptr(w), optr, _ptr(ident), _ptr(got), _ptr(loss),
+                          N, epochs, LR, ACTS[activation])
+    ref = np.empty_like(w)
+    ref_loss = np.empty(N, dtype=np.float32)
+    lib.host_sgd(_ptr(w), optr, _ptr(ref), _ptr(ref_loss), N, epochs, LR,
+                 ACTS[activation])
+    _assert_ulps(got, ref, 0)
+    _assert_ulps(loss, ref_loss, 0)

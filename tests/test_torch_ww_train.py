@@ -95,17 +95,20 @@ def test_zero_epochs_and_fences():
     wT = torch.from_numpy(_pop(topo, 8, 8, 1.0))
     w, loss = cuda_ww_train.ww_train_epochs(topo, wT, 0)
     assert torch.equal(w, wT) and torch.equal(loss, torch.zeros(8))
-    # the full batch runs its own step (no kernel); the autograd oracle of
-    # the sequential chain refuses it
+    # the full batch runs its own step (no kernel); the autograd chain's
+    # full-batch step (the route of the other activations) agrees with it
     w, loss = popmajor.train_epochs_popmajor(topo, wT, 1, mode="full_batch")
     ref = popmajor.ww_full_batch_epochs(topo, wT, 1)
     assert torch.equal(w, ref[0]) and torch.equal(loss, ref[1])
     assert not torch.equal(w, wT)
-    with pytest.raises(ValueError, match="full_batch"):
-        popmajor.ww_train_epochs_popmajor(topo, wT, 1, mode="full_batch")
+    auto = popmajor.ww_train_epochs_popmajor(topo, wT, 1, mode="full_batch")
+    torch.testing.assert_close(auto[0], w, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(auto[1], loss, rtol=1e-4, atol=ATOL)
+    # the kernel refuses an activation it has no instantiation for; the
+    # dispatch sends that particle to the autograd chain
+    elu = Topology("weightwise", activation="elu")
     with pytest.raises(ValueError, match="derivative"):
-        cuda_ww_train.ww_train_epochs(
-            Topology("weightwise", activation="elu"), wT, 1)
-    with pytest.raises(ValueError, match="derivative"):
-        popmajor.learn_epochs_popmajor(
-            Topology("weightwise", activation="elu"), wT, wT, 1)
+        cuda_ww_train.ww_train_epochs(elu, wT, 1)
+    got = popmajor.learn_epochs_popmajor(elu, wT, wT, 1)
+    ref = popmajor.ww_learn_epochs_popmajor(elu, wT, wT, 1)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
