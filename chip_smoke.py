@@ -8,8 +8,12 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 Phases, each fatal on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the kernels from ``srnn_tpu_torch/csrc`` (one nvcc per source, all
-   at once) and print ptxas' register and spill report;
+2. build the kernels from ``srnn_tpu_torch/csrc`` (one nvcc per library,
+   all at once: every source's default build, width 2 / depth 2 / 4
+   aggregates, and the builds of the topologies off it that the main path
+   runs: width 3 / depth 3 of every variant, aggregating with 6
+   aggregates, and the fence of 64 weights) and print ptxas' register,
+   stack and spill report per build;
 3. each kernel against its plain version on the same inputs at N = 1M:
    the weightwise kernels (K1-K3, P = 14, the 4-2-2-1 net), the k-vector
    SGD chain (K4, aggregating 4-2-2-4, P = 20), the recurrent BPTT chain and
@@ -29,7 +33,15 @@ Phases, each fatal on failure:
    shuffled instantiation (keras' shuffled epoch, uniform per-lane orders)
    train 10 and learn 1 against its plain twin bitwise, in the identity
    order against the unshuffled K2 bitwise, its bound the unshuffled
-   operations and the order's bytes;
+   operations and the order's bytes; then each kernel off its default
+   build the same way: K1, K2, K3's float32 and bfloat16 weightwise bodies
+   at width 3 / depth 3 (P = 33), K4 and K3's k-vector body of the
+   width-3 / depth-3 aggregating and fft particles (P = 42) and of the
+   aggregating one with 6 aggregates (P = 28) at N = 1M and of the fence's
+   (width 4, depth 1, 8 aggregates: P = 64) at N = 4,096, K5 and K3's
+   recurrent body at width 3 / depth 3 (P = 52), K6 for that attacker on
+   victims of T = 33, 42 and 52; and at a small N the width-3 / depth-3
+   tanh K2 and K3 weightwise body and K2's shuffled instantiation;
 4. the main path through the public entry points, each of its runs with
    the launch counts set to 0 just before it and checked just after against
    the launches that run must make: the N = 1M full-dynamics soup (attack
@@ -61,7 +73,18 @@ Phases, each fatal on failure:
    program, N = 1M, steps = 2000
    (self-application kernel only, through ``srnn_tpu_torch.bench``); then,
    to inform, ``run_fixpoint`` class counts of fresh aggregating and
-   recurrent nets;
+   recurrent nets; then (PR 11) the kernels off their default builds: the
+   N = 1M soups of the width-3 / depth-3 weightwise, aggregating, fft and
+   recurrent particles and of the aggregating one with 6 aggregates, 20
+   generations on each route (fused: K3's body; phases: the SGD kernel,
+   and K6 at T = 52 for the recurrent one), the bfloat16 width-3 / depth-3
+   weightwise soup fused, the fence's soups at N = 4,096 (3 generations
+   each route), the mixed phase chain at the same split of width-3 /
+   depth-3 thirds (the types' SGD kernels, K6 at T = 33, 42 and 52), the
+   width-3 / depth-3 row-major weightwise soup (K2), each run's launches
+   exact per build, generations/s beside PR 10's autograd route; and the
+   autograd route driven by a particle past the fence (weightwise width 6
+   / depth 2, P = 66, 3 generations);
 5. the fixpoint engines and setups: at N = 1M, weightwise ``run_fixpoint``
    (100 steps: K1 once a step), ``run_training`` (100 epochs: K2 once an
    epoch), ``run_training`` with a shuffle generator (100 epochs: K2's
@@ -70,7 +93,9 @@ Phases, each fatal on failure:
    step), ``run_known_fixpoint_variation`` (100 steps: K1 once a step and
    once more) and ``fixpoint_density`` (no kernel), and ``run_training`` of
    the aggregating and recurrent variants (100 epochs: K4 / K5 once an
-   epoch), each run's launch counts exact, class counts summing to N and
+   epoch), ``run_fixpoint`` and ``run_training`` at width 3 / depth 3 (K1;
+   K2, K4 of the aggregating and fft particles, K5), each run's launch
+   counts exact, class counts summing to N and
    weights non-finite exactly where a trial is classed divergent; the six
    fixpoint setups and the three soup setups at their default sizes, all
    at once, each through ``python -m srnn_tpu_torch.setups`` in a
@@ -80,7 +105,8 @@ Phases, each fatal on failure:
    engine on 512 trials of each standard variant on the card against the
    same call on the CPU (integers exact, floats bitwise), the weightwise
    run_training also shuffled, in the same orders;
-6. a small soup of each variant, a small mixed soup, and small bf16 and
+6. a small soup of each variant (at width 2 / depth 2 and at each
+   topology off the default builds), a small mixed soup, and small bf16 and
    int8 soups, each on the card against the same soup on the CPU, fed the
    same draws, over 3 generations on both routes; the same for the
    row-major soups (each variant, the weightwise full batch, bf16, int8),
@@ -97,8 +123,8 @@ Phases, each fatal on failure:
    generation's launches exact; the population-major weightwise full batch
    card against CPU, and its step's time at N = 1M (to inform); small
    soups off the kernels card against CPU a generation at a time (elu,
-   swish, gelu and softmax weightwise, an aggregating particle with 6
-   aggregates, the row-major associative recurrent soup; rtol 1e-5 / atol
+   swish, gelu and softmax weightwise, an elu aggregating particle, the
+   row-major associative recurrent soup; rtol 1e-5 / atol
    1e-6 with the non-finite pattern exact, whether bitwise logged), and the
    random shuffler's transforms with the same permutations (bitwise but
    fft);
@@ -107,7 +133,8 @@ Phases, each fatal on failure:
    generation and final classes beside BASELINE.md's;
 7. one JSON line listing every kernel (K3 once per variant body and
    population dtype, K6 once per victim length, K2's shuffled
-   instantiation on its own row), then the
+   instantiation on its own row; then a row per build off the default one,
+   ``name[tag]``, each launched on the main path), then the
    card's name and power limit, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -115,6 +142,7 @@ It imports neither jax nor the JAX package.  Without a CUDA card, or outside
 a checkout, it exits non-zero and prints no result.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -367,37 +395,40 @@ def equal_ints(torch, what: str, got, ref) -> None:
 
 
 def build_kernels():
-    """Build every kernel source, one nvcc each, all at once; print each
-    one's finish time (its log's last write) and ptxas' report summed over
-    the source's instantiations: registers, stack frame, spilled bytes,
-    shared memory per block; for the sources that bench_kernels compares
-    (its groups) also the linear (k-vector: linear average)
-    instantiations' resident warps per SM."""
+    """Build every kernel source's default build and every build off it
+    that the wide topologies need (``wide_jobs``), one nvcc each, all at
+    once; print each one's finish time (its log's last write) and ptxas'
+    report summed over the build's instantiations: registers, stack frame,
+    spilled bytes, shared memory per block; for the default builds of the
+    sources that bench_kernels compares (its groups) also the linear
+    (k-vector: linear average) instantiations' resident warps per SM."""
     import re
 
     from srnn_tpu_torch.bench_kernels import (GROUPS, census_fragment,
                                               linear_resources)
     from srnn_tpu_torch.ops import _build
 
+    jobs = [(name, _build.DEFAULT) for name in _build.SOURCES] + wide_jobs()
     t0, wall0 = time.perf_counter(), time.time()
-    _build.build()
-    log(f"build: {len(_build.SOURCES)} sources in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc {_build.nvcc_path()})")
-    for name in _build.SOURCES:
-        done = os.path.getmtime(_build.log_path(name)) - wall0
-        report = _build.resource_usage(name)
+    _build.build(jobs)
+    log(f"build: {len(jobs)} libraries ({len(_build.SOURCES)} default "
+        f"builds) in {time.perf_counter() - t0:.1f} s (nvcc "
+        f"{_build.nvcc_path()})")
+    for name, b in jobs:
+        done = os.path.getmtime(_build.log_path(name, b)) - wall0
+        report = _build.resource_usage(name, b)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
-        stack = [int(b) for b in re.findall(r"(\d+) bytes stack frame",
+        stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame",
                                             report)]
-        spills = sum(int(b) for b in re.findall(
+        spills = sum(int(x) for x in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", report))
-        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
-        log(f"  {name}: nvcc done after {done:.1f} s; {len(regs)} kernels, "
-            f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
-            f"stack frame up to {max(stack, default=0)} bytes, spilled "
-            f"bytes {spills}, shared memory up to {max(smem, default=0)} "
-            "bytes a block")
-        if any(name in g for g in GROUPS.values()):
+        smem = [int(x) for x in re.findall(r"(\d+) bytes smem", report)]
+        log(f"  {name} {b.tag or 'default'}: nvcc done after {done:.1f} s; "
+            f"{len(regs)} kernels, registers {min(regs, default=0)}-"
+            f"{max(regs, default=0)}, stack frame up to "
+            f"{max(stack, default=0)} bytes, spilled bytes {spills}, "
+            f"shared memory up to {max(smem, default=0)} bytes a block")
+        if b == _build.DEFAULT and any(name in g for g in GROUPS.values()):
             res = linear_resources(_build.log_path(name),
                                    census_fragment(name))
             log(f"    linear instantiations: {res}")
@@ -562,13 +593,13 @@ def check_kernels(torch, rows):
         check_small_generation(torch, t, ws, o, kw2)
 
 
-def check_small_generation(torch, topo, ws, o, kw):
+def check_small_generation(torch, topo, ws, o, kw, bf16=True):
     """K3 against its plain version on a small population, with a float32
-    and with a bfloat16 population (the operand columns rounded too),
-    bitwise."""
+    and (``bf16``) with a bfloat16 population (the operand columns rounded
+    too), bitwise."""
     from srnn_tpu_torch.ops import cuda_generation as cg
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16)[:2 if bf16 else 1]:
         cast = {k: v.to(dtype) if k.endswith("T") and k != "freshT" else v
                 for k, v in o.items()}
         wd = ws.to(dtype)
@@ -635,7 +666,7 @@ def log_train_only(ms, only) -> None:
 
 
 def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
-                   pop_bytes=4, issued=None):
+                   pop_bytes=4, issued=None, n=N):
     """Bound of one K3 launch from this run's gates: every lane trains,
     the attacked lanes and recomputed targets apply once, the learners run
     their imitation chain.  Bytes as the kernel's gates need them, counted
@@ -654,13 +685,13 @@ def gen_body_bound(topo, ops, kw, n_dead, apply_ops, learn_ops, train_ops,
 
     def ops_of(apply_n, learn_n, train_n):
         return ((n_att + n_re) * apply_n + n_learn * learn_n
-                + N * kw["train"] * train_n + N * 3 * p)
+                + n * kw["train"] * train_n + n * 3 * p)
 
     total = ops_of(apply_ops, learn_ops, train_ops)
-    nbytes = ((2 * N + n_learn) * 4
-              + p * (N + n_att + n_learn + n_re) * pop_bytes
+    nbytes = ((2 * n + n_learn) * 4
+              + p * (n + n_att + n_learn + n_re) * pop_bytes
               + p * n_dead * 4
-              + p * N * pop_bytes + (N + 2 * N) * 4)
+              + p * n * pop_bytes + (n + 2 * n) * 4)
     log(f"  attacked {n_att}, learners {n_learn}, recomputed {n_re}, "
         f"dead {n_dead}; {nbytes / 1e6:.1f} MB, {total / 1e9:.3f} Gop "
         f"(--fmad=false ceiling {fmad_off_ms(total):.3f} ms)")
@@ -786,12 +817,13 @@ def check_variant_kernels(torch, rows):
         rows[kernel.name].update(max_abs_err=err, ms=ms, device_ms=dev,
                                  plain_ms=plain, bound_ms=b, bound_by=by)
     try:
-        cra.rnn_apply(rnn, other, w[:10].contiguous())
+        cra.rnn_apply(rnn, other, torch.zeros((65, N), device="cuda"))
     except ValueError:
-        log("  T = 10 raises ValueError on the card, as documented")
+        log("  T = 65 raises ValueError on the card, as documented (the "
+            "fence of 64 weights)")
     else:
-        raise AssertionError("rnn_apply took a victim length it has no "
-                             "instantiation for")
+        raise AssertionError("rnn_apply took a victim longer than the "
+                             "fence")
 
     # K3 bodies at N = 1M: the float32 ones and the bfloat16 ones, the
     # latter on the same population rounded to bfloat16
@@ -865,28 +897,58 @@ def check_variant_kernels(torch, rows):
 
 
 
+def reset(kernels) -> None:
+    """Set every kernel's launch counts to 0."""
+    for k in kernels:
+        k.reset()
+
+
+def row_name(kernel, tag: str) -> str:
+    """The row of a kernel's build: its name for the default build,
+    ``name[tag]`` for the build of another topology."""
+    return f"{kernel.name}[{tag}]" if tag else kernel.name
+
+
+def row_counts(kernels) -> dict:
+    """The kernels' launch counts by row (one per kernel and build)."""
+    out = {}
+    for k in kernels:
+        out[k.name] = k.launches_by.get("", 0)
+        for tag, n in k.launches_by.items():
+            if tag:
+                out[row_name(k, tag)] = n
+    return out
+
+
 def check_launches(kernels, what: str, expect: dict, got=None) -> dict:
-    """This run's launch counts (the kernels' own, or ``got``: {name:
-    launches}, a name it lacks counting 0), which must be exactly
-    ``expect`` (0 for a kernel that ``expect`` does not name)."""
-    got = {k.name: (k.launches if got is None else got.get(k.name, 0))
-           for k in kernels}
-    want = {k.name: expect.get(k.name, 0) for k in kernels}
-    log(f"  {what} launches {got}")
+    """This run's launch counts by row (the kernels' own, or ``got``:
+    {name: launches} of default builds, a name it lacks counting 0), which
+    must be exactly ``expect`` ({row: launches}; 0 for a row that
+    ``expect`` does not name)."""
+    if got is None:
+        got = row_counts(kernels)
+    else:
+        got = {k.name: got.get(k.name, 0) for k in kernels}
+    rows = set(got) | set(expect)
+    got = {r: got.get(r, 0) for r in sorted(rows)}
+    want = {r: expect.get(r, 0) for r in sorted(rows)}
+    log(f"  {what} launches {({r: n for r, n in got.items() if n})}")
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
     return got
 
 
 def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases,
-              population_dtype="f32"):
-    """The N = 1M full-dynamics soup of ``topo``, 20 generations on each
-    route after a warm-up generation (on the fused route only where
-    ``expect_phases`` is None), each run's own launch counts checked
-    exactly and added to ``totals``."""
+              population_dtype="f32", n=N, generations=GENERATIONS):
+    """The N = 1M (or ``n``) full-dynamics soup of ``topo``, 20 (or
+    ``generations``) generations on each route after a warm-up generation
+    (on the fused route only where ``expect_phases`` is None), each run's
+    own launch counts checked exactly and added to ``totals``; returns
+    {route: generations/s}."""
     import srnn_tpu_torch as st
 
-    cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
+    rates = {}
+    cfg = st.SoupConfig(topo=topo, size=n, attacking_rate=0.1,
                         learn_from_rate=0.1, learn_from_severity=1, train=10,
                         remove_divergent=True, remove_zero=True,
                         respawn_draws="fused", layout="popmajor",
@@ -896,31 +958,33 @@ def soup_runs(torch, kernels, totals, topo, expect_fused, expect_phases,
     if expect_phases is not None:
         routes.append(("phases", cfg, expect_phases))
     for impl, c, expect in routes:
-        for k in kernels:
-            k.launches = 0
+        reset(kernels)
         st.evolve(c, state, 1)  # warm-up generation
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = st.evolve(c, state, GENERATIONS)
+        state = st.evolve(c, state, generations)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = st.count(cfg, state)
         uids = state.uids
-        what = f"{topo.variant} {population_dtype} soup {impl}"
-        if int(torch.unique(uids).numel()) != N:
+        what = (f"{topo.variant} width {topo.width} depth {topo.depth} "
+                f"k={topo.aggregates} {population_dtype} soup {impl}")
+        if int(torch.unique(uids).numel()) != n:
             raise AssertionError(f"{what}: uids are not unique")
-        if int(counts.sum()) != N or not bool(torch.isfinite(
+        if int(counts.sum()) != n or not bool(torch.isfinite(
                 state.weights.float()).all()):
             raise AssertionError(f"{what}: counts {counts.tolist()} or "
                                  "non-finite weights after respawn")
-        log(f"{what}: {GENERATIONS / dt:.3f} generations/s at N={N}, "
-            f"P={topo.num_weights} ({dt * 1e3 / GENERATIONS:.3f} "
+        rates[impl] = generations / dt
+        log(f"{what}: {generations / dt:.3f} generations/s at N={n}, "
+            f"P={topo.num_weights} ({dt * 1e3 / generations:.3f} "
             f"ms/generation), counts [divergent, fix_zero, fix_other, "
             f"fix_sec, other] {counts.tolist()}, unique uids "
             f"{int(torch.unique(uids).numel())}, next_uid "
             f"{int(state.next_uid)}")
-        for name, n in check_launches(kernels, what, expect).items():
-            totals[name] += n
+        for name, k in check_launches(kernels, what, expect).items():
+            totals[name] += k
+    return rates
 
 
 def rowmajor_soup_run(torch, kernels, totals, topo, kernel):
@@ -938,13 +1002,13 @@ def rowmajor_soup_run(torch, kernels, totals, topo, kernel):
                         respawn_draws="fused")
     state = st.evolve(cfg, st.seed(cfg, 0, device="cuda"), 1)  # warm-up
     torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     state = st.evolve(cfg, state, GENERATIONS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    what = f"{topo.variant} rowmajor soup"
+    what = (f"{topo.variant} width {topo.width} depth {topo.depth} rowmajor "
+            "soup")
     got = check_launches(kernels, what, {kernel: 2 * GENERATIONS})
     counts = st.count(cfg, state)
     n_unique = int(torch.unique(state.uids).numel())
@@ -961,6 +1025,7 @@ def rowmajor_soup_run(torch, kernels, totals, topo, kernel):
         f"next_uid {int(state.next_uid)}")
     for name, n in got.items():
         totals[name] += n
+    return GENERATIONS / dt
 
 
 def multisoup_runs(torch, kernels, totals, per_generation_fused,
@@ -977,8 +1042,7 @@ def multisoup_runs(torch, kernels, totals, per_generation_fused,
     for impl, per_gen in (("fused", per_generation_fused),
                           ("phases", per_generation_phases)):
         c = cfg._replace(generation_impl=impl)
-        for k in kernels:
-            k.launches = 0
+        reset(kernels)
         ms.evolve_multi(c, state, 1)  # warm-up generation
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1042,8 +1106,7 @@ def rowmajor_multisoup_run(torch, kernels, totals):
     cfg = mega_multi_config()
     state = ms.evolve_multi(cfg, ms.seed_multi(cfg, 0, device="cuda"), 1)
     torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     state = ms.evolve_multi(cfg, state, GENERATIONS)
     torch.cuda.synchronize()
@@ -1075,8 +1138,7 @@ def routes_multisoup_run(torch, kernels, totals):
     what = "mixed soup routes"
     log(f"{what}: train_impl {ms.resolved_train_impls(cfg)}")
     state = ms.seed_multi(cfg, 0, device="cuda")
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     ms.evolve_multi(cfg, state, 1)  # warm-up generation
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1103,8 +1165,7 @@ def autograd_soup_run(torch, kernels, topo, generations=10):
                         learn_from_rate=0.1, learn_from_severity=1, train=10,
                         remove_divergent=True, remove_zero=True,
                         respawn_draws="fused")
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     state = st.evolve(cfg, st.seed(cfg, 0, device="cuda"), 1)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1126,6 +1187,307 @@ def autograd_soup_run(torch, kernels, topo, generations=10):
         f"other] {counts.tolist()}, unique uids {n_unique}")
 
 
+# ------------------------------------------- off the default builds (PR 11)
+
+
+def wide_topos():
+    """The topologies off the default builds that the main path runs: width
+    3 / depth 3 of every variant (weightwise P = 33, aggregating and fft
+    with 4 aggregates P = 42, recurrent P = 52), aggregating with 6
+    aggregates (P = 28), and the fence, aggregating width 4 / depth 1 with
+    8 aggregates (P = 64)."""
+    from srnn_tpu_torch import Topology
+
+    return {"ww": Topology("weightwise", width=3, depth=3),
+            "agg": Topology("aggregating", width=3, depth=3),
+            "fft": Topology("fft", width=3, depth=3),
+            "rnn": Topology("recurrent", width=3, depth=3),
+            "k6": Topology("aggregating", aggregates=6),
+            "k8": Topology("aggregating", width=4, depth=1, aggregates=8)}
+
+
+#: the width-3 / depth-3 recurrent attacker's victim lengths: the mixed
+#: chain's weightwise, k-vector and recurrent thirds
+WIDE_T = (33, 42, 52)
+#: particles of the fence's soups and checks
+FENCE_N = 4096
+
+
+def wide_jobs():
+    """The (source, build) jobs of the wide topologies' builds, and of the
+    width-3 / depth-3 tanh K2 and K3 weightwise body."""
+    import dataclasses
+
+    from srnn_tpu_torch.ops.cuda_generation import builds_for
+
+    t = wide_topos()
+    jobs = []
+    for name, topo in t.items():
+        jobs += builds_for(topo, WIDE_T if name == "rnn" else (),
+                           bf16=name == "ww")
+    tanh = dataclasses.replace(t["ww"], activation="tanh")
+    return jobs + [j for j in builds_for(tanh) if j[0] != "ww_apply"]
+
+
+def wide_row(kernel, topo, t_len=None) -> str:
+    """The row of ``kernel``'s build for ``topo`` (K6: on victims of
+    ``t_len``)."""
+    from srnn_tpu_torch.ops.cuda_kvec_train import kvec_build
+    from srnn_tpu_torch.ops.cuda_sgd_common import kernel_build
+
+    b = kvec_build(topo) if topo.variant in ("aggregating", "fft") \
+        else kernel_build(topo, t_len=t_len)
+    return row_name(kernel, b.tag)
+
+
+def wide_rows():
+    """(kernel, topology, victim length) of every row off the default
+    builds."""
+    from srnn_tpu_torch.ops import cuda_generation as cg
+    from srnn_tpu_torch.ops import cuda_kvec_train as ck
+    from srnn_tpu_torch.ops import cuda_rnn_apply as cra
+    from srnn_tpu_torch.ops import cuda_rnn_train as crt
+    from srnn_tpu_torch.ops import cuda_ww, cuda_ww_train
+
+    t = wide_topos()
+    out = [(cuda_ww.WW_APPLY, t["ww"], None),
+           (cuda_ww_train.WW_SGD, t["ww"], None),
+           (cg.GENERATION, t["ww"], None),
+           (cg.GENERATION_BF16, t["ww"], None)]
+    for key in ("agg", "fft", "k6", "k8"):
+        out += [(ck.KVEC_SGD, t[key], None),
+                (cg.GENERATION_KVEC, t[key], None)]
+    out += [(crt.RNN_SGD, t["rnn"], None),
+            (cg.GENERATION_RNN, t["rnn"], None)]
+    out += [(cra.rnn_apply_kernel(tl), t["rnn"], tl) for tl in WIDE_T]
+    return out
+
+
+def check_wide_kernels(torch, rows):
+    """Phase 3, off the default builds: each kernel of the wide topologies
+    against its plain version on the card at the main path's N (the
+    fence's at FENCE_N), bitwise (weights, attack outputs, the mean loss
+    and the dead masks), timed beside its bound; at a small N, the
+    width-3 / depth-3 tanh K2 and K3 weightwise body and K2's shuffled
+    instantiation, bitwise."""
+    import dataclasses
+
+    from srnn_tpu_torch.ops import cuda_generation as cg
+    from srnn_tpu_torch.ops import cuda_kvec_train as ck
+    from srnn_tpu_torch.ops import cuda_rnn_apply as cra
+    from srnn_tpu_torch.ops import cuda_rnn_train as crt
+    from srnn_tpu_torch.ops import cuda_ww, cuda_ww_train as cwt
+
+    t = wide_topos()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def fill(row, err, ms, dev, plain, b, by):
+        rows[row].update(max_abs_err=err, ms=ms, device_ms=dev,
+                         plain_ms=plain, bound_ms=b, bound_by=by)
+        log(f"  {row}: kernel {ms:.3f} ms (device {dev:.4f}), plain "
+            f"{plain:.3f} ms, bound {b:.4f} ms ({by}), device / bound "
+            f"{dev / b:.2f}")
+
+    def sgd_row(kernel, topo, n, train, learn, plain, ops_epoch, scale=1.0,
+                poison=()):
+        """The SGD chain of ``topo``: train 10 and learn 1 bitwise, train
+        10 timed."""
+        p = topo.num_weights
+        log(f"{kernel.name} N={n} ({topo.variant} width {topo.width} depth "
+            f"{topo.depth} k={topo.aggregates}, P={p})")
+        w = population(topo, n, gen, scale)
+        other = population(topo, n, gen, scale)
+        for (r, c), v in poison:
+            w[r, c] = v
+        err = max(check_sgd(torch, "train epochs=10",
+                            lambda: train(topo, w, 10),
+                            lambda: plain(topo, w, None, 10, 0.01)),
+                  check_sgd(torch, "learn severity=1",
+                            lambda: learn(topo, w, other, 1),
+                            lambda: plain(topo, w, other, 1, 0.01)))
+        run = lambda: train(topo, w, 10)
+        b, by = bound_ms((2 * p + 1) * n * 4, n * 10 * ops_epoch)
+        fill(wide_row(kernel, topo), err, timed_ms(torch, run, 10),
+             device_ms(run), timed_ms(torch, lambda: plain(
+                 topo, w, None, 10, 0.01), 1, warm=False), b, by)
+        return w, other
+
+    def body_row(kernel, topo, n, scale=1.0, dtype=torch.float32):
+        """K3's body for ``topo``, all phases, train 10."""
+        log(f"K3 {kernel.name} N={n} ({topo.variant} width {topo.width} "
+            f"depth {topo.depth} k={topo.aggregates}, {dtype})")
+        w = population(topo, n, gen, scale).to(dtype)
+        err, ms, plain, ops, kw, n_dead, only = check_generation_body(
+            torch, topo, kernel, w, gen)
+        b, by = gen_body_bound(topo, ops, kw, n_dead, *gen_body_ops(topo),
+                               pop_bytes=w.element_size(), n=n)
+        log_train_only(ms, only)
+        fill(wide_row(kernel, topo), err, ms, only["device"], plain, b, by)
+
+    # K1: 50 steps (the plain chain of 2000 would take minutes)
+    ww = t["ww"]
+    p = ww.num_weights
+    log(f"K1 ww_apply N={N} (weightwise width 3 depth 3, P={p})")
+    wd = population(ww, N, gen, 0.05)
+    for steps in (1, 50):
+        err = compare(torch, f"steps={steps}",
+                      cuda_ww.ww_apply_population(ww, wd, steps),
+                      cuda_ww.ww_apply_population_plain(ww, wd, steps), 0)
+    run = lambda: cuda_ww.ww_apply_population(ww, wd, 50)
+    b, by = bound_ms(2 * p * N * 4, 50 * N * p * apply_ops_per_point(ww))
+    log(f"  steps=50: the kernel issues {ww_apply_issued(ww)} FP32 "
+        f"instructions an application ({p * apply_ops_per_point(ww)} "
+        f"operations), --fmad=false ceiling "
+        f"{fmad_off_ms(50 * N * ww_apply_issued(ww)):.3f} ms")
+    fill(wide_row(cuda_ww.WW_APPLY, ww), err, timed_ms(torch, run, 5),
+         device_ms(run, 5), timed_ms(torch, lambda: cuda_ww.
+                                     ww_apply_population_plain(ww, wd, 50),
+                                     1, warm=False), b, by)
+    # K2 and K3's weightwise bodies
+    w, _ = sgd_row(cwt.WW_SGD, ww, N, cwt.ww_train_epochs,
+                   cwt.ww_learn_epochs, cwt.ww_sgd_plain,
+                   sgd_ops_per_epoch(ww))
+    log(f"  K2 issues {ww_sgd_issued_per_epoch(ww)} FP32 instructions an "
+        f"epoch, --fmad=false ceiling "
+        f"{fmad_off_ms(N * 10 * ww_sgd_issued_per_epoch(ww)):.3f} ms")
+    body_row(cg.GENERATION, ww, N)
+    body_row(cg.GENERATION_BF16, ww, N, dtype=torch.bfloat16)
+    # at a small N: tanh's K2 and K3 weightwise body, K2 shuffled
+    n = 65536
+    tanh = dataclasses.replace(ww, activation="tanh")
+    log(f"weightwise width 3 depth 3 tanh, and K2 shuffled, N={n}")
+    ws = population(tanh, n, gen, 0.3)
+    check_sgd(torch, "K2 tanh train=3",
+              lambda: cwt.ww_train_epochs(tanh, ws, 3),
+              lambda: cwt.ww_sgd_plain(tanh, ws, None, 3, 0.01))
+    check_small_generation(torch, tanh, ws, gen_operands(torch, tanh, ws,
+                                                         gen, rate=0.5),
+                           dict(severity=1, train=2, lr=0.01,
+                                remove_divergent=True, remove_zero=True,
+                                epsilon=1e-4), bf16=False)
+    order = torch.rand((3, p, n), generator=gen, device="cuda").argsort(
+        dim=1).to(torch.uint8)
+    check_sgd(torch, "K2 shuffled train=3",
+              lambda: cwt.ww_train_epochs(ww, ws, 3, order=order),
+              lambda: cwt.ww_sgd_plain(ww, ws, None, 3, 0.01, order))
+    # K4 and K3's k-vector bodies; the fence at FENCE_N
+    for key, n in (("agg", N), ("fft", N), ("k6", N), ("k8", FENCE_N)):
+        topo = t[key]
+        sgd_row(ck.KVEC_SGD, topo, n, ck.kvec_train_epochs,
+                ck.kvec_learn_epochs, ck.kvec_sgd_plain,
+                kvec_sgd_ops_per_epoch(topo, True),
+                poison=(((3, 0), float("inf")), ((10, 1), float("nan"))))
+        body_row(cg.GENERATION_KVEC, topo, n)
+    # K5, K6 on the victims of the soup and the mixed chain, K3's body
+    rnn = t["rnn"]
+    p = rnn.num_weights
+    w, other = sgd_row(crt.RNN_SGD, rnn, N, crt.rnn_train_epochs,
+                       crt.rnn_learn_epochs, crt.rnn_sgd_plain,
+                       rnn_sgd_ops_per_epoch(rnn), scale=0.5,
+                       poison=(((p - 1, 0), float("inf")),))
+    victims = {33: population(ww, N, gen), 42: population(t["agg"], N, gen),
+               52: w}
+    for t_len, vT in victims.items():
+        kernel = cra.rnn_apply_kernel(t_len)
+        log(f"K6 {kernel.name} N={N} (width 3 depth 3 attacker, victims "
+            f"T={t_len})")
+        err = compare(torch, "attack", cra.rnn_apply(rnn, other, vT),
+                      cra.rnn_apply_plain(rnn, other, vT), 0)
+        run = lambda: cra.rnn_apply(rnn, other, vT)
+        b, by = bound_ms((p + 2 * t_len) * N * 4,
+                         N * rnn_forward_ops(rnn, t_len))
+        fill(wide_row(kernel, rnn, t_len), err, timed_ms(torch, run, 10),
+             device_ms(run), timed_ms(torch, lambda: cra.rnn_apply_plain(
+                 rnn, other, vT), 1, warm=False), b, by)
+    body_row(cg.GENERATION_RNN, rnn, N, scale=0.5)
+
+
+def wide_multisoup_run(torch, kernels, totals):
+    """The mixed phase chain at mega_multisoup's split, N = 1M, the full
+    dynamics, of width-3 / depth-3 thirds: 20 generations after a warm-up
+    generation, each type on its SGD kernel twice a generation and the
+    recurrent attacker on K6 once per victim type (T = 33, 42, 52); launch
+    counts exact, added to ``totals``.  Returns generations/s."""
+    from srnn_tpu_torch import multisoup as ms
+    from srnn_tpu_torch.ops import cuda_kvec_train as ck
+    from srnn_tpu_torch.ops import cuda_rnn_apply as cra
+    from srnn_tpu_torch.ops import cuda_rnn_train as crt
+    from srnn_tpu_torch.ops import cuda_ww_train as cwt
+
+    t = wide_topos()
+    cfg = mega_multi_config(layout="popmajor")._replace(
+        topos=(t["ww"], t["agg"], t["rnn"]))
+    what = "mixed soup width 3 depth 3 phases"
+    state = ms.seed_multi(cfg, 0, device="cuda")
+    reset(kernels)
+    ms.evolve_multi(cfg, state, 1)  # warm-up generation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ms.evolve_multi(cfg, state, GENERATIONS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_multi_state(torch, cfg, state, what, dt)
+    per_gen = {wide_row(cwt.WW_SGD, t["ww"]): 2,
+               wide_row(ck.KVEC_SGD, t["agg"]): 2,
+               wide_row(crt.RNN_SGD, t["rnn"]): 2}
+    per_gen.update({wide_row(cra.rnn_apply_kernel(tl), t["rnn"], tl): 1
+                    for tl in WIDE_T})
+    for name, n in check_launches(kernels, what, {
+            k: n * (GENERATIONS + 1) for k, n in per_gen.items()}).items():
+        totals[name] += n
+    return GENERATIONS / dt
+
+
+def wide_main_path(torch, kernels, totals):
+    """Phase 4, off the default builds: at N = 1M the full-dynamics
+    population-major soups of the width-3 / depth-3 weightwise,
+    aggregating, fft and recurrent particles and of the aggregating one
+    with 6 aggregates on both routes (fused: K3's body; phases: the SGD
+    kernel twice a generation, and K6 on T = 52 for the recurrent one),
+    the bfloat16 weightwise one fused, the mixed phase chain of
+    width-3 / depth-3 thirds, and the width-3 / depth-3 row-major
+    weightwise soup (K2 twice a generation); at N = 4,096 the fence's
+    soups, 3 generations on each route.  Launch counts exact by build;
+    generations/s logged beside the autograd route's."""
+    from srnn_tpu_torch.ops import cuda_generation as cg
+    from srnn_tpu_torch.ops import cuda_kvec_train as ck
+    from srnn_tpu_torch.ops import cuda_rnn_apply as cra
+    from srnn_tpu_torch.ops import cuda_rnn_train as crt
+    from srnn_tpu_torch.ops import cuda_ww_train as cwt
+
+    t = wide_topos()
+    runs = GENERATIONS + 1
+    rates = {}
+    for key, body, sgd, extra in (
+            ("ww", cg.GENERATION, cwt.WW_SGD, {}),
+            ("agg", cg.GENERATION_KVEC, ck.KVEC_SGD, {}),
+            ("fft", cg.GENERATION_KVEC, ck.KVEC_SGD, {}),
+            ("rnn", cg.GENERATION_RNN, crt.RNN_SGD,
+             {wide_row(cra.rnn_apply_kernel(52), t["rnn"], 52): runs}),
+            ("k6", cg.GENERATION_KVEC, ck.KVEC_SGD, {})):
+        topo = t[key]
+        for route, r in soup_runs(torch, kernels, totals, topo,
+                                  {wide_row(body, topo): runs},
+                                  {wide_row(sgd, topo): 2 * runs,
+                                   **extra}).items():
+            rates[f"{key} {route}"] = r
+    rates["ww bf16 fused"] = soup_runs(
+        torch, kernels, totals, t["ww"],
+        {wide_row(cg.GENERATION_BF16, t["ww"]): runs}, None,
+        population_dtype="bf16")["fused"]
+    k8 = t["k8"]
+    soup_runs(torch, kernels, totals, k8,
+              {wide_row(cg.GENERATION_KVEC, k8): 4},
+              {wide_row(ck.KVEC_SGD, k8): 8}, n=FENCE_N, generations=3)
+    rates["mixed phases"] = wide_multisoup_run(torch, kernels, totals)
+    rates["ww rowmajor"] = rowmajor_soup_run(
+        torch, kernels, totals, t["ww"], wide_row(cwt.WW_SGD, t["ww"]))
+    log(f"generations/s off the default builds at N={N}: " + ", ".join(
+        f"{what} {r:.3f}" for what, r in rates.items())
+        + " (PR 10's width-3 / depth-3 row-major weightwise soup on the "
+        "autograd route: 0.910-1.202)")
+
+
 def main_path(torch, kernels):
     """Phase 4: the soups and the applications/s program at N = 1M through
     the public entry points, each run with its own launch counts; returns
@@ -1134,7 +1496,7 @@ def main_path(torch, kernels):
     from srnn_tpu_torch.bench import measure
 
     runs = GENERATIONS + 1
-    totals = {k.name: 0 for k in kernels}
+    totals = collections.defaultdict(int, {k.name: 0 for k in kernels})
     topo = st.Topology("weightwise", width=2, depth=2)
     soup_runs(torch, kernels, totals, topo, {"generation": runs},
               {"ww_sgd": 2 * runs})
@@ -1167,10 +1529,14 @@ def main_path(torch, kernels):
     # recurrent one (K5 and K6, popmajor's serial scan); row-major soups
     # wholly off the kernels (no launch at all)
     routes_multisoup_run(torch, kernels, totals)
-    for topo in (st.Topology("weightwise", width=2, depth=2,
-                             activation="elu"),
-                 st.Topology("weightwise", width=3, depth=3)):
-        autograd_soup_run(torch, kernels, topo)
+    autograd_soup_run(torch, kernels, st.Topology("weightwise", width=2,
+                                                  depth=2, activation="elu"))
+    # a particle past the fence of 64 weights (width 6 / depth 2, P = 66):
+    # the autograd route; 3 generations, host-bound at about 2 s each
+    autograd_soup_run(torch, kernels, st.Topology("weightwise", width=6,
+                                                  depth=2), generations=3)
+    # every kernel off its default build (PR 11)
+    wide_main_path(torch, kernels, totals)
     # bfloat16 populations on the fused route: K3's bfloat16 bodies
     for variant, kernel in (("weightwise", "generation_bf16"),
                             ("aggregating", "generation_kvec_bf16"),
@@ -1181,8 +1547,7 @@ def main_path(torch, kernels):
     # applications/s: N particles x 2000 chained self-applications,
     # the program of python -m srnn_tpu_torch.bench (it checks the output
     # is finite)
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     row = measure(N)
     calls = row["calls"]
     log(f"applications/s: {row['value']:.6e} at N={N}, steps={row['steps']} "
@@ -1275,8 +1640,7 @@ def engine_runs(torch, kernels, totals):
     varied = vary(gen, fix, 1e-5)
 
     def run(what, fn, expect):
-        for k in kernels:
-            k.launches = 0
+        reset(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fn()
@@ -1290,7 +1654,7 @@ def engine_runs(torch, kernels, totals):
     agg_pop = st.init_population(agg, gen, N, CARD)
     rnn_pop = st.init_population(rnn, gen, N, CARD)
     walls = {}
-    for what, fn, expect, n_steps in (
+    cases = [
             (f"run_fixpoint weightwise {steps} steps",
              lambda: st.run_fixpoint(ww, pop, steps), {"ww_apply": steps},
              steps),
@@ -1310,7 +1674,28 @@ def engine_runs(torch, kernels, totals):
              {"kvec_sgd": steps}, steps),
             (f"run_training recurrent {steps} epochs",
              lambda: st.run_training(rnn, rnn_pop, steps),
-             {"rnn_sgd": steps}, steps)):
+             {"rnn_sgd": steps}, steps)]
+    # width 3 / depth 3 (PR 11): K1 and the SGD kernels off their default
+    # builds
+    from srnn_tpu_torch.ops import cuda_kvec_train as ck
+    from srnn_tpu_torch.ops import cuda_rnn_train as crt
+    from srnn_tpu_torch.ops import cuda_ww as cw
+    from srnn_tpu_torch.ops import cuda_ww_train as cwt
+
+    wide = wide_topos()
+    wpop = {key: st.init_population(wide[key], gen, N, CARD)
+            for key in ("ww", "agg", "fft", "rnn")}
+    cases.append((f"run_fixpoint weightwise width 3 depth 3 {steps} steps",
+                  lambda: st.run_fixpoint(wide["ww"], wpop["ww"], steps),
+                  {wide_row(cw.WW_APPLY, wide["ww"]): steps}, steps))
+    for key, kernel in (("ww", cwt.WW_SGD), ("agg", ck.KVEC_SGD),
+                        ("fft", ck.KVEC_SGD), ("rnn", crt.RNN_SGD)):
+        cases.append((f"run_training {wide[key].variant} width 3 depth 3 "
+                      f"{steps} epochs",
+                      lambda key=key: st.run_training(wide[key], wpop[key],
+                                                      steps),
+                      {wide_row(kernel, wide[key]): steps}, steps))
+    for what, fn, expect, n_steps in cases:
         res, dt = run(what, fn, expect)
         counts = check_engine_result(torch, what, res, N)
         extra = ""
@@ -1522,8 +1907,9 @@ def engines_and_setups(torch, kernels, totals):
 
 def small_soup_vs_cpu(torch, kernels):
     """Phase 6: each variant's soup on the card against the same soup on
-    the CPU, fed the same draws; then the mixed soup and the bfloat16 and
-    int8 soups the same way."""
+    the CPU, fed the same draws, at width 2 / depth 2 and at the wide
+    topologies (PR 11); then the mixed soup and the bfloat16 and int8 soups
+    the same way."""
     import numpy as np
 
     import srnn_tpu_torch as st
@@ -1535,7 +1921,8 @@ def small_soup_vs_cpu(torch, kernels):
     for topo in (st.Topology("weightwise", width=2, depth=2),
                  st.Topology("aggregating", width=2, depth=2, aggregates=4),
                  st.Topology("fft", width=2, depth=2, aggregates=4),
-                 st.Topology("recurrent", width=2, depth=2)):
+                 st.Topology("recurrent", width=2, depth=2),
+                 *wide_topos().values()):
         base = st.SoupConfig(topo=topo, size=n, attacking_rate=0.3,
                              learn_from_rate=0.3, learn_from_severity=1,
                              train=2, remove_divergent=True, remove_zero=True,
@@ -1554,7 +1941,9 @@ def small_soup_vs_cpu(torch, kernels):
                 ev = {}
                 for d in states:
                     states[d], ev[d] = st.evolve_step(cfg, states[d], dr)
-                tag = f"{topo.variant} {cfg.generation_impl} gen {g}"
+                tag = (f"{topo.variant} width {topo.width} depth "
+                       f"{topo.depth} k={topo.aggregates} "
+                       f"{cfg.generation_impl} gen {g}")
                 for f in ("uids", "next_uid"):
                     equal_ints(torch, f"{tag} {f}",
                                getattr(states["cuda"], f),
@@ -1999,8 +2388,7 @@ def small_sequential_vs_cpu(torch, cpu, kernels):
                               rng.random(n) < 0.3, rng.integers(0, n, n),
                               init_population(topo, cpu, n, "cpu").t()
                               .numpy())
-            for k in kernels:
-                k.launches = 0
+            reset(kernels)
             a, ev_a = st.evolve_step(cfg, a, dr)
             tag = f"sequential {variant} {mode} card vs cpu gen {g}"
             want = {} if kernel is None else {
@@ -2065,14 +2453,16 @@ ROUTE_SOUPS = (
     (dict(variant="weightwise", activation="swish"), "rowmajor"),
     (dict(variant="weightwise", activation="gelu"), "popmajor"),
     (dict(variant="weightwise", activation="softmax"), "rowmajor"),
-    (dict(variant="aggregating", aggregates=6), "popmajor"),
+    (dict(variant="aggregating", activation="elu"), "popmajor"),
     (dict(variant="recurrent", rnn_scan="associative"), "rowmajor"),
 )
+
+
 def small_routes_vs_cpu(torch, cpu):
     """Small soups off the kernels on the card against the same soup on
     the CPU, fed the same draws, each generation from the CPU's state: the
-    autograd route (elu, swish, gelu and softmax weightwise; an
-    aggregating particle with 6 aggregates) and the row-major associative
+    autograd route (elu, swish, gelu and softmax weightwise; an elu
+    aggregating particle) and the row-major associative
     recurrent soup.  Integers exact; weights and losses within rtol 1e-5 /
     atol 1e-6 with the non-finite pattern exact, whether bitwise logged
     (the activations take their exp / expm1 / tanh in float64, rounded
@@ -2158,8 +2548,7 @@ def sequential_trajectory(torch, kernels):
     state = st.seed(cfg, torch.Generator().manual_seed(0), device="cuda")
     st.evolve(cfg, state, 1)  # warm-up generation
     torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     final = st.evolve(cfg, state, gens)
     torch.cuda.synchronize()
@@ -2199,7 +2588,8 @@ def main() -> int:
         GENERATION, GENERATION_BF16, GENERATION_KVEC, GENERATION_KVEC_BF16,
         GENERATION_RNN, GENERATION_RNN_BF16)
     from srnn_tpu_torch.ops.cuda_kvec_train import KVEC_SGD
-    from srnn_tpu_torch.ops.cuda_rnn_apply import RNN_APPLY_BY_T
+    from srnn_tpu_torch.ops.cuda_rnn_apply import (RNN_APPLY_BY_T,
+                                                   rnn_apply_kernel)
     from srnn_tpu_torch.ops.cuda_rnn_train import RNN_SGD
     from srnn_tpu_torch.ops.cuda_ww import WW_APPLY
     from srnn_tpu_torch.ops.cuda_ww_train import WW_SGD, WW_SGD_SHUFFLED
@@ -2207,11 +2597,16 @@ def main() -> int:
     kernels = (WW_APPLY, WW_SGD, GENERATION, KVEC_SGD, RNN_SGD,
                RNN_APPLY_BY_T[17], GENERATION_KVEC, GENERATION_RNN,
                RNN_APPLY_BY_T[14], RNN_APPLY_BY_T[20], GENERATION_BF16,
-               GENERATION_KVEC_BF16, GENERATION_RNN_BF16, WW_SGD_SHUFFLED)
-    rows = {k.name: {"name": k.name, "route": "cuda",
-                     "source": f"srnn_tpu_torch/csrc/{k.source}.cu",
-                     "replaces": k.replaces, "library_ms": None}
-            for k in kernels}
+               GENERATION_KVEC_BF16, GENERATION_RNN_BF16, WW_SGD_SHUFFLED,
+               *(rnn_apply_kernel(t) for t in WIDE_T))
+    # a row per kernel's default build, then per build off it (PR 11)
+    row_kernels = [(k.name, k) for k in kernels[:14]]
+    row_kernels += [(wide_row(k, topo, t_len), k)
+                    for k, topo, t_len in wide_rows()]
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": f"srnn_tpu_torch/csrc/{k.source}.cu",
+                   "replaces": k.replaces, "library_ms": None}
+            for name, k in row_kernels}
 
     def phase(what, fn, *args):
         t0 = time.perf_counter()
@@ -2230,6 +2625,8 @@ def main() -> int:
     try:
         phase("weightwise kernels", check_kernels, torch, rows)
         phase("variant kernels", check_variant_kernels, torch, rows)
+        phase("kernels off the default builds", check_wide_kernels, torch,
+              rows)
     finally:
         sampler.stop()
     for what, t0, t1 in CLOCK_WINDOWS:
@@ -2242,13 +2639,16 @@ def main() -> int:
           kernels)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    for k in kernels:
-        rows[k.name]["launches"] = launches[k.name]
+    for name in rows:
+        rows[name]["launches"] = launches.get(name, 0)
+    idle = [name for name in rows if not rows[name]["launches"]]
+    if idle:
+        return fail(f"kernels of the main path never launched: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{key: rows[k.name][key] for key in keys}
-                                  for k in kernels]}))
+    print(json.dumps({"kernels": [{key: row[key] for key in keys}
+                                  for row in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,10 @@ sequential (strict-parity) soup; the mixed-type soup (``multisoup``) in
 both layouts; both train modes everywhere -- on the kernels of ``csrc/``
 (chained self-application, the SGD chains in enumeration order and in
 keras' shuffled order, the recurrent attack, the fused generation) for
-the particles they are instantiated for, on the autograd chains for every
-other particle the JAX package trains (any activation, width, depth and
-aggregates; ``rnn_scan='associative'``; ``shuffler='random'`` where the
+the particles inside their envelope (the JAX package's Pallas one: an
+output-expressible activation, up to 64 weights), on the autograd chains
+for every other particle the JAX package trains (any activation, width,
+depth and aggregates; ``rnn_scan='associative'``; ``shuffler='random'`` where the
 JAX package runs it).
 """
 

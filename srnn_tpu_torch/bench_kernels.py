@@ -314,7 +314,7 @@ def install(libs: Dict[str, Path]) -> None:
         lib = ctypes.CDLL(str(path))
         lib.srnn_error_string.argtypes = [ctypes.c_int]
         lib.srnn_error_string.restype = ctypes.c_char_p
-        _build._LOADED[name] = lib
+        _build._LOADED[(name, _build.DEFAULT.tag)] = lib
 
 
 def ordered(t: torch.Tensor) -> torch.Tensor:
@@ -741,7 +741,8 @@ def main(argv=None) -> int:
         install(libs[v.label])
         # K2's shuffled instantiation only where the variant has it
         shuffled = "ww_train" not in libs[v.label] or hasattr(
-            _build._LOADED["ww_train"], cwt.WW_SGD_SHUFFLED.symbol)
+            _build._LOADED[("ww_train", _build.DEFAULT.tag)],
+            cwt.WW_SGD_SHUFFLED.symbol)
         avail[v.label] = {name: r for name, r in runs.items()
                           if shuffled or not name.startswith("k2s")}
         try:

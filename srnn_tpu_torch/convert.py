@@ -5,7 +5,7 @@ Everything here takes plain values -- numpy arrays, ints, dicts of fields
 import of the JAX package.  The JAX config names its implementations 'xla'
 and 'pallas'; here they are 'plain' and 'kernel', with the JAX package's
 meaning: 'plain' (the default, as 'xla' is there) runs every particle, on
-the hand-written kernels where they are instantiated for it and on the
+the hand-written kernels inside their envelope and on the
 autograd chains elsewhere (``ops/popmajor.train_route``); 'kernel' asks
 for the kernels and raises upfront where a particle is outside them, as
 'pallas' raises outside the Pallas envelope.  Weights keep their

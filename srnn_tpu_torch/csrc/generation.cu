@@ -57,7 +57,7 @@ struct WwBody {
 extern "C" int SRNN_GEN_ENTRY(srnn_ww_generation)(
     SRNN_GEN_PARAMS(SRNN_GEN_POP), int width, int depth, int act_code,
     const float* coords, void* stream) {
-  constexpr int W = 2, D = 2;
+  constexpr int W = SRNN_W, D = SRNN_D;
   if (width != W || depth != D || n <= 0 || severity < 0 || train < 0 ||
       !srnn::coords_match<W, D>(coords))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -64,15 +64,16 @@ int launch(const srnn::GenArgs<Pop>& g, bool src_target, void* stream) {
 // Pop is float here, __nv_bfloat16 in the _bf16 entry);
 // tables: the float32 host array of ops/cuda_kvec_train.py, kvec_tables,
 // which must equal the kernel's compile-time table (srnn::tables_match); it
-// also says whether the fft transform reads the target.  Only width 2,
-// depth 2, aggregates 4 is instantiated.  Returns cudaGetLastError().
+// also says whether the fft transform reads the target.  Instantiated for
+// the build's width, depth and aggregates (SRNN_W, SRNN_D, SRNN_K:
+// lane_common.cuh).  Returns cudaGetLastError().
 extern "C" int SRNN_GEN_ENTRY(srnn_kvec_generation)(
     SRNN_GEN_PARAMS(SRNN_GEN_POP), int width, int depth, int aggregates,
     int act_code, int reduce_code, const float* tables, void* stream) {
-  if (width != 2 || depth != 2 || aggregates != 4 || n <= 0 ||
+  constexpr int W = SRNN_W, D = SRNN_D, K = SRNN_K, P = srnn::KV<W, D, K>::P;
+  if (width != W || depth != D || aggregates != K || n <= 0 ||
       severity < 0 || train < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int W = 2, D = 2, K = 4, P = srnn::KV<W, D, K>::P;
   const auto g = SRNN_GEN_ARGS(SRNN_GEN_POP);
   const bool src_target = srnn::tables_src_target<P, K>(tables);
   SRNN_DISPATCH_REDUCE(reduce_code,

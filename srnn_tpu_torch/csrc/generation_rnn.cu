@@ -56,13 +56,14 @@ struct RnnBody {
 
 // Pointers as in srnn::GenArgs<Pop> (device arrays; null disables a phase;
 // Pop is float here, __nv_bfloat16 in the _bf16 entry).
-// Only width 2, depth 2 is instantiated.  Returns cudaGetLastError().
+// Instantiated for the build's width and depth (SRNN_W, SRNN_D:
+// lane_common.cuh).  Returns cudaGetLastError().
 extern "C" int SRNN_GEN_ENTRY(srnn_rnn_generation)(
     SRNN_GEN_PARAMS(SRNN_GEN_POP), int width, int depth, int act_code,
     void* stream) {
-  if (width != 2 || depth != 2 || n <= 0 || severity < 0 || train < 0)
+  constexpr int W = SRNN_W, D = SRNN_D;
+  if (width != W || depth != D || n <= 0 || severity < 0 || train < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int W = 2, D = 2;
   const auto g = SRNN_GEN_ARGS(SRNN_GEN_POP);
   SRNN_DISPATCH_ACT(act_code,
       return srnn::launch_generation<RnnBody<W, D, A>>(g, NoConsts{}, stream));

@@ -85,9 +85,10 @@ struct KV {
 // cos basis, and exp[m][j], the inverse basis -- the float32 values of
 // ops/cuda_kvec_train.py's kvec_tables (dft_cos_rows, kvec_expand_basis:
 // float64, rounded once) as hex-float literals;
-// tests/test_torch_kvec_host.py holds them against it bit for bit.  Defined
-// for the instantiated topology only (width 2, depth 2, aggregates 4: P =
-// 20).
+// tests/test_torch_kvec_host.py holds them against it bit for bit.  Written
+// here for width 2, depth 2, aggregates 4 (P = 20); a build for another fft
+// topology includes its table, generated from kvec_tables into the build
+// directory (ops/cuda_kvec_train.py, dft_table_header; SRNN_DFT_TABLE).
 template <int P, int K, int R>
 struct DftTable;
 
@@ -182,6 +183,10 @@ struct DftTable<20, 4, RDFT> {  // fft_mode 'rfft'
       {0x1.99999ap-5f, 0x1.4b5f94p-4f, 0x1.fa4b2p-6f, -0x1.fa4b2p-6f},
       {0x1.99999ap-5f, 0x1.858d8p-4f, 0x1.4b5f94p-4f, 0x1.e1838p-5f}};
 };
+
+#ifdef SRNN_DFT_TABLE
+#include "srnn_dft_table.cuh"
+#endif
 
 // Entry kinds of kvec_tables' bases: a reduce coefficient of exactly 0.0 is
 // skipped, one of exactly 1.0 takes the row itself, any other multiplies;
@@ -483,7 +488,16 @@ __device__ __forceinline__ void kvec_apply(const float (&self)[KV<W, D, K>::P],
 
 }  // namespace srnn
 
-// Dispatch of the runtime reduce code to the template instantiation.
+// Dispatch of the runtime reduce code to the template instantiation (the
+// one kind SRNN_REDUCE names, in a build for one topology: lane_common.cuh).
+#ifdef SRNN_REDUCE
+#define SRNN_DISPATCH_REDUCE(reduce_code, ...)                                    \
+  {                                                                               \
+    if ((reduce_code) != SRNN_REDUCE) return static_cast<int>(cudaErrorInvalidValue); \
+    constexpr int R = SRNN_REDUCE;                                                \
+    __VA_ARGS__;                                                                  \
+  }
+#else
 #define SRNN_DISPATCH_REDUCE(reduce_code, ...)                                    \
   switch (reduce_code) {                                                          \
     case srnn::AVERAGE: { constexpr int R = srnn::AVERAGE; __VA_ARGS__; break; }   \
@@ -493,3 +507,4 @@ __device__ __forceinline__ void kvec_apply(const float (&self)[KV<W, D, K>::P],
     case srnn::RDFT: { constexpr int R = srnn::RDFT; __VA_ARGS__; break; }         \
     default: return static_cast<int>(cudaErrorInvalidValue);                      \
   }
+#endif

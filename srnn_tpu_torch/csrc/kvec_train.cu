@@ -74,17 +74,16 @@ int launch(const float* wT, const float* otherT, float* out, float* loss,
 // wT, out: (P, n); otherT: (P, n) imitation targets, or null for
 // self-training; loss: (n,).  tables: the float32 host array of
 // ops/cuda_kvec_train.py, kvec_tables, which must equal the kernel's
-// compile-time table (srnn::tables_match).  Only width 2, depth 2,
-// aggregates 4 is instantiated; the Python wrappers refuse other topologies
-// first.
+// compile-time table (srnn::tables_match).  Instantiated for the build's
+// width, depth and aggregates (SRNN_W, SRNN_D, SRNN_K: lane_common.cuh).
 extern "C" int srnn_kvec_sgd(const float* wT, const float* otherT, float* out,
                              float* loss, long long n, int epochs, float lr,
                              int width, int depth, int aggregates,
                              int act_code, int reduce_code,
                              const float* tables, void* stream) {
-  if (width != 2 || depth != 2 || aggregates != 4 || n <= 0 || epochs < 0)
+  constexpr int W = SRNN_W, D = SRNN_D, K = SRNN_K, P = srnn::KV<W, D, K>::P;
+  if (width != W || depth != D || aggregates != K || n <= 0 || epochs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int W = 2, D = 2, K = 4, P = srnn::KV<W, D, K>::P;
   const auto s = static_cast<cudaStream_t>(stream);
   SRNN_DISPATCH_REDUCE(reduce_code,
       if (!srnn::tables_match<P, K, R>(tables))

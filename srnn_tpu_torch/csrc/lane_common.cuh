@@ -62,7 +62,34 @@ inline unsigned int blocks_for(long long n) {
 
 }  // namespace srnn
 
+// The topology an entry point is built for.  The default build of a source
+// is the width-2 / depth-2 / 4-aggregate one with every activation (and,
+// for the k-vector sources, every reduce kind; for K6 the victim lengths
+// 14, 17 and 20); any other topology up to 64 weights gets a build of its
+// own at first use (ops/_build.py), with its width, depth and aggregates
+// and its activation (SRNN_ACT), reduce kind (SRNN_REDUCE) and K6's victim
+// length (SRNN_T) set by -D flags, so that the library holds that one
+// instantiation.  The entry points refuse arguments that differ from what
+// they were built for (cudaErrorInvalidValue).
+#ifndef SRNN_W
+#define SRNN_W 2
+#endif
+#ifndef SRNN_D
+#define SRNN_D 2
+#endif
+#ifndef SRNN_K
+#define SRNN_K 4
+#endif
+
 // Dispatch of the runtime activation code to the template instantiation.
+#ifdef SRNN_ACT
+#define SRNN_DISPATCH_ACT(act_code, ...)                                        \
+  {                                                                             \
+    if ((act_code) != SRNN_ACT) return static_cast<int>(cudaErrorInvalidValue); \
+    constexpr int A = SRNN_ACT;                                                 \
+    __VA_ARGS__;                                                                \
+  }
+#else
 #define SRNN_DISPATCH_ACT(act_code, ...)                                        \
   switch (act_code) {                                                           \
     case srnn::LINEAR: { constexpr int A = srnn::LINEAR; __VA_ARGS__; break; }   \
@@ -71,6 +98,7 @@ inline unsigned int blocks_for(long long n) {
     case srnn::RELU: { constexpr int A = srnn::RELU; __VA_ARGS__; break; }       \
     default: return static_cast<int>(cudaErrorInvalidValue);                    \
   }
+#endif
 
 extern "C" const char* srnn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

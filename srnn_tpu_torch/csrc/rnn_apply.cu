@@ -13,12 +13,14 @@
 // Design: one thread per particle, the attacker's 17 weights and the
 // victim's sequence in registers, the T steps unrolled (rnn_common.cuh), one
 // coalesced read of each operand row and one write per output row.  The
-// victim's length T is a template parameter, instantiated for the victims
-// the width-2 / depth-2 topologies give: T = 14 (weightwise), 17
+// victim's length T is a template parameter.  The default build holds the
+// victims the width-2 / depth-2 topologies give: T = 14 (weightwise), 17
 // (recurrent: the homogeneous soup's T = P) and 20 (aggregating, fft) --
-// the mixed-type soup's cross attacks (popmajor_cross.py).  At T = 20 the
-// thread holds w[17], x[20] and y[20] plus the forward's carries; ptxas'
-// spill report is printed by chip_smoke.py.
+// the mixed-type soup's cross attacks (popmajor_cross.py); any other
+// attacker topology or victim length up to 64 gets a build of its own
+// (SRNN_T, lane_common.cuh).  At T = 20 the thread holds w[17], x[20] and
+// y[20] plus the forward's carries; ptxas' spill report is printed by
+// chip_smoke.py.
 
 #include "rnn_common.cuh"
 
@@ -42,7 +44,17 @@ rnn_apply_kernel(const float* __restrict__ selfT,
   for (int t = 0; t < T; ++t) out[srnn::lane(t, n, i)] = y[t];
 }
 
-// The instantiated victim lengths (ops/cuda_rnn_apply.py: KERNEL_T_LENGTHS).
+// The instantiated victim lengths: the one SRNN_T names in a build for
+// one (attacker, victim length) pair, else the default build's
+// (ops/cuda_rnn_apply.py: DEFAULT_T_LENGTHS).
+#ifdef SRNN_T
+#define SRNN_DISPATCH_T(t_len, ...)                                          \
+  {                                                                          \
+    if ((t_len) != SRNN_T) return static_cast<int>(cudaErrorInvalidValue);  \
+    constexpr int T = SRNN_T;                                                \
+    __VA_ARGS__;                                                             \
+  }
+#else
 #define SRNN_DISPATCH_T(t_len, ...)                          \
   switch (t_len) {                                           \
     case 14: { constexpr int T = 14; __VA_ARGS__; break; }   \
@@ -50,16 +62,18 @@ rnn_apply_kernel(const float* __restrict__ selfT,
     case 20: { constexpr int T = 20; __VA_ARGS__; break; }   \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
+#endif
 
 }  // namespace
 
-// selfT: (P, n) attackers; targetT, out: (t_len, n) victims and results,
-// t_len in {14, 17, 20}.  Only width 2, depth 2 is instantiated; any other
-// t_len returns cudaErrorInvalidValue.
+// selfT: (P, n) attackers; targetT, out: (t_len, n) victims and results.
+// Instantiated for the build's attacker width and depth (SRNN_W, SRNN_D:
+// lane_common.cuh) and victim lengths; any other t_len returns
+// cudaErrorInvalidValue.
 extern "C" int srnn_rnn_apply(const float* selfT, const float* targetT,
                               float* out, long long n, int t_len, int width,
                               int depth, int act_code, void* stream) {
-  constexpr int W = 2, D = 2;
+  constexpr int W = SRNN_W, D = SRNN_D;
   if (width != W || depth != D || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);

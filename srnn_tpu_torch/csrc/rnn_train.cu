@@ -49,14 +49,14 @@ rnn_sgd_kernel(const float* __restrict__ wT, const float* __restrict__ otherT,
 }  // namespace
 
 // wT, out: (P, n); otherT: (P, n) imitation targets, or null for
-// self-training; loss: (n,).  Only width 2, depth 2 is instantiated; the
-// Python wrappers refuse other topologies first.
+// self-training; loss: (n,).  Instantiated for the build's width and depth
+// (SRNN_W, SRNN_D: lane_common.cuh).
 extern "C" int srnn_rnn_sgd(const float* wT, const float* otherT, float* out,
                             float* loss, long long n, int epochs, float lr,
                             int width, int depth, int act_code, void* stream) {
-  if (width != 2 || depth != 2 || n <= 0 || epochs < 0)
+  constexpr int W = SRNN_W, D = SRNN_D;
+  if (width != W || depth != D || n <= 0 || epochs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int W = 2, D = 2;
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned int g = srnn::blocks_for(n);
   if (otherT == nullptr) {

@@ -59,7 +59,7 @@ ww_apply_kernel(const float* __restrict__ wT, float* __restrict__ out,
 extern "C" int srnn_ww_apply(const float* wT, float* out, long long n,
                              int steps, int width, int depth, int act_code,
                              const float* coords, void* stream) {
-  constexpr int W = 2, D = 2;
+  constexpr int W = SRNN_W, D = SRNN_D;
   if (width != W || depth != D || n <= 0 || steps < 0 ||
       !srnn::coords_match<W, D>(coords))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -94,7 +94,7 @@ extern "C" int srnn_ww_sgd(const float* wT, const float* otherT, float* out,
                            float* loss, long long n, int epochs, float lr,
                            int width, int depth, int act_code,
                            const float* coords, void* stream) {
-  constexpr int W = 2, D = 2;
+  constexpr int W = SRNN_W, D = SRNN_D;
   if (width != W || depth != D || n <= 0 || epochs < 0 ||
       !srnn::coords_match<W, D>(coords))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -121,7 +121,7 @@ extern "C" int srnn_ww_sgd_shuffled(const float* wT, const float* otherT,
                                     const float* coords,
                                     const unsigned char* order,
                                     void* stream) {
-  constexpr int W = 2, D = 2;
+  constexpr int W = SRNN_W, D = SRNN_D;
   if (width != W || depth != D || n <= 0 || epochs < 0 ||
       (epochs > 0 && order == nullptr) || !srnn::coords_match<W, D>(coords))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -12,8 +12,8 @@ they were given, and transposes once on the way in and once on the way
 out to the layout its steps run in:
 
   * self-application: weightwise on K1 (``ops/cuda_ww``, one launch a
-    step on the population-major (P, N) transpose) where K1 is
-    instantiated for the topology, else its plain chain
+    step on the population-major (P, N) transpose) inside the kernels'
+    envelope, else its plain chain
     (``ops/popmajor.ww_forward_popmajor``, on either device); aggregating
     and fft in plain torch on the same layout
     (``ops/popmajor.apply_popmajor``, as in the JAX package).  The recurrent
@@ -26,7 +26,7 @@ out to the layout its steps run in:
     (``run_mixed_fixpoint``), all through ``train.train_epochs``, whose
     route (``ops/popmajor.train_route``) is the variant's SGD kernel (K2,
     K4, K5; their plain chains on a CPU tensor) inside the kernels'
-    instantiations, the weightwise full batch's hand-derived step, or the
+    envelope, the weightwise full batch's hand-derived step, or the
     autograd chains for every other particle.  The recurrent variant
     transposes around each training call.
   * keras' shuffled epoch (``run_training(shuffle_key=)``, a
@@ -232,7 +232,7 @@ def run_training(topo: Topology, pop: torch.Tensor, epochs: int = 1000,
     moving-target regression toward being a fixpoint
     (``network.py:613-618``).  One training call per epoch on the
     population-major transpose (one kernel launch an epoch on the card,
-    inside the kernels' instantiations), which keeps every epoch's (N,)
+    inside the kernels' envelope), which keeps every epoch's (N,)
     loss.
 
     ``shuffle_key`` (a ``torch.Generator``) is keras ``fit``'s per-epoch

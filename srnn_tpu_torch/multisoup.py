@@ -17,7 +17,7 @@ respawn, last-action-wins events), with the JAX package's typed choices:
     teacher's sample space to match);
   * learn, train and respawn run per type: on the type's route
     (``ops/popmajor.train_route``: its SGD kernel, K2, K4 or K5, inside the
-    kernels' instantiations; the weightwise full batch's hand-derived step;
+    kernels' envelope; the weightwise full batch's hand-derived step;
     the autograd chains for every other type, so that an elu type sits
     beside kernel types), the predicates and the fresh select, or, on the
     fused route, as one launch of the type's generation kernel (K3) with no
@@ -41,10 +41,10 @@ Layouts (``layout``):
   * ``'popmajor'``: every type is a (P_t, N_t) lane matrix between
     generations (``evolve_multi`` transposes once per type at entry and
     exit); the recurrent attackers run K6 once per victim type a
-    generation where K6 is instantiated for the pair (``apply_route``),
-    its plain version elsewhere; ``generation_impl`` 'phases' or 'fused',
-    the latter per type where the generation kernel is instantiated for it
-    and the phases elsewhere, as the JAX package falls back per type
+    generation where K6 takes the pair (``apply_route``), its plain
+    version elsewhere; ``generation_impl`` 'phases' or 'fused', the latter
+    per type where the generation kernel takes it and the phases
+    elsewhere, as the JAX package falls back per type
     (``resolved_generation_impl``).  A random shuffler is refused here, as
     in the JAX package.
 
@@ -83,10 +83,11 @@ class MultiSoupConfig(NamedTuple):
     ``MultiSoupConfig``, with its defaults ('xla' reads 'plain' here).
     ``train_impl`` 'plain' routes each type (``resolved_train_impls``);
     'kernel' asks for the kernels for every type and raises upfront where a
-    type is outside their instantiations.  ``apply_impl`` 'kernel' asks for
-    K6 for every recurrent attacker and victim type.  Their 'kernel'
-    spellings are refused by the row-major layout, as the JAX package
-    refuses 'pallas' there."""
+    type is outside their envelope.  ``apply_impl`` 'kernel' asks for K6
+    for every recurrent attacker and victim type.  Their 'kernel'
+    spellings are refused by the row-major layout and beside
+    ``generation_impl='fused'``, as the JAX package refuses 'pallas'
+    there."""
     topos: Tuple[Topology, ...]
     sizes: Tuple[int, ...]
     attacking_rate: float = 0.1
@@ -181,14 +182,22 @@ def _check_multi(config: MultiSoupConfig) -> None:
     if any(s < 1 for s in config.sizes):
         raise ValueError(f"every type needs at least one particle, got "
                          f"sizes {config.sizes}")
+    if config.generation_impl == "fused" and (
+            config.train_impl == "kernel" or config.apply_impl == "kernel"):
+        raise ValueError(
+            "generation_impl='fused' already fuses the per-type SGD "
+            "chains; use train_impl='plain' and apply_impl='plain' (the "
+            "per-phase kernel legs are subsumed)")
     if config.layout == "popmajor" and any(
             t.shuffler == "random" for t in config.topos):
         raise ValueError(
             "layout='popmajor' requires shuffler='not' on every topo "
             "(per-lane permutation — use layout='rowmajor')")
     for t, topo in enumerate(config.topos):
+        # the attack is checked for every (attacker, victim) pair below
         _check_config(config.type_config(t)._replace(
-            generation_impl=resolved_generation_impl(config, topo)))
+            generation_impl=resolved_generation_impl(config, topo),
+            apply_impl="plain"))
     if config.apply_impl == "kernel":
         for att in config.topos:
             for vic in config.topos:
@@ -196,9 +205,11 @@ def _check_multi(config: MultiSoupConfig) -> None:
                         att, vic.num_weights) != "kernel":
                     raise ValueError(
                         "apply_impl='kernel' runs every recurrent attack on "
-                        "K6, instantiated for victims of 14, 17 and 20 "
-                        f"weights; a victim of {vic.num_weights} needs "
-                        "apply_impl='plain'")
+                        "K6: an attacker with an output-expressible "
+                        "activation, attacker and victim of up to 64 "
+                        f"weights; the attacker ({att.activation}, P = "
+                        f"{att.num_weights}) on a victim of "
+                        f"{vic.num_weights} needs apply_impl='plain'")
 
 
 def fused_supported_multi(config: MultiSoupConfig) -> bool:
@@ -230,7 +241,7 @@ def resolved_train_impls(config: MultiSoupConfig) -> str:
 def resolved_generation_impl(config: MultiSoupConfig,
                              topo: Topology) -> str:
     """The generation route type ``topo`` takes: 'fused' where the config
-    asks for it and the generation kernel is instantiated for the topology
+    asks for it and the generation kernel takes the topology
     (``fused_kernel_supported``), else 'phases', per type, as the JAX
     package falls back (``multisoup.resolved_generation_impl``)."""
     return "fused" if (config.generation_impl == "fused" and

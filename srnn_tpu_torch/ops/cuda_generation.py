@@ -30,13 +30,14 @@ import torch
 from ..topology import Topology
 from .activations import KERNEL_ACT_CODES
 from .cuda_kvec_train import (REDUCE_CODES, kvec_apply_rows_plain,
-                              kvec_sgd_chain_plain, kvec_tables,
+                              kvec_build, kvec_sgd_chain_plain, kvec_tables,
                               reduce_kind, reduce_rows_plain)
 from .cuda_rnn_train import rnn_apply_rows_plain, rnn_sgd_chain_plain
 from .cuda_sgd_common import (_F, _I, _LL, _P, LaneKernel,
                               check_kernel_topology, check_lanes,
                               check_variant, coords_arg, is_cpu,
-                              kernel_supported, ptr, stream_arg, topo_args)
+                              kernel_build, kernel_supported, ptr,
+                              stream_arg, topo_args)
 from .cuda_ww_train import apply_rows_plain, sgd_chain_plain
 
 _REPLACES = "srnn_tpu/ops/pallas_generation.py:382"
@@ -81,13 +82,33 @@ _PLAIN_BODIES = {
 }
 
 
+def builds_for(topo: Topology, t_lens=(), bf16: bool = False):
+    """The (source, build) jobs of ``_build.build`` for every kernel that
+    runs ``topo``: its SGD chain and K3's float32 body (and, with
+    ``bf16``, K3's bfloat16 body), K1 for the weightwise variant, and for
+    the recurrent variant K6 on victims of each length in ``t_lens``; so
+    that a caller can start their nvcc processes together."""
+    check_kernel_topology(topo)
+    if topo.variant == "weightwise":
+        sources, b = ["ww_apply", "ww_train", "generation"], kernel_build(topo)
+    elif topo.variant == "recurrent":
+        sources, b = ["rnn_train", "generation_rnn"], kernel_build(topo)
+    else:
+        sources, b = ["kvec_train", "generation_kvec"], kvec_build(topo)
+    if bf16:
+        sources.append(sources[-1] + "_bf16")
+    jobs = [(s, b) for s in sources]
+    if topo.variant == "recurrent":
+        jobs += [("rnn_apply", kernel_build(topo, t_len=t)) for t in t_lens]
+    return jobs
+
+
 def fused_kernel_supported(topo: Topology, train_mode: str) -> bool:
     """Can this topology's generation run as the fused generation?  The
-    JAX package's envelope (``pallas_generation.fused_kernel_supported``:
-    an output-expressible activation, no random shuffler, and the
-    sequential train mode for the weightwise variant) within the
-    instantiations of the generation kernels (width 2, depth 2, 4
-    aggregates; ``cuda_sgd_common.kernel_supported``), decided alike on
+    JAX package's envelope (``pallas_generation.fused_kernel_supported``):
+    the kernels' envelope (an output-expressible activation, up to 64
+    weights; ``cuda_sgd_common.kernel_supported``), no random shuffler, and
+    the sequential train mode for the weightwise variant; decided alike on
     either device."""
     if not kernel_supported(topo):
         return False
@@ -224,15 +245,15 @@ def generation_popmajor(topo: Topology, wT, freshT, attackerT=None,
         act = KERNEL_ACT_CODES[topo.activation]
         if topo.variant == "weightwise":
             coords = coords_arg(topo)
-            ww_body.launch(*head, *topo_args(topo), coords.ctypes.data,
-                           stream_arg(wT))
+            ww_body.launch(kernel_build(topo), *head, *topo_args(topo),
+                           coords.ctypes.data, stream_arg(wT))
         elif topo.variant == "recurrent":
-            rnn_body.launch(*head, topo.width, topo.depth, act,
-                            stream_arg(wT))
+            rnn_body.launch(kernel_build(topo), *head, topo.width,
+                            topo.depth, act, stream_arg(wT))
         else:
             tables = kvec_tables(topo)
-            kvec_body.launch(*head, topo.width, topo.depth,
-                             topo.aggregates, act,
+            kvec_body.launch(kvec_build(topo), *head, topo.width,
+                             topo.depth, topo.aggregates, act,
                              REDUCE_CODES[reduce_kind(topo)],
                              tables.ctypes.data, stream_arg(wT))
     return out, loss, dead[0] != 0, dead[1] != 0

@@ -23,6 +23,11 @@ MLP, expand), the twin of ``pallas_generation.apply_rows``: the fft expand
 is a float64 inverse basis rounded to float32 (``kvec_expand_basis``), the
 aggregating expand keeps a 0.0-weighted term for every out-of-segment
 aggregate.
+
+The kernels compile the fft bases in (``DftTable``): written out in
+``csrc/kvec_common.cuh`` for width 2 / depth 2 / 4 aggregates, and for any
+other fft topology generated from ``kvec_tables`` into its build
+(``dft_table_header``).
 """
 
 import functools
@@ -34,7 +39,8 @@ import torch
 from ..topology import Topology, aggregation_segments
 from .activations import resolve_output_grad
 from .cuda_sgd_common import (_I, _P, SGD_HEAD, KERNEL_ACT_CODES, LaneKernel,
-                              check_lanes, check_variant, is_cpu, lane_call)
+                              check_lanes, check_variant, is_cpu,
+                              kernel_build, lane_call)
 from .cuda_ww_train import mlp_backward_plain
 from .mlp import mlp_rows_plain
 from .popmajor_kvec import segment_bounds
@@ -117,6 +123,49 @@ def kvec_tables(topo: Topology) -> np.ndarray:
     src_target = float(topo.variant == "aggregating" or topo.fft_use_target)
     return np.concatenate([red.ravel(), exp.ravel(), red_kind.ravel(),
                            exp_kind.ravel(), [src_target]]).astype(np.float32)
+
+
+#: the (P, k) whose DftTable ``csrc/kvec_common.cuh`` writes out itself
+_WRITTEN_TABLES = (20, 4)
+
+
+def dft_table_header(topo: Topology) -> str:
+    """``DftTable<P, k, DFT or RDFT>`` of the fft topology ``topo`` as C++
+    source: ``kvec_tables``' float32 reduce and expand bases (float64,
+    rounded once) as hex-float literals, the sign of zero kept, for the
+    kernels' build of that topology to include."""
+    p, k = topo.num_weights, topo.aggregates
+    t = kvec_tables(topo)
+    red, exp = t[:k * p].reshape(k, p), t[k * p:2 * k * p].reshape(p, k)
+    kind = "DFT" if topo.fft_mode == "fft" else "RDFT"
+
+    def rows(a):
+        return ",\n".join(
+            "      {" + ", ".join(float(v).hex() + "f" for v in r) + "}"
+            for r in a)
+
+    return (f"// DftTable of fft_mode {topo.fft_mode!r}, P = {p}, k = {k}: "
+            "generated by srnn_tpu_torch/ops/cuda_kvec_train.py "
+            "(dft_table_header)\n"
+            f"template <>\nstruct DftTable<{p}, {k}, {kind}> {{\n"
+            f"  static constexpr float red[{k}][{p}] = {{\n{rows(red)}}};\n"
+            f"  static constexpr float exp[{p}][{k}] = {{\n{rows(exp)}}};\n"
+            "};\n")
+
+
+def kvec_build(topo: Topology):
+    """The build of the k-vector sources that runs ``topo``
+    (``cuda_sgd_common.kernel_build``), with its generated DFT table where
+    it is an fft topology off the written-out one."""
+    kind = reduce_kind(topo)
+    headers = ()
+    if topo.variant == "fft" and (topo.num_weights,
+                                  topo.aggregates) != _WRITTEN_TABLES:
+        headers = (("srnn_dft_table.cuh", dft_table_header(topo)),)
+    b = kernel_build(topo, (kind, REDUCE_CODES[kind]), headers=headers)
+    if headers:
+        b = b._replace(defines=b.defines + (("SRNN_DFT_TABLE", 1),))
+    return b
 
 
 def reduce_rows_plain(topo: Topology, rows: Sequence[torch.Tensor]
@@ -235,7 +284,8 @@ def _launch(topo: Topology, arrays, epochs: int, lr: float):
     return lane_call(KVEC_SGD, topo, arrays, epochs, lr, topo.width,
                      topo.depth, topo.aggregates,
                      KERNEL_ACT_CODES[topo.activation],
-                     REDUCE_CODES[reduce_kind(topo)], tables.ctypes.data)
+                     REDUCE_CODES[reduce_kind(topo)], tables.ctypes.data,
+                     build=kvec_build(topo))
 
 
 def kvec_train_epochs(topo: Topology, wT: torch.Tensor, epochs: int,

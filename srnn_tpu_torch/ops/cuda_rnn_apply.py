@@ -6,30 +6,48 @@
 (parameters ``selfT[:, n]``) rewrites the sequence ``targetT[:, n]``, with
 the forward of K5 (``rnn_forward_rows_plain``, explicit zero h_{-1}
 terms).  The victim's length T may differ from the attacker's P (the
-mixed-type soup's cross attacks).  The card's kernel is instantiated for the
-victims the width-2 / depth-2 topologies give, ``KERNEL_T_LENGTHS``: T = 14
-(weightwise), 17 (recurrent) and 20 (aggregating, fft); each length has its
-own launch count (``RNN_APPLY_BY_T[T]``; ``RNN_APPLY`` is T = 17's).  Any other T raises ``ValueError`` on
-the card; the plain version takes any T.
+mixed-type soup's cross attacks).  On the card the kernel takes, like the
+JAX package's ``_use_pallas_apply``, an attacker inside the kernels'
+envelope (``cuda_sgd_common``) and a victim of up to
+``KERNEL_MAX_WEIGHTS`` weights: the default build holds the width-2 /
+depth-2 attackers on the victims those topologies give, T = 14
+(weightwise), 17 (recurrent) and 20 (aggregating, fft); any other pair
+loads a build of its own.  Each length has its own launch count
+(``rnn_apply_kernel(T)``, in ``RNN_APPLY_BY_T``; ``RNN_APPLY`` is T = 17's).
+A longer victim raises ``ValueError`` on the card; the plain version takes
+any T.
 """
 
 import torch
 
 from ..topology import Topology
 from .cuda_rnn_train import rnn_apply_rows_plain
-from .cuda_sgd_common import (_I, _LL, _P, KERNEL_ACT_CODES, LaneKernel,
-                              check_kernel_topology, check_lanes,
-                              check_variant, is_cpu, ptr, stream_arg)
+from .cuda_sgd_common import (_I, _LL, _P, DEFAULT_T_LENGTHS,
+                              KERNEL_ACT_CODES, KERNEL_MAX_WEIGHTS,
+                              LaneKernel, check_kernel_topology, check_lanes,
+                              check_variant, is_cpu, kernel_build, ptr,
+                              stream_arg)
 
-#: victim lengths the kernel is instantiated for (csrc/rnn_apply.cu)
-KERNEL_T_LENGTHS = (14, 17, 20)
-#: T -> the kernel's instantiation for victims of length T; T = 17 (the
-#: homogeneous recurrent soup's) keeps the name it had before the others
-RNN_APPLY_BY_T = {
-    t: LaneKernel("rnn_apply" if t == 17 else f"rnn_apply_t{t}", "rnn_apply",
-                  "srnn_rnn_apply", [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
-                  replaces="srnn_tpu/ops/pallas_rnn_apply.py:50")
-    for t in KERNEL_T_LENGTHS}
+#: T -> the kernel's launch count for victims of length T, made at the
+#: length's first use; T = 17 (the homogeneous recurrent soup's) keeps the
+#: name it had before the others
+RNN_APPLY_BY_T = {}
+
+
+def rnn_apply_kernel(t_len: int) -> LaneKernel:
+    """K6 for victims of length ``t_len``."""
+    kernel = RNN_APPLY_BY_T.get(t_len)
+    if kernel is None:
+        kernel = RNN_APPLY_BY_T[t_len] = LaneKernel(
+            "rnn_apply" if t_len == 17 else f"rnn_apply_t{t_len}",
+            "rnn_apply", "srnn_rnn_apply", [_P, _P, _P, _LL, _I, _I, _I, _I,
+                                            _P],
+            replaces="srnn_tpu/ops/pallas_rnn_apply.py:50")
+    return kernel
+
+
+for _t in DEFAULT_T_LENGTHS:
+    rnn_apply_kernel(_t)
 RNN_APPLY = RNN_APPLY_BY_T[17]
 
 
@@ -53,13 +71,15 @@ def rnn_apply(topo: Topology, selfT: torch.Tensor,
         return rnn_apply_plain(topo, selfT, targetT)
     check_kernel_topology(topo)
     t_len = targetT.shape[0]
-    if t_len not in RNN_APPLY_BY_T:
+    if t_len > KERNEL_MAX_WEIGHTS:
         raise ValueError(
-            f"the rnn_apply kernel is instantiated for victims of length T "
-            f"in {KERNEL_T_LENGTHS}; T = {t_len} has no instantiation")
+            f"the rnn_apply kernel takes victims of up to "
+            f"{KERNEL_MAX_WEIGHTS} weights (the JAX package's Pallas fence);"
+            f" T = {t_len} is longer")
     out = torch.empty_like(targetT)
     if n:
-        RNN_APPLY_BY_T[t_len].launch(
-            ptr(selfT), ptr(targetT), ptr(out), n, t_len, topo.width,
-            topo.depth, KERNEL_ACT_CODES[topo.activation], stream_arg(selfT))
+        rnn_apply_kernel(t_len).launch(
+            kernel_build(topo, t_len=t_len), ptr(selfT), ptr(targetT),
+            ptr(out), n, t_len, topo.width, topo.depth,
+            KERNEL_ACT_CODES[topo.activation], stream_arg(selfT))
     return out

@@ -3,7 +3,8 @@
 
 ``LaneKernel`` is one hand-written kernel: the ``csrc/`` source it builds
 from, its C entry point, and its launch count (``launches`` goes up by one
-where the kernel is launched, and nowhere else).  ``lane_call`` is the one
+where the kernel is launched, and nowhere else; ``launches_by`` splits it
+by build).  ``lane_call`` is the one
 launcher of the SGD chains (K2, K4, K5), the counterpart of ``lane_call``:
 it allocates the outputs and launches one thread per particle.  Unlike the
 Pallas launcher it pads nothing: the kernels guard the ragged edge.
@@ -12,10 +13,18 @@ Rules every wrapper follows: a CPU tensor runs the plain torch version; a
 CUDA tensor launches the kernel or raises -- never a fallback.  A topology,
 dtype or layout the kernels do not take raises ``ValueError`` before any
 launch.  Launches go on the current stream and do not synchronise.
+
+The kernels' envelope is the JAX package's Pallas envelope: every variant,
+an activation with an output-expressible derivative, and particles of up
+to ``KERNEL_MAX_WEIGHTS`` weights.  Each source's default build holds the
+width-2 / depth-2 / 4-aggregate topologies of the paper's setups; a launch
+for any other topology loads the build of that topology (``kernel_build``),
+compiled at its first use.
 """
 
+import collections
 import ctypes
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,11 +33,16 @@ from ..topology import Topology, normalized_weight_coords
 from . import _build
 from .activations import KERNEL_ACT_CODES
 
-#: the topologies the kernel templates are instantiated for (every variant;
-#: ``aggregates`` for the aggregating and fft variants)
-KERNEL_WIDTHS = (2,)
-KERNEL_DEPTHS = (2,)
-KERNEL_AGGREGATES = (4,)
+#: the fence of the kernels' envelope, the JAX package's
+#: (``srnn_tpu/ops/pallas_generation.py:107``): particles of up to 64
+#: weights.  Every chain is unrolled over the particle's rows in registers,
+#: so its code grows with P (~P^2 an epoch for the weightwise and recurrent
+#: chains), and so does its build.
+KERNEL_MAX_WEIGHTS = 64
+#: the topology of every source's default build (``csrc/lane_common.cuh``),
+#: and K6's victim lengths there (``csrc/rnn_apply.cu``)
+DEFAULT_WIDTH, DEFAULT_DEPTH, DEFAULT_AGGREGATES = 2, 2, 4
+DEFAULT_T_LENGTHS = (14, 17, 20)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,10 +65,14 @@ class LaneKernel:
         self.argtypes = argtypes
         self.replaces = replaces  # file:line of the Pallas kernel
         self.launches = 0
+        #: build tag ('' for the default build) -> launches
+        self.launches_by = collections.Counter()
         KERNELS.append(self)
 
-    def launch(self, *args) -> None:
-        lib = _build.load(self.source)
+    def launch(self, build: _build.Build, *args) -> None:
+        """Launch the entry point of ``build`` (``kernel_build``) with the
+        C arguments ``args``."""
+        lib = _build.load(self.source, build)
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
@@ -63,6 +81,12 @@ class LaneKernel:
             msg = lib.srnn_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc} ({msg})")
         self.launches += 1
+        self.launches_by[build.tag] += 1
+
+    def reset(self) -> None:
+        """Set the launch counts to 0."""
+        self.launches = 0
+        self.launches_by.clear()
 
 
 def is_cpu(t: torch.Tensor) -> bool:
@@ -92,8 +116,8 @@ def check_variant(topo: Topology, *variants: str) -> None:
 
 
 def kernel_supported(topo: Topology) -> bool:
-    """Are the CUDA templates instantiated for ``topo`` (its activation,
-    width, depth and, for the k-vector variants, aggregates)?"""
+    """Is ``topo`` inside the kernels' envelope (its variant, activation
+    and weight count)?"""
     try:
         check_kernel_topology(topo)
     except ValueError:
@@ -102,19 +126,43 @@ def kernel_supported(topo: Topology) -> bool:
 
 
 def check_kernel_topology(topo: Topology) -> None:
-    """Raise unless the CUDA templates are instantiated for ``topo``."""
+    """Raise unless ``topo`` is inside the kernels' envelope."""
     check_variant(topo, "weightwise", "aggregating", "fft", "recurrent")
-    if topo.width not in KERNEL_WIDTHS or topo.depth not in KERNEL_DEPTHS:
+    if topo.num_weights > KERNEL_MAX_WEIGHTS:
         raise ValueError(
-            f"the CUDA kernels are instantiated for width in {KERNEL_WIDTHS}"
-            f" and depth in {KERNEL_DEPTHS}; Topology(width={topo.width}, "
-            f"depth={topo.depth}) has no instantiation")
-    if topo.variant in ("aggregating", "fft") and \
-            topo.aggregates not in KERNEL_AGGREGATES:
-        raise ValueError(
-            f"the k-vector kernels are instantiated for aggregates in "
-            f"{KERNEL_AGGREGATES}; aggregates={topo.aggregates} has no "
-            "instantiation")
+            f"the CUDA kernels take particles of up to {KERNEL_MAX_WEIGHTS} "
+            f"weights (the JAX package's Pallas fence); this topology "
+            f"(width={topo.width}, depth={topo.depth}, "
+            f"aggregates={topo.aggregates}) has P={topo.num_weights}")
+
+
+def kernel_build(topo: Topology, reduce: Optional[Tuple[str, int]] = None,
+                 t_len: Optional[int] = None,
+                 headers: Tuple[Tuple[str, str], ...] = ()) -> _build.Build:
+    """The build of a kernel source that runs ``topo``: the default build
+    (``_build.DEFAULT``) for width 2 / depth 2 (4 aggregates for a k-vector
+    source, a victim of length 14, 17 or 20 for K6), else the build of this
+    topology: its width, depth and activation, for a k-vector source
+    (``reduce``: the reduce kind's name and code) its aggregates and reduce
+    kind, for K6 the victim length ``t_len``, and the generated ``headers``
+    it includes."""
+    kvec = reduce is not None
+    if ((topo.width, topo.depth) == (DEFAULT_WIDTH, DEFAULT_DEPTH)
+            and (not kvec or topo.aggregates == DEFAULT_AGGREGATES)
+            and (t_len is None or t_len in DEFAULT_T_LENGTHS)):
+        return _build.DEFAULT
+    shape = f"w{topo.width}d{topo.depth}"
+    defines = [("SRNN_W", topo.width), ("SRNN_D", topo.depth),
+               ("SRNN_ACT", KERNEL_ACT_CODES[topo.activation])]
+    names = [topo.activation]
+    if kvec:
+        shape += f"k{topo.aggregates}"
+        defines += [("SRNN_K", topo.aggregates), ("SRNN_REDUCE", reduce[1])]
+        names.append(reduce[0])
+    if t_len is not None:
+        shape += f"t{t_len}"
+        defines.append(("SRNN_T", t_len))
+    return _build.Build("-".join([shape] + names), tuple(defines), headers)
 
 
 def check_lanes(topo: Topology, *arrays: torch.Tensor, rows=None,
@@ -165,12 +213,13 @@ SGD_ARGTYPES = SGD_HEAD + [_I, _I, _I, _P, _P]
 
 
 def lane_call(kernel: LaneKernel, topo: Topology, arrays, epochs: int,
-              lr: float, *tail):
+              lr: float, *tail, build: Optional[_build.Build] = None):
     """Launch an SGD-chain kernel over the lane axis: ``arrays`` is
     ``[wT]`` (self-training) or ``[wT, otherT]`` (imitation), CUDA float32
     (P, N); ``tail`` the kernel's topology arguments (host pointers in it
-    are kept alive by the caller).  Returns (new (P, N) population, (N,)
-    last-epoch loss)."""
+    are kept alive by the caller); ``build`` the build to launch,
+    ``kernel_build(topo)`` by default.  Returns (new (P, N) population,
+    (N,) last-epoch loss)."""
     check_kernel_topology(topo)
     n = check_lanes(topo, *arrays)
     w = arrays[0]
@@ -181,6 +230,7 @@ def lane_call(kernel: LaneKernel, topo: Topology, arrays, epochs: int,
     if epochs < 0:
         raise ValueError("epochs must be >= 0")
     other = arrays[1] if len(arrays) > 1 else None
-    kernel.launch(ptr(w), ptr(other), ptr(out), ptr(loss), n, int(epochs),
-                  float(lr), *tail, stream_arg(w))
+    kernel.launch(kernel_build(topo) if build is None else build, ptr(w),
+                  ptr(other), ptr(out), ptr(loss), n, int(epochs), float(lr),
+                  *tail, stream_arg(w))
     return out, loss

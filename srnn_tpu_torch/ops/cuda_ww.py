@@ -11,7 +11,8 @@ import torch
 from ..topology import Topology
 from .cuda_sgd_common import (LaneKernel, _I, _LL, _P, check_kernel_topology,
                               check_lanes, check_variant, coords_arg,
-                              is_cpu, ptr, stream_arg, topo_args)
+                              is_cpu, kernel_build, ptr, stream_arg,
+                              topo_args)
 from .popmajor import ww_forward_popmajor
 
 WW_APPLY = LaneKernel(
@@ -43,6 +44,6 @@ def ww_apply_population(topo: Topology, wT: torch.Tensor,
     if n == 0:
         return out
     coords = coords_arg(topo)
-    WW_APPLY.launch(ptr(wT), ptr(out), n, int(steps), *topo_args(topo),
-                    coords.ctypes.data, stream_arg(wT))
+    WW_APPLY.launch(kernel_build(topo), ptr(wT), ptr(out), n, int(steps),
+                    *topo_args(topo), coords.ctypes.data, stream_arg(wT))
     return out

@@ -8,7 +8,7 @@ here (``_ww_seq_sgd_flat``, behind ``ww_train_epochs_popmajor`` and
 ``ww_learn_epochs_popmajor``) takes its gradients from autograd, like the
 JAX package's ``jax.grad`` chain, as does the weightwise full batch's
 autograd step (``_ww_full_batch_autograd``).  They are the autograd route
-of the particles the kernels are not instantiated for, and the independent
+of the particles outside the kernels' envelope, and the independent
 oracle the tests hold the hand-derived backward of ``cuda_ww_train``
 against.
 
@@ -25,12 +25,13 @@ call.  The route each particle's train and learn_from phases take is
 decided from its configuration alone, before any launch
 (``train_route``): the variant's SGD kernel (K2 weightwise, K4
 aggregating/fft, K5 recurrent; on a CPU tensor its plain twin) for the
-particles the kernels are instantiated for, the weightwise full batch's
-hand-derived step, or the autograd chains (``popmajor_kvec``,
+particles inside the kernels' envelope (the JAX package's Pallas one: an
+output-expressible activation, up to 64 weights), the weightwise full
+batch's hand-derived step, or the autograd chains (``popmajor_kvec``,
 ``popmajor_rnn`` and the two above) on either device for every other
-particle.  The recurrent attack goes to K6's wrapper where K6 is
-instantiated for the attacker and the victim's length, else to K6's plain
-version; the weightwise and k-vector attacks are plain torch, as in the
+particle.  The recurrent attack goes to K6's wrapper where the attacker
+is inside the envelope and the victim has up to 64 weights, else to K6's
+plain version; the weightwise and k-vector attacks are plain torch, as in the
 JAX package (it has no kernel for them).  The aggregating, fft and
 recurrent variants have one sample per epoch, so 'sequential' and
 'full_batch' are one program there.  Nothing gives way to a plain version
@@ -44,11 +45,10 @@ import torch
 from ..topology import Topology, normalized_weight_coords
 from .activations import output_grad_activations, resolve_output_grad
 from .cuda_kvec_train import kvec_learn_epochs, kvec_train_epochs
-from .cuda_rnn_apply import KERNEL_T_LENGTHS, rnn_apply, rnn_apply_plain
+from .cuda_rnn_apply import rnn_apply, rnn_apply_plain
 from .cuda_rnn_train import rnn_learn_epochs, rnn_train_epochs
-from .cuda_sgd_common import (KERNEL_ACT_CODES, KERNEL_AGGREGATES,
-                              KERNEL_DEPTHS, KERNEL_WIDTHS, check_variant,
-                              kernel_supported)
+from .cuda_sgd_common import (KERNEL_ACT_CODES, KERNEL_MAX_WEIGHTS,
+                              check_variant, kernel_supported)
 from .cuda_ww_train import (mlp_backward_plain, ww_learn_epochs,
                             ww_train_epochs)
 from .mlp import mlp_rows_plain, point_features, step_features
@@ -267,8 +267,8 @@ def train_route(topo: Topology, mode: str, layout: str = "popmajor") -> str:
     configuration alone:
 
       * ``'kernel'``: the variant's SGD kernel (K2, K4, K5) on the card,
-        its hand-derived plain twin on the CPU -- the particles the kernels
-        are instantiated for (``cuda_sgd_common.kernel_supported``), the
+        its hand-derived plain twin on the CPU -- the particles inside the
+        kernels' envelope (``cuda_sgd_common.kernel_supported``), the
         weightwise one in the sequential mode;
       * ``'plain'``: the weightwise full batch of an output-expressible
         activation, its hand-derived step (``ww_full_batch_epochs``) in
@@ -298,21 +298,19 @@ def resolved_train_impl(topo: Topology, mode: str, impl: str,
     ``resolved_train_impl``, whose 'pallas' is 'kernel' here and whose
     'xla' is 'plain' or 'autograd').  ``impl='kernel'`` asks for the
     hand-written kernels and raises, naming the fence, where the particle
-    is outside their instantiations (which are narrower than the JAX
-    package's Pallas envelope: see ``cuda_sgd_common``)."""
+    is outside their envelope (``cuda_sgd_common``), as the JAX package's
+    'pallas' soup raises."""
     if impl not in ("plain", "kernel"):
         raise ValueError(f"unknown train_impl {impl!r}")
     route = train_route(topo, mode, layout)
     if impl == "kernel" and route != "kernel":
         raise ValueError(
             "train_impl='kernel' runs the hand-written SGD kernels (K2, K4, "
-            f"K5), instantiated for activation in {sorted(KERNEL_ACT_CODES)},"
-            f" width in {KERNEL_WIDTHS}, depth in {KERNEL_DEPTHS} and "
-            f"aggregates in {KERNEL_AGGREGATES} (the weightwise kernel "
-            "additionally needs train_mode='sequential'); this config "
+            f"K5): any variant, activation in {sorted(KERNEL_ACT_CODES)}, "
+            f"particles up to {KERNEL_MAX_WEIGHTS} weights (the weightwise "
+            "kernel additionally needs train_mode='sequential'); this config "
             f"(variant={topo.variant!r}, activation={topo.activation!r}, "
-            f"width={topo.width}, depth={topo.depth}, "
-            f"aggregates={topo.aggregates}, train_mode={mode!r}) needs "
+            f"train_mode={mode!r}, P={topo.num_weights}) needs "
             "train_impl='plain'")
     return route
 
@@ -320,13 +318,14 @@ def resolved_train_impl(topo: Topology, mode: str, impl: str,
 def apply_route(topo: Topology, target_p: Optional[int] = None) -> str:
     """The attack's route for attacker ``topo`` on a victim of
     ``target_p`` weights (its own by default): 'kernel' for a recurrent
-    attacker that K6 is instantiated for, on a victim of a length it is
-    built for (``KERNEL_T_LENGTHS``); 'plain' otherwise (K6's plain version
+    attacker inside the kernels' envelope on a victim of up to
+    ``KERNEL_MAX_WEIGHTS`` weights (the JAX package's ``_use_pallas_apply``
+    under ``apply_impl='pallas'``); 'plain' otherwise (K6's plain version
     for a recurrent attacker, plain torch for the others, as XLA in the
     JAX package)."""
     t_len = topo.num_weights if target_p is None else target_p
     return ("kernel" if topo.variant == "recurrent" and kernel_supported(topo)
-            and t_len in KERNEL_T_LENGTHS else "plain")
+            and t_len <= KERNEL_MAX_WEIGHTS else "plain")
 
 
 def apply_popmajor(topo: Topology, selfT: torch.Tensor,

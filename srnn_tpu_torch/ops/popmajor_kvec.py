@@ -17,9 +17,9 @@ Self-training has ONE sample per epoch (x = y = the k-vector,
 ``network.py:414-417``/``:518-521``), so a batch-1 epoch is one full-batch
 step and 'sequential' and 'full_batch' are the same program.  The
 gradients here come from autograd: this module is the autograd route of
-the k-vector particles K4 is not instantiated for
-(``popmajor.train_route``: another activation, width, depth or
-aggregates), on either device, and the independent oracle that the tests
+the k-vector particles outside K4's envelope
+(``popmajor.train_route``: another activation, or over 64 weights), on
+either device, and the independent oracle that the tests
 hold the hand-derived chain of K4 (``cuda_kvec_train``) against; the soup
 also runs its attack (``kvec_apply_popmajor``) in the phase chain.
 """

@@ -10,8 +10,8 @@ batch-1 epoch is one full-batch step and 'sequential' and 'full_batch' are
 the same program.
 
 The gradients here come from autograd through the time loop: this module
-is the autograd route of the recurrent particles K5 is not instantiated
-for (``popmajor.train_route``), on either device, and the independent
+is the autograd route of the recurrent particles outside K5's envelope
+(``popmajor.train_route``), on either device, and the independent
 oracle that the tests hold the hand-derived BPTT of K5
 (``cuda_rnn_train``) against.  With ``scan='associative'`` (a row-major
 particle with ``rnn_scan='associative'``, whose JAX train differentiates

@@ -48,22 +48,24 @@ population dtypes (``population_dtype`` 'f32' | 'bf16' | 'int8'),
 Routes (``ops/popmajor.train_route``, decided from the configuration
 before any launch): the learn_from and train phases run on the variant's
 SGD kernel (K2 weightwise, K4 aggregating/fft, K5 recurrent) for the
-particles the kernels are instantiated for (an output-expressible
-activation, width 2, depth 2, 4 aggregates), on the weightwise full
+particles inside the kernels' envelope (the JAX package's Pallas one: an
+output-expressible activation, up to 64 weights), on the weightwise full
 batch's hand-derived step (``ops/popmajor.ww_full_batch_epochs``), or on
-the autograd chains (elu, softmax, swish, gelu; other widths, depths and
-aggregates; row-major ``rnn_scan='associative'``, whose JAX train
+the autograd chains (elu, softmax, swish, gelu; particles over 64
+weights; row-major ``rnn_scan='associative'``, whose JAX train
 differentiates through the associative forward).  The population's device
 picks the side inside each kernel's wrapper: CUDA tensors launch the
 kernels, CPU tensors run their plain versions; nothing gives way to a plain
 version at run time.  ``train_impl`` ('plain' | 'kernel', the JAX
 package's 'xla' | 'pallas'): 'plain' (the default) takes those routes;
 'kernel' asks for the kernels and raises upfront for a particle outside
-their instantiations, and in the row-major layout, as the JAX package's
+their envelope, and in the row-major layout, as the JAX package's
 'pallas' does.  ``apply_impl`` 'kernel' asks for K6 for the
-population-major recurrent attack (raising where K6 has no instantiation
-for the particle) and selects nothing elsewhere; the recurrent attack
-takes K6 under 'plain' too, where it is instantiated.  A random shuffler needs the
+population-major recurrent attack and raises, as the JAX package's
+'pallas' does, for any other particle, in the row-major layout and beside
+``generation_impl='fused'`` (as ``train_impl='kernel'`` does there); the
+recurrent attack takes K6 under 'plain' too, where the particle is inside
+the envelope.  A random shuffler needs the
 row-major layout (the JAX package's refusal); its row-major attack passes
 no permutation, so it raises where the JAX package's does.
 
@@ -105,6 +107,7 @@ from .init import (fresh_lanes, init_population, make_generator,
 from .init import on_device as _on
 from .nets.dispatch import apply_to_weights
 from .ops.cuda_generation import fused_kernel_supported, generation_popmajor
+from .ops.cuda_sgd_common import KERNEL_MAX_WEIGHTS
 from .ops.popmajor import (DEFAULT_LR, apply_popmajor, apply_route,
                            check_train_mode, learn_epochs_popmajor,
                            resolved_train_impl, train_epochs_popmajor)
@@ -273,8 +276,8 @@ def seed(config: SoupConfig, seed, device="cuda") -> SoupState:
 
 def _check_config(config: SoupConfig) -> None:
     """The JAX package's ``_evolve_step`` checks (``soup.py:945-982``) and
-    ``_check_popmajor``, with the kernels' instantiations as the envelope
-    of 'kernel' and of the fused generation."""
+    ``_check_popmajor``, with the kernels' envelope (the JAX package's
+    Pallas one) as the envelope of 'kernel' and of the fused generation."""
     if config.layout not in ("rowmajor", "popmajor"):
         raise ValueError(f"unknown soup layout {config.layout!r}")
     rowmajor = config.layout == "rowmajor"
@@ -300,6 +303,13 @@ def _check_config(config: SoupConfig) -> None:
         raise ValueError(
             "generation_impl='fused' is the popmajor lane megakernel; "
             "layout='rowmajor' needs generation_impl='phases'")
+    for field in ("train_impl", "apply_impl"):
+        if getattr(config, field) not in ("plain", "kernel"):
+            raise ValueError(f"unknown {field} {getattr(config, field)!r}")
+        if rowmajor and getattr(config, field) == "kernel":
+            raise ValueError(
+                f"{field}='kernel' is the popmajor lane kernel; "
+                f"layout='rowmajor' needs {field}='plain'")
     for field in ("attack_impl", "learn_from_impl"):
         if getattr(config, field) == "full":
             continue
@@ -318,34 +328,35 @@ def _check_config(config: SoupConfig) -> None:
     check_train_mode(topo, config.train_mode)
     if config.respawn_draws not in ("perparticle", "fused"):
         raise ValueError(f"unknown respawn_draws {config.respawn_draws!r}")
-    for field in ("train_impl", "apply_impl"):
-        if getattr(config, field) not in ("plain", "kernel"):
-            raise ValueError(f"unknown {field} {getattr(config, field)!r}")
-    if rowmajor and config.train_impl == "kernel":
+    if config.generation_impl == "fused":
+        if config.train_impl == "kernel" or config.apply_impl == "kernel":
+            raise ValueError(
+                "generation_impl='fused' already fuses the SGD chains and "
+                "the apply transform in one launch; use train_impl='plain' "
+                "and apply_impl='plain' (the per-phase kernel legs are "
+                "subsumed)")
+        if not fused_kernel_supported(topo, config.train_mode):
+            raise ValueError(
+                "generation_impl='fused' fuses the whole generation on the "
+                "generation kernel: activation with an output-expressible "
+                "derivative (linear/sigmoid/tanh/relu), particles up to "
+                f"{KERNEL_MAX_WEIGHTS} weights, shuffler='not' (the "
+                "weightwise variant additionally needs "
+                "train_mode='sequential'); this config "
+                f"(variant={topo.variant!r}, "
+                f"activation={topo.activation!r}, "
+                f"train_mode={config.train_mode!r}, P={topo.num_weights}) "
+                "needs generation_impl='phases'")
+    if config.apply_impl == "kernel" and apply_route(topo) != "kernel":
         raise ValueError(
-            "train_impl='kernel' is the popmajor lane kernel; "
-            "layout='rowmajor' needs train_impl='plain'")
+            "apply_impl='kernel' fuses the RECURRENT variant's serial "
+            "forward on its kernel (K6: activation with an "
+            "output-expressible derivative, particles up to "
+            f"{KERNEL_MAX_WEIGHTS} weights); this config "
+            f"(variant={topo.variant!r}, activation={topo.activation!r}, "
+            f"P={topo.num_weights}) needs apply_impl='plain'")
     resolved_train_impl(topo, config.train_mode, config.train_impl,
                         config.layout)
-    if (not rowmajor and config.apply_impl == "kernel"
-            and topo.variant == "recurrent" and apply_route(topo) != "kernel"):
-        raise ValueError(
-            "apply_impl='kernel' runs the recurrent attack on its kernel "
-            "(K6), instantiated for an output-expressible activation, "
-            "width 2 and depth 2; this config "
-            f"(activation={topo.activation!r}, width={topo.width}, "
-            f"depth={topo.depth}) needs apply_impl='plain'")
-    if config.generation_impl == "fused" and not fused_kernel_supported(
-            topo, config.train_mode):
-        raise ValueError(
-            "generation_impl='fused' fuses the whole generation on the "
-            "generation kernel, instantiated for an output-expressible "
-            "activation (linear/sigmoid/tanh/relu), width 2, depth 2, 4 "
-            "aggregates and shuffler='not' (the weightwise variant "
-            "additionally needs train_mode='sequential'); this config "
-            f"(variant={topo.variant!r}, activation={topo.activation!r}, "
-            f"train_mode={config.train_mode!r}, P={topo.num_weights}) "
-            "needs generation_impl='phases'")
 
 
 def draw(config: SoupConfig, gen: torch.Generator,

@@ -23,7 +23,7 @@ population-major ``(P, N)`` transpose
 
   * on the variant's SGD kernel (K2 weightwise, K4 aggregating/fft, K5
     recurrent) for a CUDA tensor, its plain chain for a CPU tensor, where
-    the kernels are instantiated for the particle;
+    the particle is inside the kernels' envelope;
   * on the weightwise full batch's hand-derived step
     (``ops/popmajor.ww_full_batch_epochs``, plain torch, rounding alike on
     the card and the CPU) for an output-expressible activation: one
@@ -47,7 +47,7 @@ for a net, (N, S) for a batch; ``train_epochs`` and ``learn_epochs`` take
 the lane layout (epochs, S, N)).  Only the weightwise variant has more
 than one sample an epoch, and the full batch takes no order, so elsewhere
 it is a bitwise no-op, as in the JAX package.  On the card a shuffled
-weightwise epoch inside the kernels' instantiations is K2's shuffled
+weightwise epoch inside the kernels' envelope is K2's shuffled
 instantiation.
 """
 

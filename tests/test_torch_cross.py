@@ -102,10 +102,10 @@ def test_cross_apply_popmajor_matches_jax(att, vic):
 def test_rnn_apply_plain_matches_pallas_at_cross_lengths(victim):
     """K6's plain version for the cross victims' lengths (T = 14, T = 20),
     the wrapper's CPU route, against rnn_apply_pallas in interpret mode;
-    these lengths are instantiated on the card."""
+    these lengths are in the default build on the card."""
     att = TOPOS["recurrent"]
     t_len = TOPOS[victim].num_weights
-    assert t_len in cra.KERNEL_T_LENGTHS
+    assert t_len in cra.DEFAULT_T_LENGTHS
     selfT = _rows((att.num_weights, N), 7, 0.8)
     targetT = _rows((t_len, N), 8, 0.8)
     targetT[4, 5] = np.inf  # a non-finite victim weight
@@ -140,15 +140,15 @@ def test_cross_average_inf_poisons_every_aggregate(victim):
 
 def test_card_fences(monkeypatch):
     """What the card's kernels do not take raises before any launch: a
-    victim length K6 has no instantiation for; and the random shuffler
+    victim longer than K6's fence of 64 weights; and the random shuffler
     raises without a permutation (row-major, as the JAX package's keyless
     attack does) and in the population-major layout (the JAX package's
     refusal)."""
     att = TOPOS["recurrent"]
     selfT = torch.from_numpy(_rows((att.num_weights, N), 11))
     monkeypatch.setattr(cra, "is_cpu", lambda t: False)  # as for the card
-    with pytest.raises(ValueError, match=r"\(14, 17, 20\)"):
-        cra.rnn_apply(att, selfT, torch.from_numpy(_rows((10, N), 12)))
+    with pytest.raises(ValueError, match="up to 64 weights"):
+        cra.rnn_apply(att, selfT, torch.from_numpy(_rows((65, N), 12)))
     assert sum(k.launches for k in cra.RNN_APPLY_BY_T.values()) == 0
     shuffled = Topology("aggregating", shuffler="random")
     for fn in (lambda: cross_apply(shuffled, torch.zeros(20), att,

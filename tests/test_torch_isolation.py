@@ -110,16 +110,28 @@ def test_kernel_topology_fence():
 
     for variant in ("weightwise", "aggregating", "fft", "recurrent"):
         check_kernel_topology(Topology(variant, width=2, depth=2))
-    for topo, what in ((Topology("weightwise", width=3), "width"),
-                       (Topology("weightwise", depth=3), "depth"),
-                       (Topology("weightwise", activation="gelu"),
-                        "activation"),
-                       (Topology("aggregating", width=3), "width"),
-                       (Topology("aggregating", aggregates=5), "aggregates"),
-                       (Topology("fft", aggregates=5), "aggregates"),
-                       (Topology("recurrent", depth=3), "depth")):
-        with pytest.raises(ValueError, match=what):
-            check_kernel_topology(topo)
+    # the envelope is the JAX package's Pallas fence: any width, depth and
+    # aggregates up to 64 weights; a field that takes P past it raises,
+    # naming the field's value and P
+    for topo, wider, what in (
+            (Topology("weightwise", width=3), Topology("weightwise", width=6),
+             "width=6"),
+            (Topology("weightwise", depth=3),
+             Topology("weightwise", depth=15), "depth=15"),
+            (Topology("aggregating", width=3),
+             Topology("aggregating", width=6), "width=6"),
+            (Topology("aggregating", aggregates=5),
+             Topology("aggregating", aggregates=17), "aggregates=17"),
+            (Topology("fft", aggregates=5), Topology("fft", aggregates=17),
+             "aggregates=17"),
+            (Topology("recurrent", depth=3), Topology("recurrent", depth=8),
+             "depth=8")):
+        assert topo.num_weights <= 64 < wider.num_weights
+        check_kernel_topology(topo)
+        with pytest.raises(ValueError, match=f"{what}.*P={wider.num_weights}"):
+            check_kernel_topology(wider)
+    with pytest.raises(ValueError, match="activation"):
+        check_kernel_topology(Topology("weightwise", activation="gelu"))
     # the SGD chains read no deaggregation and the population-major
     # recurrence is the serial scan for either rnn_scan: the kernels take
     # both options; the fused generation's attack refuses the shuffler

@@ -21,6 +21,14 @@ every multiply and add rounding on its own, as ``--fmad=false`` does on the
 card.  sigmoid and tanh are left to the card: the host's ``expf``/``tanhf``
 are not CUDA's.
 
+Each test runs at width 2 / depth 2 with 4 aggregates (P = 20, the
+default build's, its DFT tables written out in the header), at width 3 /
+depth 3 with 4 aggregates (P = 42: segments of 10 and a last one of 12)
+and at width 2 / depth 2 with 6 aggregates (P = 28), the harness built
+with ``SRNN_W`` / ``SRNN_D`` / ``SRNN_K`` set and, off P = 20, with the
+DFT tables generated for its topology (``dft_table_header``), as a build
+of that topology has them.
+
 Skips where no C++ compiler is installed.
 """
 
@@ -35,6 +43,7 @@ import torch
 
 from srnn_tpu_torch import Topology
 from srnn_tpu_torch.ops.cuda_kvec_train import (REDUCE_CODES,
+                                                dft_table_header,
                                                 kvec_apply_rows_plain,
                                                 kvec_sgd_plain, kvec_tables,
                                                 reduce_kind,
@@ -44,14 +53,16 @@ CSRC = Path(__file__).resolve().parent.parent / "srnn_tpu_torch" / "csrc"
 N = 300
 LR = 0.01
 ACTS = {"linear": 0, "relu": 3}
-#: the topologies of the five reduce kinds (width 2, depth 2, aggregates 4)
-TOPOS = {
-    "average": Topology("aggregating"),
-    "max": Topology("aggregating", aggregator="max"),
-    "max_buggy": Topology("aggregating", aggregator="max_buggy"),
-    "fft": Topology("fft"),
-    "rfft": Topology("fft", fft_mode="rfft"),
+#: the topology fields of the five reduce kinds
+KINDS = {
+    "average": dict(variant="aggregating"),
+    "max": dict(variant="aggregating", aggregator="max"),
+    "max_buggy": dict(variant="aggregating", aggregator="max_buggy"),
+    "fft": dict(variant="fft"),
+    "rfft": dict(variant="fft", fft_mode="rfft"),
 }
+#: (width, depth, aggregates) of each harness build
+SHAPES = {"w2d2k4": (2, 2, 4), "w3d3k4": (3, 3, 4), "w2d2k6": (2, 2, 6)}
 
 SHIM = """
 #define __device__
@@ -70,7 +81,7 @@ HARNESS = """
 #include "kvec_common.cuh"
 
 namespace {
-constexpr int W = 2, D = 2, K = 4, P = srnn::KV<W, D, K>::P;
+constexpr int W = SRNN_W, D = SRNN_D, K = SRNN_K, P = srnn::KV<W, D, K>::P;
 
 template <int R>
 int reduce(const float* rowsT, float* out, long long n) {
@@ -176,19 +187,42 @@ extern "C" int host_apply(int reduce_code, int act, int tgt,
 """
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+class Host:
+    """A harness build: its library and the shape it was built for."""
+
+    def __init__(self, h, width, depth, aggregates):
+        self.h, self.shape = h, (width, depth, aggregates)
+
+    def __getattr__(self, name):
+        return getattr(self.h, name)
+
+    def topo(self, kind, **kw):
+        w, d, k = self.shape
+        return Topology(width=w, depth=d, aggregates=k, **KINDS[kind], **kw)
+
+
+@pytest.fixture(scope="module", params=list(SHAPES))
+def lib(request, tmp_path_factory):
+    width, depth, k = SHAPES[request.param]
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler on this host to build kvec_common.cuh")
-    d = tmp_path_factory.mktemp("kvec_host")
+    d = tmp_path_factory.mktemp(f"kvec_host_{request.param}")
     (d / "shim.h").write_text(SHIM)
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_STUB)
     (d / "harness.cpp").write_text(HARNESS)
+    defines = [f"-DSRNN_W={width}", f"-DSRNN_D={depth}", f"-DSRNN_K={k}"]
+    if (width, depth, k) != (2, 2, 4):
+        (d / "srnn_dft_table.cuh").write_text("".join(
+            dft_table_header(Topology("fft", width=width, depth=depth,
+                                      aggregates=k, fft_mode=m))
+            for m in ("fft", "rfft")))
+        defines.append("-DSRNN_DFT_TABLE=1")
     so = d / "kvec_host.so"
     cmd = [cxx, "-std=c++17", "-O0", "-ffp-contract=off", "-fPIC", "-shared",
            "-Wno-unknown-pragmas", "-include", str(d / "shim.h"), "-I",
-           str(d), "-I", str(CSRC), "-o", str(so), str(d / "harness.cpp")]
+           str(d), "-I", str(CSRC), *defines, "-o", str(so),
+           str(d / "harness.cpp")]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     h = ctypes.CDLL(str(so))
@@ -199,26 +233,27 @@ def lib(tmp_path_factory):
     h.host_reduce.argtypes = [i, p, p, ll]
     h.host_sgd.argtypes = [i, i, p, p, p, p, ll, i, f]
     h.host_apply.argtypes = [i, i, i, p, p, p, ll]
-    return h
+    return Host(h, width, depth, k)
 
 
 def _ptr(a: np.ndarray) -> int:
     return a.ctypes.data
 
 
-def _population(seed: int, scale: float = 0.5) -> np.ndarray:
+def _population(topo, seed: int, scale: float = 0.5) -> np.ndarray:
     """(P, N) float32 lanes from numpy, edge cases in the first lanes."""
+    p, seg = topo.num_weights, topo.num_weights // topo.aggregates
     rng = np.random.default_rng(seed)
-    w = (rng.standard_normal((20, N)) * scale).astype(np.float32)
+    w = (rng.standard_normal((p, N)) * scale).astype(np.float32)
     w[3, 0] = np.inf          # inside segment 0, outside the others
-    w[19, 1] = -np.inf        # in the last segment (it takes the leftovers)
+    w[p - 1, 1] = -np.inf     # in the last segment (it takes the leftovers)
     w[9, 2] = np.nan
     w[:, 3] = -0.0            # every segment sum -0
     w[:, 4] = -np.abs(w[:, 4]) - np.float32(0.25)  # all negative
-    w[0:5, 5] = np.float32(3e38)   # finite rows, segment 0's sum overflows
-    w[0, 6] = np.float32(2e38)     # finite sums whose total overflows
-    w[5, 6] = np.float32(2e38)
-    w[0:5, 7] = -0.0          # one segment sum -0, the others finite
+    w[0:seg, 5] = np.float32(3e38)  # finite rows, segment 0's sum overflows
+    w[0, 6] = np.float32(2e38)      # finite sums whose total overflows
+    w[seg, 6] = np.float32(2e38)
+    w[0:seg, 7] = -0.0        # one segment sum -0, the others finite
     return np.ascontiguousarray(w)
 
 
@@ -241,9 +276,7 @@ def _rows(a: np.ndarray):
     ("average", False), ("max", False), ("max_buggy", False),
     ("fft", False), ("fft", True), ("rfft", False), ("rfft", True)])
 def test_compiled_tables_are_kvec_tables(lib, kind, use_target):
-    topo = TOPOS[kind]
-    if use_target:
-        topo = Topology("fft", fft_mode=kind, fft_use_target=True)
+    topo = lib.topo(kind, fft_use_target=use_target)
     code = REDUCE_CODES[reduce_kind(topo)]
     host = np.ascontiguousarray(kvec_tables(topo))
     p, k = topo.num_weights, topo.aggregates
@@ -266,10 +299,10 @@ def test_compiled_tables_are_kvec_tables(lib, kind, use_target):
         (1 if topo.variant == "fft" else 0)
 
 
-@pytest.mark.parametrize("kind", list(TOPOS))
+@pytest.mark.parametrize("kind", list(KINDS))
 def test_reduce_rows_bitwise(lib, kind):
-    topo = TOPOS[kind]
-    w = _population(1)
+    topo = lib.topo(kind)
+    w = _population(topo, 1)
     got = np.empty((topo.aggregates, N), dtype=np.float32)
     assert lib.host_reduce(REDUCE_CODES[reduce_kind(topo)], _ptr(w),
                            _ptr(got), N) == 0
@@ -278,14 +311,12 @@ def test_reduce_rows_bitwise(lib, kind):
 
 
 @pytest.mark.parametrize("activation", list(ACTS))
-@pytest.mark.parametrize("kind", list(TOPOS))
+@pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("mode,epochs", [("train", 3), ("learn", 2)])
 def test_kvec_sgd_bitwise(lib, kind, activation, mode, epochs):
-    base = TOPOS[kind]
-    topo = Topology(base.variant, aggregator=base.aggregator,
-                    fft_mode=base.fft_mode, activation=activation)
-    w = _population(2)
-    other = _population(3) if mode == "learn" else None
+    topo = lib.topo(kind, activation=activation)
+    w = _population(topo, 2)
+    other = _population(topo, 3) if mode == "learn" else None
     got = np.empty_like(w)
     loss = np.empty(N, dtype=np.float32)
     assert lib.host_sgd(REDUCE_CODES[reduce_kind(topo)], ACTS[activation],
@@ -303,11 +334,10 @@ def test_kvec_sgd_bitwise(lib, kind, activation, mode, epochs):
     ("average", True), ("max", True), ("max_buggy", True), ("fft", False),
     ("fft", True), ("rfft", False), ("rfft", True)])
 def test_kvec_apply_bitwise(lib, kind, use_target, activation):
-    base = TOPOS[kind]
-    topo = Topology(base.variant, aggregator=base.aggregator,
-                    fft_mode=base.fft_mode, activation=activation,
-                    fft_use_target=use_target and base.variant == "fft")
-    self_w, x = _population(4), _population(5)
+    topo = lib.topo(kind, activation=activation,
+                    fft_use_target=use_target and KINDS[kind]["variant"]
+                    == "fft")
+    self_w, x = _population(topo, 4), _population(topo, 5)
     # an attacker of -0 weights on an all-negative target: -0 everywhere
     self_w[:, 8] = -0.0
     x[:, 8] = -np.abs(x[:, 8]) - np.float32(0.5)

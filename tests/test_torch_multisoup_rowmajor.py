@@ -278,10 +278,14 @@ def test_rowmajor_equals_popmajor_and_defaults():
             ms.evolve_multi_step(cfg._replace(**bad), s0)
         with pytest.raises(ValueError, match=match):
             ms.evolve_multi(cfg._replace(**bad), s0, 1)
-    # the popmajor layout keeps its spellings
-    fused = cfg._replace(layout="popmajor", generation_impl="fused",
-                         train_impl="kernel", apply_impl="kernel")
+    # the popmajor layout keeps its spellings; the fused generation already
+    # fuses the per-type kernels, so their 'kernel' spellings beside it are
+    # refused, as the JAX package refuses 'pallas'
+    fused = cfg._replace(layout="popmajor", generation_impl="fused")
     assert int(ms.evolve_multi(fused, s0, 1).time) == 1
+    for field in ("train_impl", "apply_impl"):
+        with pytest.raises(ValueError, match="already fuses"):
+            ms.evolve_multi(fused._replace(**{field: "kernel"}), s0, 1)
 
 
 @pytest.mark.parametrize("layout,dtype", [("rowmajor", "f32"),

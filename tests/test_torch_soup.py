@@ -147,9 +147,18 @@ def test_soup_matches_jax(jax_run, jax_impl, port_impl):
 @pytest.mark.parametrize("variant", list(VARIANT_TOPOS))
 def test_variant_soup_matches_jax(jax_variant_runs, variant, port_impl):
     """The aggregating, fft and recurrent soups; 'phases-spelled' converts
-    the JAX spellings apply_impl='pallas' and train_mode='full_batch', which
-    select nothing new here (one sample per epoch)."""
+    the JAX spellings apply_impl='pallas' (the recurrent attack's kernel,
+    which the other variants refuse, as the JAX package does) and
+    train_mode='full_batch', which select nothing new here (one sample per
+    epoch).  The fused generation runs beside train_impl='plain': it
+    already fuses the SGD kernel that the recurrent reference's
+    train_impl='pallas' converts to, and refuses that spelling, as the JAX
+    package does."""
     jcfg, steps = jax_variant_runs[variant]
+    if variant != "recurrent":
+        port_impl = {k: v for k, v in port_impl.items() if k != "apply_impl"}
+    if port_impl["generation_impl"] == "fused":
+        port_impl = {**port_impl, "train_impl": "plain"}
     _replay(jcfg, steps, _port_config(jcfg, **port_impl))
 
 
@@ -200,9 +209,16 @@ def test_port_soup_own_draws_and_fences():
     # the weightwise full batch runs on the phase chain (its plain step)
     assert int(st.evolve(cfg._replace(train_mode="full_batch"), s0,
                          1).time) == 1
-    # apply_impl='kernel' is a converted spelling that selects nothing
-    c = st.evolve(cfg._replace(apply_impl="kernel"), s0, 2)
-    assert torch.equal(c.weights, a.weights) and torch.equal(c.uids, a.uids)
+    # apply_impl='kernel' is K6's, the recurrent attack's: refused for the
+    # weightwise particle, and beside the fused generation, as the JAX
+    # package refuses 'pallas'
+    with pytest.raises(ValueError, match="RECURRENT"):
+        st.evolve(cfg._replace(apply_impl="kernel"), s0, 2)
+    for field in ("train_impl", "apply_impl"):
+        with pytest.raises(ValueError, match="already fuses"):
+            st.evolve(cfg._replace(generation_impl="fused", **{field:
+                                                               "kernel"}),
+                      s0, 1)
     n = cfg.size
     out_of_range = st.SoupDraws(np.ones(n, bool), np.full(n, n),
                                 np.zeros(n, bool), np.zeros(n, int),

@@ -259,8 +259,14 @@ def test_rowmajor_refusals_and_default():
     stacked = psoup.stack([s0, s0])
     with pytest.raises(ValueError, match="rowmajor"):
         st.evolve(cfg._replace(layout="popmajor"), stacked, 1)
-    # train_impl / apply_impl are accepted and select nothing
+    # train_impl / apply_impl 'plain' select nothing; their 'kernel'
+    # spellings are the popmajor lane kernels, refused here as the JAX
+    # package refuses 'pallas'
     a = st.evolve(cfg, s0, 2)
-    b = st.evolve(cfg._replace(train_impl="plain", apply_impl="kernel"), s0,
+    b = st.evolve(cfg._replace(train_impl="plain", apply_impl="plain"), s0,
                   2)
     assert torch.equal(a.weights, b.weights) and torch.equal(a.uids, b.uids)
+    for field in ("train_impl", "apply_impl"):
+        with pytest.raises(ValueError, match=f"{field}='kernel' is the "
+                                             "popmajor lane kernel"):
+            st.evolve(cfg._replace(**{field: "kernel"}), s0, 1)

@@ -16,6 +16,12 @@ qualifiers and a stub ``cuda_runtime.h`` gives the few runtime names that
 rounding on its own, as ``--fmad=false`` does on the card.  sigmoid and tanh
 are left to the card: the host's ``expf``/``tanhf`` are not CUDA's.
 
+Each test runs at width 2 / depth 2 (P = 14, the default build's) and at
+width 3 / depth 3 (P = 33), the harness built with ``SRNN_W`` / ``SRNN_D``
+set as a build of that topology sets them (the latter at -O0, which
+rounds alike and compiles the unrolled P = 33 chains in a fifth of -O2's
+time).
+
 Skips where no C++ compiler is installed.
 """
 
@@ -55,7 +61,7 @@ HARNESS = """
 #include "ww_common.cuh"
 
 namespace {
-constexpr int W = 2, D = 2, P = srnn::WW<W, D>::P;
+constexpr int W = SRNN_W, D = SRNN_D, P = srnn::WW<W, D>::P;
 
 template <int A>
 void apply_chain(const float* wT, float* out, long long n, int steps) {
@@ -144,19 +150,39 @@ extern "C" void host_sgd_shuffled(const float* wT, const float* otherT,
 """
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+#: (width, depth, optimisation level) of each harness build
+SHAPES = {"w2d2": (2, 2, "-O2"), "w3d3": (3, 3, "-O0")}
+
+
+class Host:
+    """A harness build: its library and the topology it was built for."""
+
+    def __init__(self, h, width, depth):
+        self.h, self.width, self.depth = h, width, depth
+
+    def __getattr__(self, name):
+        return getattr(self.h, name)
+
+    def topo(self, activation="linear"):
+        return Topology("weightwise", width=self.width, depth=self.depth,
+                        activation=activation)
+
+
+@pytest.fixture(scope="module", params=list(SHAPES))
+def lib(request, tmp_path_factory):
+    width, depth, opt = SHAPES[request.param]
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler on this host to build ww_common.cuh")
-    d = tmp_path_factory.mktemp("ww_host")
+    d = tmp_path_factory.mktemp(f"ww_host_{request.param}")
     (d / "shim.h").write_text(SHIM)
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_STUB)
     (d / "harness.cpp").write_text(HARNESS)
     so = d / "ww_host.so"
-    cmd = [cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
+    cmd = [cxx, "-std=c++17", opt, "-ffp-contract=off", "-fPIC", "-shared",
            "-Wno-unknown-pragmas", "-include", str(d / "shim.h"), "-I",
-           str(d), "-I", str(CSRC), "-o", str(so), str(d / "harness.cpp")]
+           str(d), "-I", str(CSRC), f"-DSRNN_W={width}", f"-DSRNN_D={depth}",
+           "-o", str(so), str(d / "harness.cpp")]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     h = ctypes.CDLL(str(so))
@@ -167,7 +193,7 @@ def lib(tmp_path_factory):
     h.host_apply.argtypes = [p, p, ll, i, i]
     h.host_sgd.argtypes = [p, p, p, p, ll, i, f, i]
     h.host_sgd_shuffled.argtypes = [p, p, p, p, p, ll, i, f, i]
-    return h
+    return Host(h, width, depth)
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -207,7 +233,7 @@ def _assert_ulps(got: np.ndarray, ref: np.ndarray, ulps: int) -> None:
 
 
 def test_coordinate_table_is_the_topologys(lib):
-    topo = Topology("weightwise", width=2, depth=2)
+    topo = lib.topo()
     assert lib.host_weights() == topo.num_weights
     got = np.empty((topo.num_weights, 3), dtype=np.float32)
     lib.host_coords(_ptr(got))
@@ -222,7 +248,7 @@ def test_coordinate_table_is_the_topologys(lib):
 @pytest.mark.parametrize("activation", list(ACTS))
 @pytest.mark.parametrize("steps", [1, 5])
 def test_apply_rows_bitwise(lib, activation, steps):
-    topo = Topology("weightwise", width=2, depth=2, activation=activation)
+    topo = lib.topo(activation)
     w = _population(topo, 10 + steps, 0.5)
     got = np.empty_like(w)
     lib.host_apply(_ptr(w), _ptr(got), N, steps, ACTS[activation])
@@ -233,7 +259,7 @@ def test_apply_rows_bitwise(lib, activation, steps):
 @pytest.mark.parametrize("activation", list(ACTS))
 @pytest.mark.parametrize("mode,epochs", [("train", 2), ("learn", 1)])
 def test_sgd_chain_bitwise(lib, activation, mode, epochs):
-    topo = Topology("weightwise", width=2, depth=2, activation=activation)
+    topo = lib.topo(activation)
     w = _population(topo, 20 + epochs, 0.5)
     other = _population(topo, 30 + epochs, 0.5) if mode == "learn" else None
     got = np.empty_like(w)
@@ -262,7 +288,7 @@ def test_shuffled_chain_bitwise(lib, activation, mode, epochs):
     order, bitwise; in the identity order against the unshuffled chain,
     bitwise (a runtime multiply by a coordinate of 1.0 is the skipped
     product)."""
-    topo = Topology("weightwise", width=2, depth=2, activation=activation)
+    topo = lib.topo(activation)
     p = topo.num_weights
     w = _population(topo, 40 + epochs, 0.5)
     other = _population(topo, 50 + epochs, 0.5) if mode == "learn" else None
