@@ -399,13 +399,17 @@ def build_kernels():
     that the wide topologies need (``wide_jobs``), one nvcc each, all at
     once; print each one's finish time (its log's last write) and ptxas'
     report summed over the build's instantiations: registers, stack frame,
-    spilled bytes, shared memory per block; for the default builds of the
-    sources that bench_kernels compares (its groups) also the linear
-    (k-vector: linear average) instantiations' resident warps per SM."""
+    spilled bytes, shared memory per block (for the recurrent BPTT's
+    checkpointed builds also their dynamic shared memory and the resident
+    warps per SM); for the default builds of the sources that
+    bench_kernels compares (its groups) also the linear (k-vector: linear
+    average) instantiations' resident warps per SM."""
     import re
 
     from srnn_tpu_torch.bench_kernels import (GROUPS, census_fragment,
-                                              linear_resources)
+                                              dynamic_smem,
+                                              linear_resources,
+                                              resident_blocks)
     from srnn_tpu_torch.ops import _build
 
     jobs = [(name, _build.DEFAULT) for name in _build.SOURCES] + wide_jobs()
@@ -423,11 +427,15 @@ def build_kernels():
         spills = sum(int(x) for x in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", report))
         smem = [int(x) for x in re.findall(r"(\d+) bytes smem", report)]
+        dyn = dynamic_smem(_build.library_path(name, b))
         log(f"  {name} {b.tag or 'default'}: nvcc done after {done:.1f} s; "
             f"{len(regs)} kernels, registers {min(regs, default=0)}-"
             f"{max(regs, default=0)}, stack frame up to "
             f"{max(stack, default=0)} bytes, spilled bytes {spills}, "
-            f"shared memory up to {max(smem, default=0)} bytes a block")
+            f"shared memory up to {max(smem, default=0)} bytes a block"
+            + (f" and {dyn} bytes of checkpointed BPTT columns, "
+               f"{resident_blocks(max(regs), max(smem, default=0) + dyn, 128) * 4} "
+               f"resident warps an SM" if dyn else ""))
         if b == _build.DEFAULT and any(name in g for g in GROUPS.values()):
             res = linear_resources(_build.log_path(name),
                                    census_fragment(name))
@@ -1206,6 +1214,14 @@ def wide_topos():
             "k8": Topology("aggregating", width=4, depth=1, aggregates=8)}
 
 
+def fence_rnn():
+    """The recurrent fence: width 7 / depth 1 (P = 64), tanh, whose K5
+    build runs the checkpointed BPTT with a non-linear activation."""
+    from srnn_tpu_torch import Topology
+
+    return Topology("recurrent", width=7, depth=1, activation="tanh")
+
+
 #: the width-3 / depth-3 recurrent attacker's victim lengths: the mixed
 #: chain's weightwise, k-vector and recurrent thirds
 WIDE_T = (33, 42, 52)
@@ -1214,19 +1230,23 @@ FENCE_N = 4096
 
 
 def wide_jobs():
-    """The (source, build) jobs of the wide topologies' builds, and of the
-    width-3 / depth-3 tanh K2 and K3 weightwise body."""
+    """The (source, build) jobs of the wide topologies' builds (K3's
+    bfloat16 body too for the weightwise and recurrent ones), of the
+    width-3 / depth-3 tanh K2 and K3 weightwise body, and of the recurrent
+    fence's K5."""
     import dataclasses
 
     from srnn_tpu_torch.ops.cuda_generation import builds_for
+    from srnn_tpu_torch.ops.cuda_sgd_common import kernel_build
 
     t = wide_topos()
     jobs = []
     for name, topo in t.items():
         jobs += builds_for(topo, WIDE_T if name == "rnn" else (),
-                           bf16=name == "ww")
+                           bf16=name in ("ww", "rnn"))
     tanh = dataclasses.replace(t["ww"], activation="tanh")
-    return jobs + [j for j in builds_for(tanh) if j[0] != "ww_apply"]
+    return jobs + [j for j in builds_for(tanh) if j[0] != "ww_apply"] + [
+        ("rnn_train", kernel_build(fence_rnn()))]
 
 
 def wide_row(kernel, topo, t_len=None) -> str:
@@ -1269,7 +1289,9 @@ def check_wide_kernels(torch, rows):
     fence's at FENCE_N), bitwise (weights, attack outputs, the mean loss
     and the dead masks), timed beside its bound; at a small N, the
     width-3 / depth-3 tanh K2 and K3 weightwise body and K2's shuffled
-    instantiation, bitwise."""
+    instantiation, bitwise; at that N, K5 at the recurrent fence (tanh)
+    and K3's width-3 / depth-3 recurrent bodies in float32 and bfloat16,
+    bitwise."""
     import dataclasses
 
     from srnn_tpu_torch.ops import cuda_generation as cg
@@ -1370,6 +1392,27 @@ def check_wide_kernels(torch, rows):
     check_sgd(torch, "K2 shuffled train=3",
               lambda: cwt.ww_train_epochs(ww, ws, 3, order=order),
               lambda: cwt.ww_sgd_plain(ww, ws, None, 3, 0.01, order))
+    # at a small N, on the checkpointed BPTT: K5 at the recurrent
+    # fence (width 7 / depth 1, P = 64, tanh), K3's recurrent bodies at
+    # width 3 / depth 3 in float32 and bfloat16
+    fence = fence_rnn()
+    log(f"recurrent fence width 7 depth 1 tanh (P={fence.num_weights}) and "
+        f"recurrent width 3 depth 3 K3 f32 / bf16, N={n}")
+    wf = population(fence, n, gen, 0.5)
+    of = population(fence, n, gen, 0.5)
+    wf[fence.num_weights - 1, 0] = float("inf")
+    wf[9, 1] = float("nan")
+    check_sgd(torch, "K5 fence train=3",
+              lambda: crt.rnn_train_epochs(fence, wf, 3),
+              lambda: crt.rnn_sgd_plain(fence, wf, None, 3, 0.01))
+    check_sgd(torch, "K5 fence learn=1",
+              lambda: crt.rnn_learn_epochs(fence, wf, of, 1),
+              lambda: crt.rnn_sgd_plain(fence, wf, of, 1, 0.01))
+    wr = population(t["rnn"], n, gen, 0.5)
+    check_small_generation(torch, t["rnn"], wr, gen_operands(
+        torch, t["rnn"], wr, gen, rate=0.5), dict(
+            severity=1, train=2, lr=0.01, remove_divergent=True,
+            remove_zero=True, epsilon=1e-4))
     # K4 and K3's k-vector bodies; the fence at FENCE_N
     for key, n in (("agg", N), ("fft", N), ("k6", N), ("k8", FENCE_N)):
         topo = t[key]

@@ -4,11 +4,15 @@
         [--group ww|rnn|kvec ...] [--size 1000000] [--rounds 3] [--reps 10]
 
 Builds the kernels of each ``--group`` from each variant's source directory
-``DIR`` with the package's nvcc flags, one nvcc per source, all at once:
+``DIR`` with the package's nvcc flags, one nvcc per library, all at once:
 ``ww`` is K1 (``csrc/ww_apply.cu``), K2 (``ww_train.cu``) and K3's
 weightwise bodies (``generation.cu``, ``generation_bf16.cu``); ``rnn`` is
 K5 (``rnn_train.cu``) and K3's recurrent bodies (``generation_rnn.cu``,
-``generation_rnn_bf16.cu``); ``kvec`` is K4 (``kvec_train.cu``), K3's
+``generation_rnn_bf16.cu``), and also K5 and K3's float32 body built for
+the recurrent topologies of ``RNN_WIDE`` (their ``kernel_build`` macros,
+linear; the wrappers launch them under the build's tag), of which width 3
+/ depth 3 is run and the others only compiled for ptxas and the SASS
+census; ``kvec`` is K4 (``kvec_train.cu``), K3's
 k-vector bodies (``generation_kvec.cu``, ``generation_kvec_bf16.cu``) and K6
 (``rnn_apply.cu``).  ``DIR`` may hold another commit's sources
 (``git archive <commit> srnn_tpu_torch/csrc``), so that two versions are
@@ -31,7 +35,9 @@ removals) and with no attack and no learn operand (train only), the
 k-vector bodies on aggregating (average) and fft particles; K4
 self-training 10 epochs and imitating 1 (an Inf and a NaN weight among
 glorot lanes); K6 on victims of length T = 14, 17 and 20 (weightwise,
-recurrent and aggregating lanes); K3's
+recurrent and aggregating lanes); K5 self-training 10 epochs and
+imitating 1 and K3's recurrent float32 body, as above, at width 3 / depth
+3; K3's
 weightwise float32 body on the operands of one generation of the
 N-particle weightwise soup (seeded, five generations in), launched as the
 others and in the soup itself (the median of ten of the soup's own
@@ -49,9 +55,11 @@ generation's operands of the aggregating soup, in that soup, and the soup's
 milliseconds a generation, as ``ww`` does for the weightwise ones.
 
 Prints the card and its power limit, then one JSON line per variant: for
-each source, ptxas' registers, stack frame, spills and shared memory per
-block of the linear instantiations (for the k-vector sources the linear
-average ones) and the resident blocks and warps per SM those admit, the
+each library (``source`` for a default build, ``source[tag]`` for another),
+ptxas' registers, stack frame, spills and shared memory per block of the
+linear instantiations (for the k-vector sources the linear average ones;
+every kernel of a build off the default one) and the resident blocks and
+warps per SM those admit, the
 SASS census of those instantiations (``cuobjdump -sass``: instructions,
 FMUL, FADD, FFMA, MOV, local loads and stores), a digest of the whole
 library's SASS (the anonymous namespace's hash masked, so that two builds
@@ -73,7 +81,7 @@ import subprocess
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -86,6 +94,7 @@ from .ops import cuda_rnn_apply as cra
 from .ops import cuda_rnn_train as crt
 from .ops import cuda_ww as cw
 from .ops import cuda_ww_train as cwt
+from .ops.cuda_sgd_common import kernel_build
 
 GROUPS = {
     "ww": ("ww_apply", "ww_train", "generation", "generation_bf16"),
@@ -93,6 +102,12 @@ GROUPS = {
     "kvec": ("kvec_train", "generation_kvec", "generation_kvec_bf16",
              "rnn_apply"),
 }
+
+#: the recurrent topologies (width, depth) off the default build whose K5
+#: and K3 float32 body the ``rnn`` group also builds, linear: width 3 /
+#: depth 3, which its cases run, and for ptxas and the SASS census only
+#: width 2 / depth 6, width 4 / depth 2 and the fence, width 7 / depth 1
+RNN_WIDE = ((3, 3), (2, 6), (4, 2), (7, 1))
 
 # One H100 SM (CUDA occupancy rules for compute capability 9.0): registers
 # in four partitions of 16,384, allocated per warp in units of 256; 228 KB
@@ -104,6 +119,8 @@ MAX_WARPS, MAX_BLOCKS = 64, 32
 #: and of the k-vector kernels' aggregates-4 / linear / average ones
 LINEAR = "Li2ELi2ELi0E"
 KVEC_LINEAR = "Li2ELi2ELi4ELi0ELi0E"
+#: threads a block of every kernel (``csrc/lane_common.cuh``: kThreads)
+THREADS = 128
 #: SASS opcodes the census counts
 CENSUS = ("FMUL", "FADD", "FFMA", "MOV", "LDL", "STL")
 
@@ -132,34 +149,60 @@ def parse_variant(spec: str) -> Variant:
     return Variant(label, Path(src).resolve())
 
 
-def build(variants: List[Variant], sources) -> Dict[str, Dict[str, Path]]:
-    """Compile every (variant, source), all nvcc processes at once; returns
-    label -> source -> library (its ptxas report beside it, ``.log``; its
+def jobs_for(groups) -> List[Tuple[str, _build.Build]]:
+    """The (source, build) jobs of ``groups``: each source's default build,
+    and for ``rnn`` the builds of ``RNN_WIDE``."""
+    jobs = [(name, _build.DEFAULT) for g in groups for name in GROUPS[g]]
+    if "rnn" in groups:
+        for w, d in RNN_WIDE:
+            b = kernel_build(Topology("recurrent", width=w, depth=d))
+            jobs += [("rnn_train", b), ("generation_rnn", b)]
+    return jobs
+
+
+def job_key(name: str, b: _build.Build) -> str:
+    """A library's name in the report: the source for its default build,
+    ``source[tag]`` for another (``chip_smoke.py``'s row names)."""
+    return name if b == _build.DEFAULT else f"{name}[{b.tag}]"
+
+
+def build(variants: List[Variant], jobs) -> Dict[str, Dict[tuple, Path]]:
+    """Compile every (variant, job), all nvcc processes at once, each build
+    with its ``-D`` macros and generated headers; returns label ->
+    (source, build) -> library (its ptxas report beside it, ``.log``; its
     nvcc seconds in ``.seconds``)."""
-    jobs, libs = [], {}
+    procs, libs = [], {}
     t0 = time.time()
     for v in variants:
         out = _build.BUILD_DIR / "variants" / v.label
         out.mkdir(parents=True, exist_ok=True)
         libs[v.label] = {}
-        for name in sources:
-            lib = out / f"{name}.so"
+        for name, b in jobs:
+            stem = name if b == _build.DEFAULT else f"{name}-{b.tag}"
+            lib = out / f"{stem}.so"
             lib.unlink(missing_ok=True)
-            log = open(out / f"{name}.log", "w")
-            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(v.csrc),
-                   "-o", str(lib), str(v.csrc / f"{name}.cu")]
-            jobs.append((v.label, name, lib, log,
-                         subprocess.Popen(cmd, stdout=log,
-                                          stderr=subprocess.STDOUT)))
-            libs[v.label][name] = lib
+            log = open(out / f"{stem}.log", "w")
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(v.csrc)]
+            if b.headers:
+                inc = out / f"{stem}.include"
+                inc.mkdir(exist_ok=True)
+                for fname, text in b.headers:
+                    (inc / fname).write_text(text)
+                cmd += ["-I", str(inc)]
+            cmd += [f"-D{k}={val}" for k, val in b.defines]
+            cmd += ["-o", str(lib), str(v.csrc / f"{name}.cu")]
+            procs.append((v.label, job_key(name, b), lib, log,
+                          subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT)))
+            libs[v.label][(name, b)] = lib
     failed = []
-    for label, name, lib, log, proc in jobs:
+    for label, key, lib, log, proc in procs:
         rc = proc.wait()
         log.close()
         lib.with_suffix(".seconds").write_text(
             f"{Path(log.name).stat().st_mtime - t0:.1f}")
         if rc != 0:
-            failed.append(f"{label}/{name}.cu (nvcc rc {rc}):\n"
+            failed.append(f"{label}/{key} (nvcc rc {rc}):\n"
                           + Path(log.name).read_text()[-3000:])
     if failed:
         raise RuntimeError("variant build failed:\n" + "\n".join(failed))
@@ -201,23 +244,40 @@ def resident_blocks(regs: int, smem: int, threads: int) -> int:
     return min(by_regs, by_smem, MAX_WARPS // warps, MAX_BLOCKS)
 
 
-def census_fragment(source: str) -> str:
+def census_fragment(source: str, b: _build.Build = _build.DEFAULT) -> str:
     """The mangled-name fragment of the instantiations that the census and
-    the resource report of ``csrc/<source>.cu`` cover."""
+    the resource report of ``csrc/<source>.cu``'s build ``b`` cover: every
+    kernel of a build off the default one (it holds one activation)."""
+    if b != _build.DEFAULT:
+        return ""
     return KVEC_LINEAR if "kvec" in source else LINEAR
 
 
-def linear_resources(log: Path, frag: str = LINEAR,
-                     threads: int = 128) -> dict:
+def dynamic_smem(lib: Path) -> int:
+    """Bytes of dynamic shared memory a block of the library's kernels
+    launches with, which ptxas does not report: the recurrent BPTT's
+    per-thread columns on its checkpointed path, as the library gives them
+    (``srnn_rnn_column_floats``, ``..._bf16``), else none."""
+    h = ctypes.CDLL(str(lib))
+    for symbol in ("srnn_rnn_column_floats", "srnn_rnn_column_floats_bf16"):
+        if hasattr(h, symbol):
+            return getattr(h, symbol)() * THREADS * 4
+    return 0
+
+
+def linear_resources(log: Path, frag: str = LINEAR, threads: int = THREADS,
+                     dynamic: int = 0) -> dict:
     """ptxas' numbers for the instantiations of one library whose names
     hold ``frag`` (the linear-activation, width 2, depth 2 ones), and the
-    residency they admit."""
+    residency they admit with ``dynamic`` bytes of dynamic shared memory a
+    block beside the static."""
     ents = {k: e for k, e in ptxas_entries(log.read_text()).items()
             if frag in k and "regs" in e}
     regs = max(e["regs"] for e in ents.values())
     smem = max(e["smem"] for e in ents.values())
-    blocks = resident_blocks(regs, smem, threads)
+    blocks = resident_blocks(regs, smem + dynamic, threads)
     return {"registers": regs, "smem_bytes": smem,
+            "dynamic_smem_bytes": dynamic,
             "stack_bytes": max(e.get("stack", 0) for e in ents.values()),
             "spill_bytes": sum(e.get("spill", 0) for e in ents.values()),
             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
@@ -308,13 +368,14 @@ def sass_census(sass: str, frag: str = LINEAR) -> Dict[str, dict]:
             for name, c in out.items()}
 
 
-def install(libs: Dict[str, Path]) -> None:
-    """Make the wrappers launch these libraries (``_build.load``'s cache)."""
-    for name, path in libs.items():
+def install(libs: Dict[tuple, Path]) -> None:
+    """Make the wrappers launch these libraries, each under its build's tag
+    (``_build.load``'s cache)."""
+    for (name, b), path in libs.items():
         lib = ctypes.CDLL(str(path))
         lib.srnn_error_string.argtypes = [ctypes.c_int]
         lib.srnn_error_string.restype = ctypes.c_char_p
-        _build._LOADED[(name, _build.DEFAULT.tag)] = lib
+        _build._LOADED[(name, b.tag)] = lib
 
 
 def ordered(t: torch.Tensor) -> torch.Tensor:
@@ -619,19 +680,29 @@ def ww_cases(n: int, gen) -> Dict[str, tuple]:
 
 
 def rnn_cases(n: int, gen) -> Dict[str, tuple]:
-    """K5 train 10 and learn 1; K3's recurrent bodies."""
-    rnn = Topology("recurrent", width=2, depth=2)
-    w = (fresh_lanes(rnn, gen, n, "fused", "cuda") * 0.5).contiguous()
-    other = (fresh_lanes(rnn, gen, n, "fused", "cuda") * 0.5).contiguous()
-    w[16, 0] = float("inf")
-    out = {
-        "k5_train10": (lambda: crt.rnn_train_epochs(rnn, w, 10),
-                       lambda: crt.rnn_sgd_plain(rnn, w, None, 10, 0.01),
-                       True),
-        "k5_learn1": (lambda: crt.rnn_learn_epochs(rnn, w, other, 1),
-                      lambda: crt.rnn_sgd_plain(rnn, w, other, 1, 0.01),
-                      False)}
-    out.update(generation_cases(rnn, w, gen))
+    """K5 train 10 and learn 1 and K3's recurrent bodies at width 2 /
+    depth 2; K5 train 10 and learn 1 and K3's float32 body at width 3 /
+    depth 3 (``k5w3d3``, ``k3rnnw3d3``: the build ``w3d3-linear``)."""
+    out = {}
+    for tag, topo in (("", Topology("recurrent", width=2, depth=2)),
+                      ("w3d3", Topology("recurrent", width=3, depth=3))):
+        p = topo.num_weights
+        w = (fresh_lanes(topo, gen, n, "fused", "cuda") * 0.5).contiguous()
+        other = (fresh_lanes(topo, gen, n, "fused", "cuda")
+                 * 0.5).contiguous()
+        w[p - 1, 0] = float("inf")
+        out.update({
+            f"k5{tag}_train10": (
+                lambda topo=topo, w=w: crt.rnn_train_epochs(topo, w, 10),
+                lambda topo=topo, w=w: crt.rnn_sgd_plain(topo, w, None, 10,
+                                                         0.01), True),
+            f"k5{tag}_learn1": (
+                lambda topo=topo, w=w, o=other: crt.rnn_learn_epochs(
+                    topo, w, o, 1),
+                lambda topo=topo, w=w, o=other: crt.rnn_sgd_plain(
+                    topo, w, o, 1, 0.01), False)})
+        out.update(generation_cases(topo, w, gen, tag,
+                                    ("f32", "bf16") if not tag else ("f32",)))
     return out
 
 
@@ -679,12 +750,16 @@ K3_TAGS = {"weightwise": "k3ww", "recurrent": "k3rnn", "aggregating": "k3agg",
            "fft": "k3fft"}
 
 
-def generation_cases(topo, w, gen) -> Dict[str, tuple]:
-    """K3's body of ``topo`` in float32 and bfloat16, at the gates and
-    train only."""
-    tag = K3_TAGS[topo.variant]
+def generation_cases(topo, w, gen, shape: str = "",
+                     dtypes=("f32", "bf16")) -> Dict[str, tuple]:
+    """K3's body of ``topo`` in each of ``dtypes`` (float32, bfloat16), at
+    the gates and train only; ``shape`` tags a topology off the default
+    build."""
+    tag = K3_TAGS[topo.variant] + shape
     out = {}
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if dt not in dtypes:
+            continue
         wd, ops, only = generation_inputs(topo, w.to(dtype), gen)
         ops = {k: v.to(dtype) if k.endswith("T") and k != "freshT" else v
                for k, v in ops.items()}
@@ -727,12 +802,12 @@ def main(argv=None) -> int:
         raise SystemExit("bench_kernels needs a CUDA card")
     variants = args.variant or [Variant("tree", _build.CSRC_DIR)]
     groups = args.group or sorted(GROUPS)
-    sources = [s for g in groups for s in GROUPS[g]]
+    jobs = jobs_for(groups)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    libs = build(variants, sources)
+    libs = build(variants, jobs)
     runs = cases(args.size, groups)
     refs = {name: plain() for name, (_, plain, _) in runs.items() if plain}
     results, failed = {}, []
@@ -740,7 +815,7 @@ def main(argv=None) -> int:
     for v in variants:
         install(libs[v.label])
         # K2's shuffled instantiation only where the variant has it
-        shuffled = "ww_train" not in libs[v.label] or hasattr(
+        shuffled = ("ww_train", _build.DEFAULT) not in libs[v.label] or hasattr(
             _build._LOADED[("ww_train", _build.DEFAULT.tag)],
             cwt.WW_SGD_SHUFFLED.symbol)
         avail[v.label] = {name: r for name, r in runs.items()
@@ -752,22 +827,23 @@ def main(argv=None) -> int:
             print(f"{v.label}: {e}", flush=True)
             failed.append(v.label)
             continue
-        sass = {name: sass_text(path) for name, path in libs[v.label].items()}
+        built = {job_key(*job): (job, path)
+                 for job, path in libs[v.label].items()}
+        sass = {key: sass_text(path) for key, (_, path) in built.items()}
         results[v.label] = {
             "label": v.label, "csrc": str(v.csrc),
             "card": smi, "bitwise": True,
-            "ptxas": {name: {**linear_resources(path.with_suffix(".log"),
-                                                census_fragment(name)),
-                             "nvcc_s": float(path.with_suffix(
-                                 ".seconds").read_text())}
-                      for name, path in libs[v.label].items()},
-            "sass": {name: sass_census(sass[name], census_fragment(name))
-                     for name in libs[v.label]},
-            "sass_digest": {name: sass_digest(sass[name])
-                            for name in libs[v.label]},
+            "ptxas": {key: {**linear_resources(
+                path.with_suffix(".log"), census_fragment(*job),
+                dynamic=dynamic_smem(path)),
+                            "nvcc_s": float(path.with_suffix(
+                                ".seconds").read_text())}
+                      for key, (job, path) in built.items()},
+            "sass": {key: sass_census(sass[key], census_fragment(*job))
+                     for key, (job, _) in built.items()},
+            "sass_digest": {key: sass_digest(sass[key]) for key in built},
             "sass_digest_by_kernel": {
-                name: sass_digests_by_kernel(sass[name])
-                for name in libs[v.label]},
+                key: sass_digests_by_kernel(sass[key]) for key in built},
             "ms": {name: [] for name, (_, _, t) in avail[v.label].items()
                    if t},
             "clocks": {name: [] for name, (_, _, t) in avail[v.label].items()

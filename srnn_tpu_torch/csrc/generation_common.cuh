@@ -47,7 +47,16 @@
 //                                     refreshed at each epoch top; returns
 //                                     the last epoch's loss (0 for e = 0);
 //   B::kStageTile                     optional, false when absent: stage
-//                                     the block's tile (STAGE below).
+//                                     the block's tile (STAGE below);
+//   B::kColumnFloats                  optional, 0 when absent: the floats
+//                                     of dynamic shared memory a thread
+//                                     gets (its column, [slot][threadIdx.x]);
+//   B::kStagedLearn                   optional, false when absent: instead
+//                                     of B::learn, B::stage(other, co)
+//                                     keeps a learner's target and
+//                                     B::train(rows, l, e, lr, co) runs its
+//                                     l imitation epochs before the e
+//                                     self-training ones, one chain.
 
 #pragma once
 
@@ -125,6 +134,18 @@ template <class B>
 struct StageTile<B, std::void_t<decltype(B::kStageTile)>>
     : std::bool_constant<B::kStageTile> {};
 
+template <class B, class = void>
+struct StagedLearn : std::false_type {};
+template <class B>
+struct StagedLearn<B, std::void_t<decltype(B::kStagedLearn)>>
+    : std::bool_constant<B::kStagedLearn> {};
+
+template <class B, class = void>
+struct ColumnFloats : std::integral_constant<int, 0> {};
+template <class B>
+struct ColumnFloats<B, std::void_t<decltype(B::kColumnFloats)>>
+    : std::integral_constant<int, B::kColumnFloats> {};
+
 // STAGE (B::kStageTile): the block's (P, kThreads) tile of the population,
 // and its loss and dead masks, cross device memory through shared memory.  Every thread loads and stores its own column, so each
 // warp's access to a row stays one contiguous 128 bytes (4 sectors), and
@@ -190,6 +211,7 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
 
   // learn_from: imitate the counterpart as it stands after this
   // generation's attack
+  int learned = 0;  // imitation epochs left to B::train (B::kStagedLearn)
   if (g.oth != nullptr && g.severity > 0 && g.gates[lane(1, n, i)] != 0) {
     float o[P];
 #pragma unroll
@@ -202,11 +224,21 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
 #pragma unroll
       for (int r = 0; r < P; ++r) o[r] = t[r];
     }
-    B::learn(rows, o, g.severity, g.lr, co);
+    if constexpr (StagedLearn<B>::value) {
+      B::stage(o, co);
+      learned = g.severity;
+    } else {
+      B::learn(rows, o, g.severity, g.lr, co);
+    }
   }
 
   // self-training, sample refreshed at each epoch top
-  const float last = B::train(rows, g.train, g.lr, co);
+  float last;
+  if constexpr (StagedLearn<B>::value) {
+    last = B::train(rows, learned, g.train, g.lr, co);
+  } else {
+    last = B::train(rows, g.train, g.lr, co);
+  }
 
   // respawn: divergent first, then zero among the finite
   bool div = false;
@@ -254,8 +286,11 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
 template <class B, class Pop>
 inline int launch_generation(const GenArgs<Pop>& g,
                              const typename B::Consts& co, void* stream) {
-  generation_kernel<B, Pop, StageTile<B>::value><<<
-      blocks_for(g.n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(g, co);
+  constexpr int smem = ColumnFloats<B>::value * kThreads * static_cast<int>(sizeof(float));
+  const auto kernel = generation_kernel<B, Pop, StageTile<B>::value>;
+  const cudaError_t set = allow_dynamic_shared(kernel, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<blocks_for(g.n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(g, co);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,8 +7,9 @@
 // wT[p * N + n] for each row p (a warp's 32 loads of one row are
 // contiguous, so they coalesce) and keeps the particle's rows in registers
 // for the whole call.  There is no cross-particle arithmetic anywhere, so
-// no shared memory and no synchronisation but K3's deal of a block's lanes
-// to its threads (generation_common.cuh).  The sources are built with
+// no synchronisation but K3's deal of a block's lanes to its threads
+// (generation_common.cuh); shared memory holds per-thread columns only
+// (K3's staged tile, the recurrent BPTT's checkpoints: rnn_common.cuh).  The sources are built with
 // --fmad=false, so every multiply and every add rounds on its own, as the
 // plain torch versions' separate ops do.
 
@@ -59,6 +60,16 @@ constexpr int kThreads = 128;
 inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
+
+#ifdef __CUDACC__
+// Let ``kernel`` launch with ``bytes`` of dynamic shared memory (past 48 KB
+// only after this attribute is set).
+template <class Kernel>
+inline cudaError_t allow_dynamic_shared(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+#endif
 
 }  // namespace srnn
 

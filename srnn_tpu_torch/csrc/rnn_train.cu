@@ -13,14 +13,24 @@
 // rate, which counts an FMA as two operations, and 0.48 ms at the rate at
 // which the card issues the separate multiplies and adds of a build with
 // --fmad=false; against 140 MB read and written once (0.04 ms at
-// 3.35 TB/s).
+// 3.35 TB/s).  At width 3 / depth 3 (P = 52) an epoch is 15,180 operations
+// (2.27 ms at N = 1M, train 10), of which the forward is 4,888.
 //
-// Design: one thread per particle; the weights, the sample, the gradients,
-// every layer's output sequence and the carries in registers for the
-// whole chain (148 registers, no stack frame), one coalesced read and one
-// write per weight row; the layers walked by template recursion, so that
-// no array falls to local memory, and the backward one reverse-time sweep
-// over all layers (rnn_common.cuh: bptt_epoch).
+// Design: one thread per particle, one coalesced read and one write per
+// weight row; the weights, the gradients and the carries in registers for
+// the whole chain, the layers walked by template recursion, the backward
+// one reverse-time sweep over all layers (rnn_common.cuh).  Two paths, by
+// the build's topology (rnn_common.cuh: Checkpoints):
+//   - the register path keeps the sample and every layer's output
+//     sequence in registers too: 148 registers and no stack frame at the
+//     default width 2 / depth 2, 12 resident warps per SM;
+//   - the checkpointed path, for the builds whose sequence does not fit in
+//     registers (at width 3 / depth 3 it spilled 7,860 bytes from 255
+//     registers and ran 16.6x its bound): the sample and a checkpoint of
+//     the state every C steps in the thread's column of the block's
+//     dynamic shared memory, each segment's outputs recomputed into
+//     registers in the reverse sweep -- one more forward an epoch, no
+//     spills.
 
 #include "rnn_common.cuh"
 
@@ -40,10 +50,26 @@ rnn_sgd_kernel(const float* __restrict__ wT, const float* __restrict__ otherT,
     rows[r] = wT[srnn::lane(r, n, i)];
     target[r] = REFRESH ? 0.0f : otherT[srnn::lane(r, n, i)];
   }
-  const float last = srnn::rnn_sgd<W, D, A, REFRESH>(rows, target, epochs, lr);
+  const float last =
+      srnn::rnn_sgd<W, D, A, REFRESH>(rows, target, epochs, lr, srnn::thread_column());
 #pragma unroll
   for (int r = 0; r < P; ++r) out[srnn::lane(r, n, i)] = rows[r];
   loss[i] = last;
+}
+
+// One launch, with the checkpointed path's columns of dynamic shared
+// memory (none on the register path).
+template <int W, int D, int A, bool REFRESH>
+int launch(const float* wT, const float* otherT, float* out, float* loss,
+           long long n, int epochs, float lr, void* stream) {
+  constexpr int smem =
+      srnn::Checkpoints<W, D>::kColumnFloats * srnn::kThreads * static_cast<int>(sizeof(float));
+  const auto kernel = rnn_sgd_kernel<W, D, A, REFRESH>;
+  const cudaError_t set = srnn::allow_dynamic_shared(kernel, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<srnn::blocks_for(n), srnn::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      wT, otherT, out, loss, n, epochs, lr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -57,16 +83,16 @@ extern "C" int srnn_rnn_sgd(const float* wT, const float* otherT, float* out,
   constexpr int W = SRNN_W, D = SRNN_D;
   if (width != W || depth != D || n <= 0 || epochs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned int g = srnn::blocks_for(n);
-  if (otherT == nullptr) {
-    SRNN_DISPATCH_ACT(act_code,
-        rnn_sgd_kernel<W, D, A, true><<<g, srnn::kThreads, 0, s>>>(
-            wT, otherT, out, loss, n, epochs, lr));
-  } else {
-    SRNN_DISPATCH_ACT(act_code,
-        rnn_sgd_kernel<W, D, A, false><<<g, srnn::kThreads, 0, s>>>(
-            wT, otherT, out, loss, n, epochs, lr));
-  }
-  return static_cast<int>(cudaGetLastError());
+  SRNN_DISPATCH_ACT(act_code,
+      return otherT == nullptr
+                 ? launch<W, D, A, true>(wT, otherT, out, loss, n, epochs, lr, stream)
+                 : launch<W, D, A, false>(wT, otherT, out, loss, n, epochs, lr, stream));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Floats of dynamic shared memory a thread of this build's kernels takes
+// (rnn_common.cuh: Checkpoints; 0 on the register path), for the
+// residency reports.
+extern "C" int srnn_rnn_column_floats() {
+  return srnn::Checkpoints<SRNN_W, SRNN_D>::kColumnFloats;
 }
