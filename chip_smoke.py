@@ -13,7 +13,10 @@ Phases, each fatal on failure:
    aggregates, and the builds of the topologies off it that the main path
    runs: width 3 / depth 3 of every variant, aggregating with 6
    aggregates, and the fence of 64 weights) and print ptxas' register,
-   stack and spill report per build;
+   stack and spill report per build, ptxas' line for the rolled weightwise
+   epoch's builds of K2 and K3 at width 3 / depth 3 (P = 33), and the SASS
+   digest of each kernel of the default builds of ww_train, generation and
+   generation_bf16;
 3. each kernel against its plain version on the same inputs at N = 1M:
    the weightwise kernels (K1-K3, P = 14, the 4-2-2-1 net), the k-vector
    SGD chain (K4, aggregating 4-2-2-4, P = 20), the recurrent BPTT chain and
@@ -214,14 +217,23 @@ def ww_apply_issued(topo) -> int:
     return shared + topo.num_weights * per_point
 
 
+#: operations of a weightwise epoch past which a build runs it rolled
+#: (csrc/ww_common.cuh: Epoch::kUnrolledMax)
+WW_UNROLLED_MAX = 2048
+
+
 def ww_sgd_issued_per_epoch(topo) -> int:
     """FP32 instructions of one epoch of the redesigned batch-1 chain: the
     reference's count less the forward's and the layer-0 gradients' products
-    with a coordinate of 1.0."""
+    with a coordinate of 1.0; the rolled epoch of the builds past
+    ``WW_UNROLLED_MAX`` issues every product."""
     from srnn_tpu_torch.topology import normalized_weight_coords
 
+    ops = sgd_ops_per_epoch(topo)
+    if ops > WW_UNROLLED_MAX:
+        return ops
     ones = int((normalized_weight_coords(topo) == 1.0).sum())
-    return sgd_ops_per_epoch(topo) - 2 * topo.layer_shapes[0][1] * ones
+    return ops - 2 * topo.layer_shapes[0][1] * ones
 
 
 def kvec_reduce_ops(topo) -> int:
@@ -399,18 +411,28 @@ def build_kernels():
     that the wide topologies need (``wide_jobs``), one nvcc each, all at
     once; print each one's finish time (its log's last write) and ptxas'
     report summed over the build's instantiations: registers, stack frame,
-    spilled bytes, shared memory per block (for the recurrent BPTT's
-    checkpointed builds also their dynamic shared memory and the resident
-    warps per SM); for the default builds of the sources that
+    spilled bytes, shared memory per block (for K3's builds with
+    per-thread columns, the recurrent BPTT's checkpointed ones and the
+    weightwise body's rolled ones, also their dynamic shared memory and the
+    resident warps per SM); for the default builds of the sources that
     bench_kernels compares (its groups) also the linear (k-vector: linear
-    average) instantiations' resident warps per SM."""
+    average) instantiations' resident warps per SM; then ptxas' line for
+    the rolled weightwise builds that K2 and K3 run at width 3 / depth 3
+    (P = 33), and the SASS digest of each kernel template of the default
+    builds of ww_train, generation and generation_bf16 (bench_kernels'
+    ``sass_digests_by_kernel``), so that a later change can show that
+    they held."""
     import re
 
     from srnn_tpu_torch.bench_kernels import (GROUPS, census_fragment,
                                               dynamic_smem,
                                               linear_resources,
-                                              resident_blocks)
+                                              resident_blocks,
+                                              resources_by_kernel,
+                                              sass_digests_by_kernel,
+                                              sass_text)
     from srnn_tpu_torch.ops import _build
+    from srnn_tpu_torch.ops.cuda_sgd_common import kernel_build
 
     jobs = [(name, _build.DEFAULT) for name in _build.SOURCES] + wide_jobs()
     t0, wall0 = time.perf_counter(), time.time()
@@ -433,13 +455,28 @@ def build_kernels():
             f"{max(regs, default=0)}, stack frame up to "
             f"{max(stack, default=0)} bytes, spilled bytes {spills}, "
             f"shared memory up to {max(smem, default=0)} bytes a block"
-            + (f" and {dyn} bytes of checkpointed BPTT columns, "
+            + (f" and {dyn} bytes of per-thread columns, "
                f"{resident_blocks(max(regs), max(smem, default=0) + dyn, 128) * 4} "
                f"resident warps an SM" if dyn else ""))
         if b == _build.DEFAULT and any(name in g for g in GROUPS.values()):
             res = linear_resources(_build.log_path(name),
                                    census_fragment(name))
             log(f"    linear instantiations: {res}")
+    rolled = kernel_build(wide_topos()["ww"])
+    for name, kernel in (("ww_train", "ww_sgd_kernel"),
+                         ("generation", "generation_kernel"),
+                         ("generation_bf16", "generation_kernel")):
+        dyn = dynamic_smem(_build.library_path(name, rolled))
+        res = resources_by_kernel(_build.log_path(name, rolled), "",
+                                  dyn)[kernel]
+        log(f"  ptxas {name}[{rolled.tag}] {kernel} (rolled epoch, P = 33):"
+            f" {res['registers']} registers, {res['stack_bytes']} bytes "
+            f"stack frame, {res['spill_bytes']} bytes spilled, "
+            f"{res['smem_bytes']} + {dyn} bytes shared memory a block, "
+            f"{res['warps_per_sm']} resident warps an SM")
+    for name in ("ww_train", "generation", "generation_bf16"):
+        digests = sass_digests_by_kernel(sass_text(_build.library_path(name)))
+        log(f"  SASS digests by kernel, {name} default build: {digests}")
 
 
 def population(topo, n, gen, scale=1.0):

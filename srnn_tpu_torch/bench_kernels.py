@@ -6,7 +6,9 @@
 Builds the kernels of each ``--group`` from each variant's source directory
 ``DIR`` with the package's nvcc flags, one nvcc per library, all at once:
 ``ww`` is K1 (``csrc/ww_apply.cu``), K2 (``ww_train.cu``) and K3's
-weightwise bodies (``generation.cu``, ``generation_bf16.cu``); ``rnn`` is
+weightwise bodies (``generation.cu``, ``generation_bf16.cu``), and also K2
+and both K3 bodies built for the weightwise topologies of ``WW_WIDE``
+(width 3 / depth 3, linear: ``k2w3d3_*``, ``k3www3d3_*``); ``rnn`` is
 K5 (``rnn_train.cu``) and K3's recurrent bodies (``generation_rnn.cu``,
 ``generation_rnn_bf16.cu``), and also K5 and K3's float32 body built for
 the recurrent topologies of ``RNN_WIDE`` (their ``kernel_build`` macros,
@@ -59,7 +61,7 @@ each library (``source`` for a default build, ``source[tag]`` for another),
 ptxas' registers, stack frame, spills and shared memory per block of the
 linear instantiations (for the k-vector sources the linear average ones;
 every kernel of a build off the default one) and the resident blocks and
-warps per SM those admit, the
+warps per SM those admit, over the library and per kernel template, the
 SASS census of those instantiations (``cuobjdump -sass``: instructions,
 FMUL, FADD, FFMA, MOV, local loads and stores), a digest of the whole
 library's SASS (the anonymous namespace's hash masked, so that two builds
@@ -102,6 +104,11 @@ GROUPS = {
     "kvec": ("kvec_train", "generation_kvec", "generation_kvec_bf16",
              "rnn_apply"),
 }
+
+#: the weightwise topologies (width, depth) off the default build whose K2
+#: and K3 float32 and bfloat16 bodies the ``ww`` group also builds and
+#: runs, linear: width 3 / depth 3, the rolled epoch's build
+WW_WIDE = ((3, 3),)
 
 #: the recurrent topologies (width, depth) off the default build whose K5
 #: and K3 float32 body the ``rnn`` group also builds, linear: width 3 /
@@ -151,8 +158,13 @@ def parse_variant(spec: str) -> Variant:
 
 def jobs_for(groups) -> List[Tuple[str, _build.Build]]:
     """The (source, build) jobs of ``groups``: each source's default build,
-    and for ``rnn`` the builds of ``RNN_WIDE``."""
+    for ``ww`` the builds of ``WW_WIDE`` and for ``rnn`` those of
+    ``RNN_WIDE``."""
     jobs = [(name, _build.DEFAULT) for g in groups for name in GROUPS[g]]
+    if "ww" in groups:
+        for w, d in WW_WIDE:
+            b = kernel_build(Topology("weightwise", width=w, depth=d))
+            jobs += [(name, b) for name in GROUPS["ww"][1:]]
     if "rnn" in groups:
         for w, d in RNN_WIDE:
             b = kernel_build(Topology("recurrent", width=w, depth=d))
@@ -255,24 +267,22 @@ def census_fragment(source: str, b: _build.Build = _build.DEFAULT) -> str:
 
 def dynamic_smem(lib: Path) -> int:
     """Bytes of dynamic shared memory a block of the library's kernels
-    launches with, which ptxas does not report: the recurrent BPTT's
-    per-thread columns on its checkpointed path, as the library gives them
-    (``srnn_rnn_column_floats``, ``..._bf16``), else none."""
+    launches with, which ptxas does not report: K3's per-thread columns
+    (the recurrent BPTT's checkpointed path, the weightwise body's rolled
+    builds), as the library gives them (``srnn_rnn_column_floats``,
+    ``srnn_ww_column_floats``, ``..._bf16``), else none."""
     h = ctypes.CDLL(str(lib))
-    for symbol in ("srnn_rnn_column_floats", "srnn_rnn_column_floats_bf16"):
+    for symbol in ("srnn_rnn_column_floats", "srnn_rnn_column_floats_bf16",
+                   "srnn_ww_column_floats", "srnn_ww_column_floats_bf16"):
         if hasattr(h, symbol):
             return getattr(h, symbol)() * THREADS * 4
     return 0
 
 
-def linear_resources(log: Path, frag: str = LINEAR, threads: int = THREADS,
-                     dynamic: int = 0) -> dict:
-    """ptxas' numbers for the instantiations of one library whose names
-    hold ``frag`` (the linear-activation, width 2, depth 2 ones), and the
-    residency they admit with ``dynamic`` bytes of dynamic shared memory a
-    block beside the static."""
-    ents = {k: e for k, e in ptxas_entries(log.read_text()).items()
-            if frag in k and "regs" in e}
+def _resources(ents: Dict[str, dict], threads: int, dynamic: int) -> dict:
+    """ptxas' numbers over the entries ``ents`` and the residency they
+    admit with ``dynamic`` bytes of dynamic shared memory a block beside
+    the static."""
     regs = max(e["regs"] for e in ents.values())
     smem = max(e["smem"] for e in ents.values())
     blocks = resident_blocks(regs, smem + dynamic, threads)
@@ -281,6 +291,32 @@ def linear_resources(log: Path, frag: str = LINEAR, threads: int = THREADS,
             "stack_bytes": max(e.get("stack", 0) for e in ents.values()),
             "spill_bytes": sum(e.get("spill", 0) for e in ents.values()),
             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
+
+
+def _entries(log: Path, frag: str) -> Dict[str, dict]:
+    return {k: e for k, e in ptxas_entries(log.read_text()).items()
+            if frag in k and "regs" in e}
+
+
+def linear_resources(log: Path, frag: str = LINEAR, threads: int = THREADS,
+                     dynamic: int = 0) -> dict:
+    """ptxas' numbers for the instantiations of one library whose names
+    hold ``frag`` (the linear-activation, width 2, depth 2 ones), and the
+    residency they admit with ``dynamic`` bytes of dynamic shared memory a
+    block beside the static."""
+    return _resources(_entries(log, frag), threads, dynamic)
+
+
+def resources_by_kernel(log: Path, frag: str = LINEAR,
+                        dynamic: int = 0) -> Dict[str, dict]:
+    """``linear_resources`` of each kernel template's instantiations on
+    their own: template name (``ww_sgd_kernel``,
+    ``ww_sgd_shuffled_kernel``, ...) -> its numbers."""
+    ents = _entries(log, frag)
+    return {name: _resources({k: e for k, e in ents.items()
+                              if kernel_template(k) == name},
+                             THREADS, dynamic)
+            for name in sorted({kernel_template(k) for k in ents})}
 
 
 def cuobjdump_path() -> str:
@@ -670,12 +706,33 @@ def ww_cases(n: int, gen) -> Dict[str, tuple]:
         lambda: cwt.ww_learn_epochs(ww, w, other, 1, order=order1),
         lambda: cwt.ww_sgd_plain(ww, w, other, 1, 0.01, order1), False)
     out.update(generation_cases(ww, w, gen))
+    for width, depth in WW_WIDE:
+        out.update(ww_wide_cases(n, gen, width, depth))
     probe = SoupProbe(n)
     out["k3ww_f32_soup"] = (probe.launch, probe.plain, True)
     # timed by themselves: their runs return the time
     out["k3ww_f32_in_soup"] = (probe.in_soup_ms, None, True)
     out["soup_ww_fused_ms_per_generation"] = (probe.ms_per_generation, None,
                                               True)
+    return out
+
+
+def ww_wide_cases(n: int, gen, width: int, depth: int) -> Dict[str, tuple]:
+    """K2 train 10 and learn 1 and K3's float32 and bfloat16 weightwise
+    bodies at ``width`` / ``depth`` (``k2w3d3_*``, ``k3www3d3_*``: the
+    build ``w3d3-linear``)."""
+    topo = Topology("weightwise", width=width, depth=depth)
+    tag = f"w{width}d{depth}"
+    w = fresh_lanes(topo, gen, n, "fused", "cuda").contiguous()
+    other = fresh_lanes(topo, gen, n, "fused", "cuda").contiguous()
+    out = {
+        f"k2{tag}_train10": (lambda: cwt.ww_train_epochs(topo, w, 10),
+                             lambda: cwt.ww_sgd_plain(topo, w, None, 10,
+                                                      0.01), True),
+        f"k2{tag}_learn1": (lambda: cwt.ww_learn_epochs(topo, w, other, 1),
+                            lambda: cwt.ww_sgd_plain(topo, w, other, 1,
+                                                     0.01), True)}
+    out.update(generation_cases(topo, w, gen, tag))
     return out
 
 
@@ -836,6 +893,10 @@ def main(argv=None) -> int:
             "ptxas": {key: {**linear_resources(
                 path.with_suffix(".log"), census_fragment(*job),
                 dynamic=dynamic_smem(path)),
+                            "by_kernel": resources_by_kernel(
+                                path.with_suffix(".log"),
+                                census_fragment(*job),
+                                dynamic_smem(path)),
                             "nvcc_s": float(path.with_suffix(
                                 ".seconds").read_text())}
                       for key, (job, path) in built.items()},

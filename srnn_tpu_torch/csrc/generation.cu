@@ -21,6 +21,18 @@
 // warp of the four instead of in nearly every warp with most lanes idle.
 // Neither changes a rounded operation, so the results are the same bitwise.
 // ptxas' report for this kernel is printed by chip_smoke.py (the build log).
+//
+// The builds whose unrolled epoch passes Epoch::kUnrolledMax operations
+// (width 3 / depth 3) run the rolled forms of ww_common.cuh.  Unrolled, the
+// gated phases cost 58% of the kernel at P = 33 (6.71 ms against 2.77 train
+// only): the attack's two inlined applications and a second copy of the
+// epoch, about 20,000 instructions that the gated warp ran once, from a
+// cold instruction cache, while the block held its slot.  Rolled, the
+// operand of each attack is staged in the thread's column of shared memory
+// and transformed there by one call site of a one-point loop (the
+// skeleton's kOneAttackSite), and a learner's imitation epochs run in the
+// self-training chain's code (kStagedLearn), its target staged in the same
+// column; the epoch itself is the rolled one that K2 runs (PERF.md).
 
 #include "generation_common.cuh"
 #include "ww_common.cuh"
@@ -34,6 +46,14 @@ template <int W, int D, int A>
 struct WwBody {
   static constexpr int P = srnn::WW<W, D>::P;
   using Consts = NoConsts;
+  // the rolled builds (ww_common.cuh, Epoch): the operand of the attack and
+  // the learner's target staged in the thread's column, one attack call
+  // site, one epoch chain, the coordinates in the block's table
+  static constexpr bool kRolled = srnn::Epoch<W, D>::kRolled;
+  static constexpr int kColumnFloats = kRolled ? P : 0;
+  static constexpr bool kStagedLearn = kRolled;
+  static constexpr bool kOneAttackSite = kRolled;
+  static constexpr bool kBlockSetup = kRolled;
   __device__ static void apply(const float (&self)[P], const float (&x)[P],
                                float (&out)[P], const Consts&) {
     srnn::apply_rows<W, D, A>(self, x, out);
@@ -45,6 +65,34 @@ struct WwBody {
   __device__ static float train(float (&rows)[P], int epochs, float lr,
                                 const Consts&) {
     return srnn::sgd_chain<W, D, A, true>(rows, rows, epochs, lr);
+  }
+
+  // The rolled builds' members (generation_common.cuh: kBlockSetup,
+  // kStagedLearn, kOneAttackSite).
+  __device__ __forceinline__ static srnn::SampleCoords* coords() {
+    __shared__ srnn::SampleCoords table[P];
+    return table;
+  }
+  __device__ __forceinline__ static void setup_block(const Consts&) {
+    for (int s = threadIdx.x; s < P; s += blockDim.x) coords()[s] = srnn::sample_coords<W, D>(s);
+  }
+  __device__ __forceinline__ static void stage(const float (&x)[P], const Consts&) {
+    const auto col = srnn::thread_column();
+#pragma unroll
+    for (int r = 0; r < P; ++r) col[r] = x[r];
+  }
+  __device__ __forceinline__ static void unstage(float (&x)[P], const Consts&) {
+    const auto col = srnn::thread_column();
+#pragma unroll
+    for (int r = 0; r < P; ++r) x[r] = col[r];
+  }
+  __device__ __forceinline__ static void apply_staged(const float (&self)[P], const Consts&) {
+    srnn::apply_column<W, D, A>(self, srnn::thread_column(), coords());
+  }
+  __device__ __forceinline__ static float train(float (&rows)[P], int learned,
+                                                int epochs, float lr, const Consts&) {
+    return srnn::learn_then_train<W, D, A>(rows, learned, epochs, lr,
+                                           srnn::thread_column(), coords());
   }
 };
 
@@ -65,4 +113,10 @@ extern "C" int SRNN_GEN_ENTRY(srnn_ww_generation)(
   SRNN_DISPATCH_ACT(act_code,
       return srnn::launch_generation<WwBody<W, D, A>>(g, NoConsts{}, stream));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Floats of dynamic shared memory a thread of this build's kernel takes
+// (its column: P on the rolled builds, else 0), for the residency reports.
+extern "C" int SRNN_GEN_ENTRY(srnn_ww_column_floats)() {
+  return WwBody<SRNN_W, SRNN_D, srnn::LINEAR>::kColumnFloats;
 }

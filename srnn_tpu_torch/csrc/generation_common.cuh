@@ -56,7 +56,22 @@
 //                                     keeps a learner's target and
 //                                     B::train(rows, l, e, lr, co) runs its
 //                                     l imitation epochs before the e
-//                                     self-training ones, one chain.
+//                                     self-training ones, one chain;
+//   B::kOneAttackSite                 optional, false when absent (needs
+//                                     kStagedLearn): the attack and the
+//                                     learner's recomputed target run one
+//                                     call site, a two-pass loop that
+//                                     stages each operand (B::stage),
+//                                     transforms it where it is staged
+//                                     (B::apply_staged(self, co)) and, for
+//                                     the attack, takes it back
+//                                     (B::unstage(rows, co)); the learner's
+//                                     target stays staged for B::train;
+//   B::kBlockSetup                    optional, false when absent:
+//                                     B::setup_block(co), run by every
+//                                     thread before the deal, fills the
+//                                     block's shared tables (the deal's
+//                                     barriers publish them).
 
 #pragma once
 
@@ -141,6 +156,18 @@ struct StagedLearn<B, std::void_t<decltype(B::kStagedLearn)>>
     : std::bool_constant<B::kStagedLearn> {};
 
 template <class B, class = void>
+struct OneAttackSite : std::false_type {};
+template <class B>
+struct OneAttackSite<B, std::void_t<decltype(B::kOneAttackSite)>>
+    : std::bool_constant<B::kOneAttackSite> {};
+
+template <class B, class = void>
+struct BlockSetup : std::false_type {};
+template <class B>
+struct BlockSetup<B, std::void_t<decltype(B::kBlockSetup)>>
+    : std::bool_constant<B::kBlockSetup> {};
+
+template <class B, class = void>
 struct ColumnFloats : std::integral_constant<int, 0> {};
 template <class B>
 struct ColumnFloats<B, std::void_t<decltype(B::kColumnFloats)>>
@@ -182,6 +209,7 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
         staged_tile<P>().rows[r][threadIdx.x] = load_f32(g.wT, lane(r, n, mine));
     }
   }
+  if constexpr (BlockSetup<B>::value) B::setup_block(co);
   const long long dealt = deal_lane(g);  // its barriers publish the tile
   if constexpr (!STAGE) {
     if (dealt >= n) return;
@@ -199,20 +227,51 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
     for (int r = 0; r < P; ++r) rows[r] = load_f32(g.wT, lane(r, n, i));
   }
 
-  // attack: the gated lanes are rewritten by their attacker's net
-  if (g.atk != nullptr && g.gates[lane(0, n, i)] != 0) {
-    float a[P], t[P];
+  // attack: the gated lanes are rewritten by their attacker's net (on a
+  // body with one attack call site, pass 0 below)
+  if constexpr (!OneAttackSite<B>::value) {
+    if (g.atk != nullptr && g.gates[lane(0, n, i)] != 0) {
+      float a[P], t[P];
 #pragma unroll
-    for (int r = 0; r < P; ++r) a[r] = load_f32(g.atk, lane(r, n, i));
-    B::apply(a, rows, t, co);
+      for (int r = 0; r < P; ++r) a[r] = load_f32(g.atk, lane(r, n, i));
+      B::apply(a, rows, t, co);
 #pragma unroll
-    for (int r = 0; r < P; ++r) rows[r] = t[r];
+      for (int r = 0; r < P; ++r) rows[r] = t[r];
+    }
   }
 
   // learn_from: imitate the counterpart as it stands after this
   // generation's attack
   int learned = 0;  // imitation epochs left to B::train (B::kStagedLearn)
-  if (g.oth != nullptr && g.severity > 0 && g.gates[lane(1, n, i)] != 0) {
+  if constexpr (OneAttackSite<B>::value) {
+    static_assert(StagedLearn<B>::value, "kOneAttackSite stages the target");
+    // pass 0 stages this lane's rows and, gated, has its attacker rewrite
+    // them; pass 1 stages a learner's target and, gated, has the target's
+    // attacker rewrite it there, for B::train to imitate
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      const Pop* by;
+      if (pass == 0) {
+        if (g.atk == nullptr || g.gates[lane(0, n, i)] == 0) continue;
+        B::stage(rows, co);
+        by = g.atk;
+      } else {
+        if (g.oth == nullptr || g.severity <= 0 || g.gates[lane(1, n, i)] == 0) break;
+        float o[P];
+#pragma unroll
+        for (int r = 0; r < P; ++r) o[r] = load_f32(g.oth, lane(r, n, i));
+        B::stage(o, co);
+        learned = g.severity;
+        if (g.oatk == nullptr || g.gates[lane(2, n, i)] == 0) break;
+        by = g.oatk;
+      }
+      float a[P];
+#pragma unroll
+      for (int r = 0; r < P; ++r) a[r] = load_f32(by, lane(r, n, i));
+      B::apply_staged(a, co);
+      if (pass == 0) B::unstage(rows, co);
+    }
+  } else if (g.oth != nullptr && g.severity > 0 && g.gates[lane(1, n, i)] != 0) {
     float o[P];
 #pragma unroll
     for (int r = 0; r < P; ++r) o[r] = load_f32(g.oth, lane(r, n, i));

@@ -61,7 +61,25 @@ inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
+// A thread's column of floats: slot k at base[k * STRIDE] (STRIDE =
+// kThreads for a column of the block's shared memory, 1 for an array).
+// The recurrent BPTT's checkpoints (rnn_common.cuh) and the rolled
+// weightwise epoch's sample (ww_common.cuh) live in one.
+template <int STRIDE>
+struct Column {
+  float* base;
+  __device__ __forceinline__ float& operator[](int k) const { return base[k * STRIDE]; }
+};
+
 #ifdef __CUDACC__
+// This thread's column of the block's dynamic shared memory, which a
+// launch sizes to its kernel's floats a thread times kThreads (K3's
+// B::kColumnFloats: generation_common.cuh).
+__device__ __forceinline__ Column<kThreads> thread_column() {
+  extern __shared__ float srnn_columns[];
+  return {srnn_columns + threadIdx.x};
+}
+
 // Let ``kernel`` launch with ``bytes`` of dynamic shared memory (past 48 KB
 // only after this attribute is set).
 template <class Kernel>

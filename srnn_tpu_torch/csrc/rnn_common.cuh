@@ -118,24 +118,6 @@ struct Checkpoints {
   }
 };
 
-// A thread's column of floats: slot k at base[k * STRIDE] (STRIDE =
-// kThreads for a column of the block's shared memory, 1 for an array).
-template <int STRIDE>
-struct Column {
-  float* base;
-  __device__ __forceinline__ float& operator[](int k) const { return base[k * STRIDE]; }
-};
-
-#ifdef __CUDACC__
-// This thread's column of the block's dynamic shared memory, which the
-// launch sizes to Checkpoints<W, D>::kColumnFloats * kThreads floats (none
-// on the register path, which never touches it).
-__device__ __forceinline__ Column<kThreads> thread_column() {
-  extern __shared__ float srnn_columns[];
-  return {srnn_columns + threadIdx.x};
-}
-#endif
-
 // K6's forward: the stack over the length-T sequence ``x``, layer by layer;
 // seq[l][t][u] holds layer l's output at step t (layer NL - 1's unit 0 is
 // the prediction).

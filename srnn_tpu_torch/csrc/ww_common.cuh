@@ -29,6 +29,20 @@
 // ``pallas_generation._mlp_rows`` / ``apply_rows`` and
 // ``pallas_ww_train._sgd_chain``, and this package's plain torch versions of
 // them: every rounded product and sum keeps its operands and its order.
+//
+// Straight-line code has a price that grows with the topology: an unrolled
+// epoch is P steps of about 3P operations, so at width 3 / depth 3 (P = 33)
+// it is some 7,000 instructions (110 KB) a thread streams ten times a
+// launch, and the gated phases of K3 add an application and a second epoch
+// that one warp of four runs once, from a cold instruction cache.  So the
+// builds whose unrolled epoch passes Epoch::kUnrolledMax operations run the
+// rolled forms instead (sgd_chain_rolled, apply_column): a loop over the
+// samples, each one's weight feature read from the thread's column of
+// shared memory and its coordinates from the block's table (SampleCoords), every
+// coordinate product issued (IEEE gives 1.0 * v == v), each layer's update
+// applied as soon as its backward has read its rows.  The same rounded
+// operations on the same operands in the same order, so the results are the
+// same bit for bit; the default build (P = 14) keeps the unrolled forms.
 
 #pragma once
 
@@ -443,6 +457,181 @@ __device__ __forceinline__ float sgd_chain_shuffled(
     last = loss_acc / static_cast<float>(P);
   }
   return last;
+}
+
+// The form of a build's epoch: unrolled (sgd_chain, the default build's)
+// while its operations, as the reference counts them for the linear net
+// (chip_smoke.py, sgd_ops_per_epoch), stay at or under kUnrolledMax, else
+// rolled (sgd_chain_rolled).  The default build's epoch is 1,079
+// operations (rolled, K2 took 0.41 ms there against 0.31 unrolled), width
+// 3 / depth 3's 6,337 (rolled 2.10 against 2.69; PERF.md).  The builds in
+// between were not measured.
+template <int W, int D>
+struct Epoch {
+  using T = WW<W, D>;
+  __host__ __device__ static constexpr int step_ops() {
+    int ops = 3 + 1 + 2 * T::P;  // the loss, dL/dpred, the update
+    for (int l = 0; l < T::L; ++l) {
+      const int a = T::fan_in(l), b = T::fan_out(l);
+      ops += b * (2 * a - 1) + a * b;          // forward, weight gradients
+      if (l > 0) ops += a * (2 * b - 1);       // back-propagated gradients
+    }
+    return ops;
+  }
+  static constexpr int kOps = T::P * step_ops() + 1;
+  static constexpr int kUnrolledMax = 2048;
+  static constexpr bool kRolled = kOps > kUnrolledMax;
+};
+
+// Sample s's coordinates (c[0..2]; c[3] pads the entry to one 16-byte
+// load), the rolled forms' table.  Built at run time by the kernels, as
+// K2's shuffled instantiation builds its table.
+struct alignas(16) SampleCoords {
+  float c[4];
+};
+
+template <int W, int D>
+__host__ __device__ inline SampleCoords sample_coords(int s) {
+  return {{WW<W, D>::coord(s, 0), WW<W, D>::coord(s, 1), WW<W, D>::coord(s, 2), 0.0f}};
+}
+
+// sgd_step on a sample whose weight feature and coordinates are known only
+// at run time (the rolled epoch): the same rounded operations, every
+// coordinate product issued, and each layer's rows updated as soon as its
+// backward has read them (layer li's rows are not read below li), so that
+// no gradient stays live across the backward.
+template <int W, int D, int A>
+__device__ __forceinline__ void sgd_step_rolled(float (&rows)[WW<W, D>::P],
+                                                float x, const SampleCoords& c,
+                                                float& loss_acc, float lr) {
+  using T = WW<W, D>;
+  constexpr int b0 = T::fan_out(0);
+  float acts[T::L + 1][T::M];
+  acts[0][0] = x;
+#pragma unroll
+  for (int j = 0; j < b0; ++j) {
+    float acc = x * rows[j];
+    acc = acc + c.c[0] * rows[b0 + j];
+    acc = acc + c.c[1] * rows[2 * b0 + j];
+    acc = acc + c.c[2] * rows[3 * b0 + j];
+    acts[1][j] = act<A>(acc);
+  }
+#pragma unroll
+  for (int l = 1; l < T::L; ++l) {
+    const int a = T::fan_in(l), b = T::fan_out(l), o = T::offset(l);
+#pragma unroll
+    for (int j = 0; j < b; ++j) {
+      float acc = acts[l][0] * rows[o + j];
+#pragma unroll
+      for (int i = 1; i < a; ++i) acc = acc + acts[l][i] * rows[o + i * b + j];
+      acts[l + 1][j] = act<A>(acc);
+    }
+  }
+  const float pred = acts[T::L][0];
+  loss_acc = loss_acc + (pred - x) * (pred - x);
+  float dh[T::M];
+  dh[0] = 2.0f * (pred - x);
+#pragma unroll
+  for (int li = T::L - 1; li >= 1; --li) {
+    const int a = T::fan_in(li), b = T::fan_out(li), o = T::offset(li);
+    if constexpr (A != LINEAR) {
+#pragma unroll
+      for (int j = 0; j < b; ++j) dh[j] = act_grad_mul<A>(dh[j], acts[li + 1][j]);
+    }
+    float dprev[T::M];
+#pragma unroll
+    for (int i = 0; i < a; ++i) {
+      float acc = dh[0] * rows[o + i * b];
+#pragma unroll
+      for (int j = 1; j < b; ++j) acc = acc + dh[j] * rows[o + i * b + j];
+      dprev[i] = acc;
+#pragma unroll
+      for (int j = 0; j < b; ++j)
+        rows[o + i * b + j] = rows[o + i * b + j] - lr * (dh[j] * acts[li][i]);
+    }
+#pragma unroll
+    for (int i = 0; i < a; ++i) dh[i] = dprev[i];
+  }
+  if constexpr (A != LINEAR) {
+#pragma unroll
+    for (int j = 0; j < b0; ++j) dh[j] = act_grad_mul<A>(dh[j], acts[1][j]);
+  }
+#pragma unroll
+  for (int j = 0; j < b0; ++j) {
+    rows[j] = rows[j] - lr * (dh[j] * x);
+    rows[b0 + j] = rows[b0 + j] - lr * (c.c[0] * dh[j]);
+    rows[2 * b0 + j] = rows[2 * b0 + j] - lr * (c.c[1] * dh[j]);
+    rows[3 * b0 + j] = rows[3 * b0 + j] - lr * (c.c[2] * dh[j]);
+  }
+}
+
+// The rolled SGD chain: ``learned`` imitation epochs toward the sample that
+// the column's slots [0, P) hold on entry, then ``epochs`` self-training
+// epochs, the column refreshed from the rows at each epoch top; the samples
+// in enumeration order, TRIP steps a loop trip, their coordinates from
+// ``coords`` (P entries, sample_coords).  K2 runs one kind of epoch, a
+// cell's W samples a trip; K3's learner both kinds through one copy of the
+// code, a sample a trip (at width 3 / depth 3 each the faster of the two
+// for its kernel, by 3% and 2%: PERF.md).  Returns the last epoch's mean
+// pre-update loss (0 when there is none).
+template <int W, int D, int A, int TRIP, class Col>
+__device__ __forceinline__ float sgd_chain_rolled(float (&rows)[WW<W, D>::P],
+                                                  int learned, int epochs,
+                                                  float lr, const Col& col,
+                                                  const SampleCoords* coords) {
+  constexpr int P = WW<W, D>::P;
+  float last = 0.0f;
+  for (int e = 0; e < learned + epochs; ++e) {
+    if (e >= learned) {
+#pragma unroll
+      for (int r = 0; r < P; ++r) col[r] = rows[r];
+    }
+    float loss_acc = 0.0f;
+#pragma unroll (TRIP)
+    for (int s = 0; s < P; ++s) sgd_step_rolled<W, D, A>(rows, col[s], coords[s], loss_acc, lr);
+    last = loss_acc / static_cast<float>(P);
+  }
+  return last;
+}
+
+// K3's chain on the rolled builds: a learner's ``learned`` imitation epochs
+// toward the target staged in the column, then ``epochs`` self-training
+// ones, one copy of the code.  Returns the last self-training epoch's mean
+// loss, 0 when epochs == 0 (a generation reports self-training's loss).
+template <int W, int D, int A, class Col>
+__device__ __forceinline__ float learn_then_train(float (&rows)[WW<W, D>::P],
+                                                  int learned, int epochs,
+                                                  float lr, const Col& col,
+                                                  const SampleCoords* coords) {
+  const float loss = sgd_chain_rolled<W, D, A, 1>(rows, learned, epochs, lr, col, coords);
+  return epochs > 0 ? loss : 0.0f;
+}
+
+// apply_rows in place on the column, one loop trip a point: slot s holds
+// x[s] on entry and f_self(point(x[s])) on exit.  Every layer-0 coordinate
+// product is taken at its point, the same product that apply_rows shares.
+template <int W, int D, int A, class Col>
+__device__ __forceinline__ void apply_column(const float (&self)[WW<W, D>::P],
+                                             const Col& col,
+                                             const SampleCoords* coords) {
+  using T = WW<W, D>;
+  constexpr int b0 = T::fan_out(0);
+#pragma unroll 1
+  for (int s = 0; s < T::P; ++s) {
+    const SampleCoords& c = coords[s];
+    const float x = col[s];
+    float h[T::M];
+#pragma unroll
+    for (int j = 0; j < b0; ++j) {
+      float acc = x * self[j];
+      acc = acc + c.c[0] * self[b0 + j];
+      acc = acc + c.c[1] * self[2 * b0 + j];
+      acc = acc + c.c[2] * self[3 * b0 + j];
+      h[j] = act<A>(acc);
+    }
+    upper_layers<W, D, A>(self, h);
+    col[s] = h[0];
+  }
 }
 
 }  // namespace srnn

@@ -29,6 +29,17 @@
 // epoch's P order bytes are loaded at its top; every coordinate product is
 // issued, the products with 1.0 too, plus one snapshot and three coordinate
 // loads a step.  The unshuffled instantiations are untouched by it.
+//
+// The builds whose unrolled epoch passes Epoch::kUnrolledMax operations
+// (width 3 / depth 3: 6,337, against the default build's 1,079) run the
+// rolled epoch instead (ww_common.cuh, sgd_chain_rolled): the unrolled one
+// was some 7,000 instructions a thread streamed ten times a launch at 96-122
+// registers, and ran at 69% of its issue ceiling where the default build
+// runs at 98% (PERF.md).  A loop over the samples, a cell's W of them a
+// trip: each sample's weight feature from the thread's column of shared
+// memory (the snapshot, or the imitation target), its coordinates from the
+// block's table, each layer's update applied once its backward has read
+// the rows.  Bitwise the same.
 
 #include "ww_common.cuh"
 
@@ -40,19 +51,42 @@ ww_sgd_kernel(const float* __restrict__ wT, const float* __restrict__ otherT,
               float* __restrict__ out, float* __restrict__ loss, long long n,
               int epochs, float lr) {
   constexpr int P = srnn::WW<W, D>::P;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float rows[P];
-  float target[P];
+  if constexpr (srnn::Epoch<W, D>::kRolled) {
+    // the rolled epoch (ww_common.cuh): the sample in the thread's column,
+    // the coordinates in the block's table
+    __shared__ srnn::SampleCoords coords[P];
+    __shared__ float column[P * srnn::kThreads];
+    for (int s = threadIdx.x; s < P; s += blockDim.x) coords[s] = srnn::sample_coords<W, D>(s);
+    __syncthreads();
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const srnn::Column<srnn::kThreads> col{&column[threadIdx.x]};
+    float rows[P];
 #pragma unroll
-  for (int r = 0; r < P; ++r) {
-    rows[r] = wT[srnn::lane(r, n, i)];
-    target[r] = REFRESH ? 0.0f : otherT[srnn::lane(r, n, i)];
+    for (int r = 0; r < P; ++r) {
+      rows[r] = wT[srnn::lane(r, n, i)];
+      if (!REFRESH) col[r] = otherT[srnn::lane(r, n, i)];
+    }
+    const float last = srnn::sgd_chain_rolled<W, D, A, W>(
+        rows, REFRESH ? 0 : epochs, REFRESH ? epochs : 0, lr, col, coords);
+#pragma unroll
+    for (int r = 0; r < P; ++r) out[srnn::lane(r, n, i)] = rows[r];
+    loss[i] = last;
+  } else {
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    float rows[P];
+    float target[P];
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      rows[r] = wT[srnn::lane(r, n, i)];
+      target[r] = REFRESH ? 0.0f : otherT[srnn::lane(r, n, i)];
+    }
+    const float last = srnn::sgd_chain<W, D, A, REFRESH>(rows, target, epochs, lr);
+#pragma unroll
+    for (int r = 0; r < P; ++r) out[srnn::lane(r, n, i)] = rows[r];
+    loss[i] = last;
   }
-  const float last = srnn::sgd_chain<W, D, A, REFRESH>(rows, target, epochs, lr);
-#pragma unroll
-  for (int r = 0; r < P; ++r) out[srnn::lane(r, n, i)] = rows[r];
-  loss[i] = last;
 }
 
 template <int W, int D, int A, bool REFRESH>

@@ -1,5 +1,6 @@
 """``srnn_tpu_torch.bench_kernels``' report plumbing on the CPU: the build
-jobs of each group (the recurrent builds off the default one included),
+jobs of each group (the weightwise and recurrent builds off the default
+one included),
 ptxas' report parsed per kernel, the residency that registers and shared
 memory admit on an H100 SM, and the SASS digests and census on a
 hand-written ``cuobjdump -sass`` excerpt.  The timing and the kernels
@@ -42,8 +43,14 @@ def test_jobs_for_groups():
     wide = [bk.job_key(n, b) for n, b in rnn if b != _build.DEFAULT]
     assert wide == [f"{src}[w{w}d{d}-linear]" for w, d in bk.RNN_WIDE
                     for src in ("rnn_train", "generation_rnn")]
-    assert bk.jobs_for(["ww"]) == [(n, _build.DEFAULT)
-                                   for n in bk.GROUPS["ww"]]
+    ww = bk.jobs_for(["ww"])
+    assert [n for n, b in ww if b == _build.DEFAULT] == list(bk.GROUPS["ww"])
+    # K2 and K3's two weightwise bodies at each WW_WIDE topology, not K1
+    assert [bk.job_key(n, b) for n, b in ww if b != _build.DEFAULT] == [
+        f"{src}[w{w}d{d}-linear]" for w, d in bk.WW_WIDE
+        for src in ("ww_train", "generation", "generation_bf16")]
+    assert bk.WW_WIDE == ((3, 3),)
+    assert bk.census_fragment(*ww[-1]) == ""
 
 
 def test_census_fragment():
@@ -65,6 +72,12 @@ def test_ptxas_entries_and_resources(tmp_path):
     assert res["dynamic_smem_bytes"] == 72704
     # 255 registers: 2 warps a partition; 73 KB a block: 3 blocks by memory
     assert res["warps_per_sm"] == 8
+    # per kernel template: one template here, the report over both
+    by = bk.resources_by_kernel(log, "Li3ELi3ELi0E", dynamic=72704)
+    assert list(by) == ["rnn_sgd_kernel"]
+    assert by["rnn_sgd_kernel"]["registers"] == 255
+    assert by["rnn_sgd_kernel"]["spill_bytes"] == 7860
+    assert by["rnn_sgd_kernel"]["warps_per_sm"] == 8
 
 
 @pytest.mark.parametrize("regs,smem,blocks", [

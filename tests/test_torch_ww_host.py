@@ -5,7 +5,12 @@ on the CPU, bitwise.
 The header holds K1's application (``apply_rows``), the batch-1 SGD chain
 of K2 and K3 (``sgd_chain``) and K2's shuffled chain (``sgd_chain_shuffled``,
 a per-lane sample order, its snapshot and coordinate table read at run
-time), with the duplex coordinates as compile-time
+time), and the rolled forms that the builds past ``Epoch::kUnrolledMax``
+run (``sgd_chain_rolled``, K2's epoch as a loop over the samples, each
+one's weight feature read from a per-thread column and its coordinates
+from a table; ``learn_then_train``, K3's learner's imitation and self-training
+epochs in that one chain; ``apply_column``, K3's attack in place on the
+column, one loop trip a point), with the duplex coordinates as compile-time
 constants (``WW::coord``), layer 0's coordinate products shared between the
 points of an application and products with a coordinate of 1.0 not taken.
 Those savings change no rounded operation, so on the same inputs the chains
@@ -20,7 +25,9 @@ Each test runs at width 2 / depth 2 (P = 14, the default build's) and at
 width 3 / depth 3 (P = 33), the harness built with ``SRNN_W`` / ``SRNN_D``
 set as a build of that topology sets them (the latter at -O0, which
 rounds alike and compiles the unrolled P = 33 chains in a fifth of -O2's
-time).
+time).  The rolled forms run at both shapes, whichever form the shape's
+build takes on the card; their column is filled with NaN before each lane,
+so that a read of a slot the chain has not written poisons the result.
 
 Skips where no C++ compiler is installed.
 """
@@ -58,6 +65,8 @@ inline const char* cudaGetErrorString(cudaError_t) { return "stub"; }
 """
 
 HARNESS = """
+#include <math.h>
+
 #include "ww_common.cuh"
 
 namespace {
@@ -112,9 +121,70 @@ void sgd_shuffled(const float* wT, const float* otherT,
     for (int r = 0; r < P; ++r) out[r * n + i] = rows[r];
   }
 }
+// The rolled chain: K2's (k3 = 0: ``learned`` imitation epochs toward
+// otherT, or ``epochs`` self-training ones) or K3's learner's (k3 = 1: the
+// target staged, then both kinds of epoch)
+template <int A>
+void sgd_rolled(const float* wT, const float* otherT, float* out, float* loss,
+                long long n, int learned, int epochs, float lr, int k3) {
+  srnn::SampleCoords coords[P];
+  for (int s = 0; s < P; ++s) coords[s] = srnn::sample_coords<W, D>(s);
+  for (long long i = 0; i < n; ++i) {
+    float rows[P], column[P];
+    for (int k = 0; k < P; ++k) column[k] = NAN;
+    const srnn::Column<1> col{column};
+    for (int r = 0; r < P; ++r) {
+      rows[r] = wT[r * n + i];
+      if (otherT) col[r] = otherT[r * n + i];
+    }
+    loss[i] = k3 ? srnn::learn_then_train<W, D, A>(rows, learned, epochs, lr,
+                                                   col, coords)
+                 : srnn::sgd_chain_rolled<W, D, A, W>(rows, learned, epochs,
+                                                      lr, col, coords);
+    for (int r = 0; r < P; ++r) out[r * n + i] = rows[r];
+  }
+}
+
+template <int A>
+void apply_column_chain(const float* wT, float* out, long long n, int steps) {
+  srnn::SampleCoords coords[P];
+  for (int s = 0; s < P; ++s) coords[s] = srnn::sample_coords<W, D>(s);
+  for (long long i = 0; i < n; ++i) {
+    float w[P], column[P];
+    for (int k = 0; k < P; ++k) column[k] = NAN;
+    const srnn::Column<1> col{column};
+    for (int r = 0; r < P; ++r) w[r] = wT[r * n + i];
+    for (int t = 0; t < steps; ++t) {
+      for (int r = 0; r < P; ++r) col[r] = w[r];
+      srnn::apply_column<W, D, A>(w, col, coords);
+      for (int r = 0; r < P; ++r) w[r] = col[r];
+    }
+    for (int r = 0; r < P; ++r) out[r * n + i] = w[r];
+  }
+}
 }  // namespace
 
 extern "C" int host_weights() { return P; }
+
+extern "C" int host_rolled() { return srnn::Epoch<W, D>::kRolled ? 1 : 0; }
+
+extern "C" int host_epoch_ops() { return srnn::Epoch<W, D>::kOps; }
+
+extern "C" void host_sgd_rolled(const float* wT, const float* otherT,
+                                float* out, float* loss, long long n,
+                                int learned, int epochs, float lr, int act,
+                                int k3) {
+  if (act == srnn::RELU)
+    sgd_rolled<srnn::RELU>(wT, otherT, out, loss, n, learned, epochs, lr, k3);
+  else
+    sgd_rolled<srnn::LINEAR>(wT, otherT, out, loss, n, learned, epochs, lr, k3);
+}
+
+extern "C" void host_apply_column(const float* wT, float* out, long long n,
+                                  int steps, int act) {
+  if (act == srnn::RELU) apply_column_chain<srnn::RELU>(wT, out, n, steps);
+  else apply_column_chain<srnn::LINEAR>(wT, out, n, steps);
+}
 
 extern "C" void host_coords(float* out) {
   for (int s = 0; s < P; ++s)
@@ -193,6 +263,8 @@ def lib(request, tmp_path_factory):
     h.host_apply.argtypes = [p, p, ll, i, i]
     h.host_sgd.argtypes = [p, p, p, p, ll, i, f, i]
     h.host_sgd_shuffled.argtypes = [p, p, p, p, p, ll, i, f, i]
+    h.host_sgd_rolled.argtypes = [p, p, p, p, ll, i, i, f, i, i]
+    h.host_apply_column.argtypes = [p, p, ll, i, i]
     return Host(h, width, depth)
 
 
@@ -315,3 +387,87 @@ def test_shuffled_chain_bitwise(lib, activation, mode, epochs):
                  ACTS[activation])
     _assert_ulps(got, ref, 0)
     _assert_ulps(loss, ref_loss, 0)
+
+
+def test_epoch_form_per_build(lib):
+    """The default build keeps the unrolled epoch, width 3 / depth 3 takes
+    the rolled one (``Epoch``: the reference's operations an epoch, as
+    ``chip_smoke.py`` counts them, against ``kUnrolledMax``)."""
+    import chip_smoke
+
+    topo = lib.topo()
+    ops = chip_smoke.sgd_ops_per_epoch(topo)
+    assert lib.host_epoch_ops() == ops
+    assert lib.host_rolled() == (0 if (lib.width, lib.depth) == (2, 2) else 1)
+    assert lib.host_rolled() == int(ops > chip_smoke.WW_UNROLLED_MAX)
+
+
+@pytest.mark.parametrize("activation", list(ACTS))
+@pytest.mark.parametrize("steps", [1, 5])
+def test_apply_column_bitwise(lib, activation, steps):
+    """K3's attack on the rolled builds, in place on the column, one point a
+    loop trip, every coordinate product taken at its point: apply_rows'
+    outputs bit for bit."""
+    topo = lib.topo(activation)
+    w = _population(topo, 70 + steps, 0.5)
+    got = np.empty_like(w)
+    lib.host_apply_column(_ptr(w), _ptr(got), N, steps, ACTS[activation])
+    ref = ww_apply_population_plain(topo, torch.from_numpy(w), steps).numpy()
+    _assert_ulps(got, ref, 0)
+
+
+@pytest.mark.parametrize("activation", list(ACTS))
+@pytest.mark.parametrize("mode,epochs", [("train", 2), ("learn", 1)])
+def test_rolled_chain_bitwise(lib, activation, mode, epochs):
+    """K2's rolled epoch against the plain chain (weights bitwise, loss
+    within 1 ulp) and against the unrolled chain, bitwise."""
+    topo = lib.topo(activation)
+    w = _population(topo, 80 + epochs, 0.5)
+    other = _population(topo, 90 + epochs, 0.5) if mode == "learn" else None
+    optr = None if other is None else _ptr(other)
+    learned, trained = (epochs, 0) if mode == "learn" else (0, epochs)
+    got = np.empty_like(w)
+    loss = np.empty(N, dtype=np.float32)
+    lib.host_sgd_rolled(_ptr(w), optr, _ptr(got), _ptr(loss), N, learned,
+                        trained, LR, ACTS[activation], 0)
+    ref_w, ref_l = ww_sgd_plain(
+        topo, torch.from_numpy(w),
+        None if other is None else torch.from_numpy(other), epochs, LR)
+    _assert_ulps(got, ref_w.numpy(), 0)
+    _assert_ulps(loss, ref_l.numpy(), 1)
+
+    ref = np.empty_like(w)
+    ref_loss = np.empty(N, dtype=np.float32)
+    lib.host_sgd(_ptr(w), optr, _ptr(ref), _ptr(ref_loss), N, epochs, LR,
+                 ACTS[activation])
+    _assert_ulps(got, ref, 0)
+    _assert_ulps(loss, ref_loss, 0)
+
+
+@pytest.mark.parametrize("activation", list(ACTS))
+@pytest.mark.parametrize("learned", [0, 1])
+@pytest.mark.parametrize("trained", [0, 2])
+def test_learn_then_train_bitwise(lib, activation, learned, trained):
+    """K3's one imitation-and-training chain on the rolled builds (the
+    target staged in the column, then ``learned`` imitation and
+    ``trained`` self-training epochs through one copy of the code) against
+    the plain imitation followed by the plain self-training: weights
+    bitwise, the loss self-training's within 1 ulp, 0 when ``trained`` is
+    0 even after imitation."""
+    topo = lib.topo(activation)
+    w = _population(topo, 100 + 2 * learned + trained, 0.5)
+    other = _population(topo, 110 + 2 * learned + trained, 0.5)
+    got = np.empty_like(w)
+    loss = np.empty(N, dtype=np.float32)
+    lib.host_sgd_rolled(_ptr(w), _ptr(other), _ptr(got), _ptr(loss), N,
+                        learned, trained, LR, ACTS[activation], 1)
+    ref_w = torch.from_numpy(w)
+    if learned:
+        ref_w, _ = ww_sgd_plain(topo, ref_w, torch.from_numpy(other),
+                                learned, LR)
+    ref_l = torch.zeros(N)
+    if trained:
+        ref_w, ref_l = ww_sgd_plain(topo, ref_w, None, trained, LR)
+    _assert_ulps(got, ref_w.numpy(), 0)
+    _assert_ulps(loss, ref_l.numpy(), 1)
+    assert trained or not loss.any()
