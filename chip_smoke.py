@@ -14,9 +14,11 @@ Phases, each fatal on failure:
    runs: width 3 / depth 3 of every variant, aggregating with 6
    aggregates, and the fence of 64 weights) and print ptxas' register,
    stack and spill report per build, ptxas' line for the rolled weightwise
-   epoch's builds of K2 and K3 at width 3 / depth 3 (P = 33), and the SASS
-   digest of each kernel of the default builds of ww_train, generation and
-   generation_bf16;
+   epoch's builds of K2 and K3 at width 3 / depth 3 (P = 33) and for each
+   instantiation of the width-3 / depth-3 k-vector builds (P = 42) of K4
+   (average, fft) and K3 (average), and the SASS digest of each kernel of
+   the default builds of ww_train, generation, generation_bf16,
+   kvec_train, generation_kvec and generation_kvec_bf16;
 3. each kernel against its plain version on the same inputs at N = 1M:
    the weightwise kernels (K1-K3, P = 14, the 4-2-2-1 net), the k-vector
    SGD chain (K4, aggregating 4-2-2-4, P = 20), the recurrent BPTT chain and
@@ -37,8 +39,11 @@ Phases, each fatal on failure:
    train 10 and learn 1 against its plain twin bitwise, in the identity
    order against the unshuffled K2 bitwise, its bound the unshuffled
    operations and the order's bytes; then each kernel off its default
-   build the same way: K1, K2, K3's float32 and bfloat16 weightwise bodies
-   at width 3 / depth 3 (P = 33), K4 and K3's k-vector body of the
+   build the same way: K1 (its row at steps 50; steps 1, a run_fixpoint
+   step, timed beside it), K2, K3's float32 and bfloat16 weightwise bodies
+   at width 3 / depth 3 (P = 33), K4 (at P = 42 also train 1 and learn 1
+   timed, the shapes of a run_training epoch and of the learn phase) and
+   K3's k-vector body of the
    width-3 / depth-3 aggregating and fft particles (P = 42) and of the
    aggregating one with 6 aggregates (P = 28) at N = 1M and of the fence's
    (width 4, depth 1, 8 aggregates: P = 64) at N = 4,096, K5 and K3's
@@ -418,20 +423,24 @@ def build_kernels():
     bench_kernels compares (its groups) also the linear (k-vector: linear
     average) instantiations' resident warps per SM; then ptxas' line for
     the rolled weightwise builds that K2 and K3 run at width 3 / depth 3
-    (P = 33), and the SASS digest of each kernel template of the default
-    builds of ww_train, generation and generation_bf16 (bench_kernels'
-    ``sass_digests_by_kernel``), so that a later change can show that
-    they held."""
+    (P = 33) and for each instantiation of the width-3 / depth-3 k-vector
+    builds (P = 42) of K4 (average and fft) and K3 (average), and the SASS
+    digest of each kernel template of the default builds of ww_train,
+    generation, generation_bf16, kvec_train, generation_kvec and
+    generation_kvec_bf16 (bench_kernels' ``sass_digests_by_kernel``), so
+    that a later change can show that they held."""
     import re
 
     from srnn_tpu_torch.bench_kernels import (GROUPS, census_fragment,
                                               dynamic_smem,
                                               linear_resources,
                                               resident_blocks,
+                                              resources_by_entry,
                                               resources_by_kernel,
                                               sass_digests_by_kernel,
                                               sass_text)
     from srnn_tpu_torch.ops import _build
+    from srnn_tpu_torch.ops.cuda_kvec_train import kvec_build
     from srnn_tpu_torch.ops.cuda_sgd_common import kernel_build
 
     jobs = [(name, _build.DEFAULT) for name in _build.SOURCES] + wide_jobs()
@@ -474,7 +483,19 @@ def build_kernels():
             f"stack frame, {res['spill_bytes']} bytes spilled, "
             f"{res['smem_bytes']} + {dyn} bytes shared memory a block, "
             f"{res['warps_per_sm']} resident warps an SM")
-    for name in ("ww_train", "generation", "generation_bf16"):
+    t = wide_topos()
+    for name, key in (("kvec_train", "agg"), ("kvec_train", "fft"),
+                      ("generation_kvec", "agg")):
+        b = kvec_build(t[key])
+        for entry, res in resources_by_entry(_build.log_path(name, b),
+                                             "").items():
+            log(f"  ptxas {name}[{b.tag}] {entry} (P = 42): "
+                f"{res['registers']} registers, {res['stack_bytes']} bytes "
+                f"stack frame, {res['spill_bytes']} bytes spilled, "
+                f"{res['smem_bytes']} bytes shared memory a block, "
+                f"{res['warps_per_sm']} resident warps an SM")
+    for name in ("ww_train", "generation", "generation_bf16", "kvec_train",
+                 "generation_kvec", "generation_kvec_bf16"):
         digests = sass_digests_by_kernel(sass_text(_build.library_path(name)))
         log(f"  SASS digests by kernel, {name} default build: {digests}")
 
@@ -1348,9 +1369,11 @@ def check_wide_kernels(torch, rows):
             f"{dev / b:.2f}")
 
     def sgd_row(kernel, topo, n, train, learn, plain, ops_epoch, scale=1.0,
-                poison=()):
+                poison=(), learn_ops=None):
         """The SGD chain of ``topo``: train 10 and learn 1 bitwise, train
-        10 timed."""
+        10 timed; with ``learn_ops`` (an imitation epoch's operations) also
+        train 1 and learn 1 timed, the shapes of a ``run_training`` epoch
+        and of the soups' learn phase."""
         p = topo.num_weights
         log(f"{kernel.name} N={n} ({topo.variant} width {topo.width} depth "
             f"{topo.depth} k={topo.aggregates}, P={p})")
@@ -1369,6 +1392,15 @@ def check_wide_kernels(torch, rows):
         fill(wide_row(kernel, topo), err, timed_ms(torch, run, 10),
              device_ms(run), timed_ms(torch, lambda: plain(
                  topo, w, None, 10, 0.01), 1, warm=False), b, by)
+        if learn_ops is not None:
+            for what, fn, nbytes, ops in (
+                    ("train 1", lambda: train(topo, w, 1), (2 * p + 1) * n * 4,
+                     n * ops_epoch),
+                    ("learn 1", lambda: learn(topo, w, other, 1),
+                     (3 * p + 1) * n * 4, n * learn_ops)):
+                b, by = bound_ms(nbytes, ops)
+                log(f"  {what}: kernel {timed_ms(torch, fn, 10):.4f} ms "
+                    f"(device {device_ms(fn):.4f}), bound {b:.4f} ms ({by})")
         return w, other
 
     def body_row(kernel, topo, n, scale=1.0, dtype=torch.float32):
@@ -1392,6 +1424,12 @@ def check_wide_kernels(torch, rows):
         err = compare(torch, f"steps={steps}",
                       cuda_ww.ww_apply_population(ww, wd, steps),
                       cuda_ww.ww_apply_population_plain(ww, wd, steps), 0)
+    step = lambda: cuda_ww.ww_apply_population(ww, wd, 1)
+    b, by = bound_ms(2 * p * N * 4, N * p * apply_ops_per_point(ww))
+    log(f"  steps=1 (a run_fixpoint step): kernel "
+        f"{timed_ms(torch, step, 10):.4f} ms (device {device_ms(step):.4f}), "
+        f"bound {b:.4f} ms ({by}), --fmad=false ceiling "
+        f"{fmad_off_ms(N * ww_apply_issued(ww)):.4f} ms")
     run = lambda: cuda_ww.ww_apply_population(ww, wd, 50)
     b, by = bound_ms(2 * p * N * 4, 50 * N * p * apply_ops_per_point(ww))
     log(f"  steps=50: the kernel issues {ww_apply_issued(ww)} FP32 "
@@ -1456,7 +1494,10 @@ def check_wide_kernels(torch, rows):
         sgd_row(ck.KVEC_SGD, topo, n, ck.kvec_train_epochs,
                 ck.kvec_learn_epochs, ck.kvec_sgd_plain,
                 kvec_sgd_ops_per_epoch(topo, True),
-                poison=(((3, 0), float("inf")), ((10, 1), float("nan"))))
+                poison=(((3, 0), float("inf")), ((10, 1), float("nan"))),
+                learn_ops=(kvec_reduce_ops(topo)
+                           + kvec_sgd_ops_per_epoch(topo, False))
+                if key in ("agg", "fft") else None)
         body_row(cg.GENERATION_KVEC, topo, n)
     # K5, K6 on the victims of the soup and the mixed chain, K3's body
     rnn = t["rnn"]

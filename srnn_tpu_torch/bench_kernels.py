@@ -2,13 +2,15 @@
 
     python -m srnn_tpu_torch.bench_kernels [--variant LABEL=DIR ...]
         [--group ww|rnn|kvec ...] [--size 1000000] [--rounds 3] [--reps 10]
+        [--sass-only]
 
 Builds the kernels of each ``--group`` from each variant's source directory
 ``DIR`` with the package's nvcc flags, one nvcc per library, all at once:
 ``ww`` is K1 (``csrc/ww_apply.cu``), K2 (``ww_train.cu``) and K3's
-weightwise bodies (``generation.cu``, ``generation_bf16.cu``), and also K2
-and both K3 bodies built for the weightwise topologies of ``WW_WIDE``
-(width 3 / depth 3, linear: ``k2w3d3_*``, ``k3www3d3_*``); ``rnn`` is
+weightwise bodies (``generation.cu``, ``generation_bf16.cu``), and also K1,
+K2 and both K3 bodies built for the weightwise topologies of ``WW_WIDE``
+(width 3 / depth 3, linear: ``k1w3d3_*``, ``k2w3d3_*``, ``k3www3d3_*``);
+``rnn`` is
 K5 (``rnn_train.cu``) and K3's recurrent bodies (``generation_rnn.cu``,
 ``generation_rnn_bf16.cu``), and also K5 and K3's float32 body built for
 the recurrent topologies of ``RNN_WIDE`` (their ``kernel_build`` macros,
@@ -16,7 +18,11 @@ linear; the wrappers launch them under the build's tag), of which width 3
 / depth 3 is run and the others only compiled for ptxas and the SASS
 census; ``kvec`` is K4 (``kvec_train.cu``), K3's
 k-vector bodies (``generation_kvec.cu``, ``generation_kvec_bf16.cu``) and K6
-(``rnn_apply.cu``).  ``DIR`` may hold another commit's sources
+(``rnn_apply.cu``), and also K4 and K3's float32 k-vector body built for
+the topologies of ``KVEC_WIDE`` (width 3 / depth 3 with 4 aggregates and
+width 2 / depth 2 with 6, linear, average and fft: ``k4w3d3k4{avg,fft}_*``,
+``k3kvecw3d3k4{avg,fft}_*``, ``k4w2d2k6avg_*``, ...).  ``DIR`` may hold
+another commit's sources
 (``git archive <commit> srnn_tpu_torch/csrc``), so that two versions are
 compared in turns on one card.  Without ``--variant`` it times the
 package's own sources; without ``--group``, every group.
@@ -27,16 +33,19 @@ where finite with the same non-finite pattern, dead masks equal.  Then,
 in each of ``--rounds`` rounds, the variants in turn, each time the median
 of ``--reps`` CUDA-event timings (20 times as many for K3's short launches),
 K1's and K3's with the SM clock and the power draw that ``nvidia-smi``
-sampled meanwhile: K1 at steps 2000 on damped glorot lanes; K2 and K5
-self-training 10 epochs; K2's shuffled instantiation self-training 10
-epochs and imitating 1 in random per-lane sample orders (``k2s``, where a
+sampled meanwhile: K1 at steps 2000 on damped glorot lanes (at width 3 /
+depth 3 at steps 1, a ``run_fixpoint`` step, and 50); K2 and K5
+self-training 10 epochs and 1 (a ``run_training`` epoch); K2's shuffled
+instantiation self-training 10 epochs and 1 and imitating 1 in random
+per-lane sample orders (``k2s``, where a
 variant's ``ww_train.cu`` has it); K3's bodies in float32 and bfloat16 on
 ``chip_smoke.py``'s inputs (glorot lanes, 100 forced divergent and 100
 forced zero, attack 0.1, learn_from 0.1, severity 1, train 10, both
 removals) and with no attack and no learn operand (train only), the
 k-vector bodies on aggregating (average) and fft particles; K4
-self-training 10 epochs and imitating 1 (an Inf and a NaN weight among
-glorot lanes); K6 on victims of length T = 14, 17 and 20 (weightwise,
+self-training 10 epochs (the soups' train phase) and 1 (a ``run_training``
+epoch) and imitating 1 (the learn phase), an Inf and a NaN weight among
+glorot lanes; K6 on victims of length T = 14, 17 and 20 (weightwise,
 recurrent and aggregating lanes); K5 self-training 10 epochs and
 imitating 1 and K3's recurrent float32 body, as above, at width 3 / depth
 3; K3's
@@ -49,7 +58,7 @@ Each kernel timing brackets one call of the wrapper after a synchronise,
 as ``chip_smoke.py`` times, so it also counts the host's time in the
 wrapper before the launch; K2 to K5 are also timed ``_streamed``, 200
 calls enqueued between one pair of events, which hides it where the
-kernel takes longer than the wrapper's host work (K6 only so); and K2 to K6
+kernel takes longer than the wrapper's host work (K6 only so); and K1 to K6
 ``_device``, the mean of the kernel launches' own durations under
 ``torch.profiler`` (CUPTI), which are device times for any kernel length.
 The ``kvec`` group also runs K3's aggregating float32 body on one
@@ -61,14 +70,19 @@ each library (``source`` for a default build, ``source[tag]`` for another),
 ptxas' registers, stack frame, spills and shared memory per block of the
 linear instantiations (for the k-vector sources the linear average ones;
 every kernel of a build off the default one) and the resident blocks and
-warps per SM those admit, over the library and per kernel template, the
+warps per SM those admit, over the library, per kernel template and per
+instantiation; the local memory of each instantiation's PTX (nvcc
+``-ptx -lineinfo``, the library's flags otherwise): the depot's bytes, which
+ptxas reports as the stack frame, and its local loads and stores by the
+source line they come from (``ptx_locals``); the
 SASS census of those instantiations (``cuobjdump -sass``: instructions,
 FMUL, FADD, FFMA, MOV, local loads and stores), a digest of the whole
 library's SASS (the anonymous namespace's hash masked, so that two builds
 of the same code agree) and one per kernel template (``ww_sgd_kernel``,
 ``ww_sgd_shuffled_kernel``, ...), so that a source that gains a kernel
-shows its other kernels' SASS unchanged; then each time per round.  Needs
-a CUDA card and nvcc.
+shows its other kernels' SASS unchanged; then each time per round.  With
+``--sass-only`` it builds and prints those reports only, no check and no
+timing.  Needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -110,6 +124,15 @@ GROUPS = {
 #: runs, linear: width 3 / depth 3, the rolled epoch's build
 WW_WIDE = ((3, 3),)
 
+#: the k-vector topologies (width, depth, aggregates) off the default build
+#: whose K4 and K3 float32 body the ``kvec`` group also builds and runs,
+#: linear, once per reduce kind of ``KVEC_WIDE_KINDS``: width 3 / depth 3
+#: with 4 aggregates (P = 42) and width 2 / depth 2 with 6 (P = 28), whose
+#: last segment is longer than the others
+KVEC_WIDE = ((3, 3, 4), (2, 2, 6))
+#: reduce kind of the KVEC_WIDE builds -> (variant, its short name in a case)
+KVEC_WIDE_KINDS = {"average": ("aggregating", "avg"), "fft": ("fft", "fft")}
+
 #: the recurrent topologies (width, depth) off the default build whose K5
 #: and K3 float32 body the ``rnn`` group also builds, linear: width 3 /
 #: depth 3, which its cases run, and for ptxas and the SASS census only
@@ -130,6 +153,10 @@ KVEC_LINEAR = "Li2ELi2ELi4ELi0ELi0E"
 THREADS = 128
 #: SASS opcodes the census counts
 CENSUS = ("FMUL", "FADD", "FFMA", "MOV", "LDL", "STL")
+#: nvcc flags of the PTX that ``ptx_locals`` reads: the libraries' code
+#: generation (``_build.NVCC_FLAGS``) stopped at PTX, with source lines
+PTX_FLAGS = ("-arch=compute_90a", "-std=c++17", "-O3", "--fmad=false",
+             "-ptx", "-lineinfo")
 
 K1_STEPS = 2000
 SOUP_GENERATIONS = 5
@@ -156,19 +183,33 @@ def parse_variant(spec: str) -> Variant:
     return Variant(label, Path(src).resolve())
 
 
+def kvec_wide_topos():
+    """(short name, topology) of each ``KVEC_WIDE`` build: ``w3d3k4avg``,
+    ``w3d3k4fft``, ``w2d2k6avg``, ..."""
+    return [(f"w{w}d{d}k{k}{short}",
+             Topology(variant, width=w, depth=d, aggregates=k))
+            for w, d, k in KVEC_WIDE
+            for variant, short in KVEC_WIDE_KINDS.values()]
+
+
 def jobs_for(groups) -> List[Tuple[str, _build.Build]]:
     """The (source, build) jobs of ``groups``: each source's default build,
-    for ``ww`` the builds of ``WW_WIDE`` and for ``rnn`` those of
-    ``RNN_WIDE``."""
+    for ``ww`` the builds of ``WW_WIDE`` (and K1's, which its cases run at
+    steps 1 and 50), for ``rnn`` those of ``RNN_WIDE`` and for ``kvec``
+    those of ``KVEC_WIDE``."""
     jobs = [(name, _build.DEFAULT) for g in groups for name in GROUPS[g]]
     if "ww" in groups:
         for w, d in WW_WIDE:
             b = kernel_build(Topology("weightwise", width=w, depth=d))
-            jobs += [(name, b) for name in GROUPS["ww"][1:]]
+            jobs += [(name, b) for name in GROUPS["ww"]]
     if "rnn" in groups:
         for w, d in RNN_WIDE:
             b = kernel_build(Topology("recurrent", width=w, depth=d))
             jobs += [("rnn_train", b), ("generation_rnn", b)]
+    if "kvec" in groups:
+        for _, topo in kvec_wide_topos():
+            b = ck.kvec_build(topo)
+            jobs += [("kvec_train", b), ("generation_kvec", b)]
     return jobs
 
 
@@ -182,7 +223,7 @@ def build(variants: List[Variant], jobs) -> Dict[str, Dict[tuple, Path]]:
     """Compile every (variant, job), all nvcc processes at once, each build
     with its ``-D`` macros and generated headers; returns label ->
     (source, build) -> library (its ptxas report beside it, ``.log``; its
-    nvcc seconds in ``.seconds``)."""
+    nvcc seconds in ``.seconds``; its PTX with source lines, ``.ptx``)."""
     procs, libs = [], {}
     t0 = time.time()
     for v in variants:
@@ -202,14 +243,23 @@ def build(variants: List[Variant], jobs) -> Dict[str, Dict[tuple, Path]]:
                     (inc / fname).write_text(text)
                 cmd += ["-I", str(inc)]
             cmd += [f"-D{k}={val}" for k, val in b.defines]
-            cmd += ["-o", str(lib), str(v.csrc / f"{name}.cu")]
             procs.append((v.label, job_key(name, b), lib, log,
-                          subprocess.Popen(cmd, stdout=log,
+                          subprocess.Popen(cmd + ["-o", str(lib),
+                                                  str(v.csrc / f"{name}.cu")],
+                                           stdout=log,
                                            stderr=subprocess.STDOUT)))
+            ptx = [cmd[0], *PTX_FLAGS, *cmd[1 + len(_build.NVCC_FLAGS):],
+                   "-o", str(lib.with_suffix(".ptx")),
+                   str(v.csrc / f"{name}.cu")]
+            procs.append((v.label, job_key(name, b) + " (ptx)", lib, None,
+                          subprocess.Popen(ptx, stdout=subprocess.DEVNULL,
+                                           stderr=subprocess.DEVNULL)))
             libs[v.label][(name, b)] = lib
     failed = []
     for label, key, lib, log, proc in procs:
         rc = proc.wait()
+        if log is None:  # the PTX of a library: ptx_locals reads it if any
+            continue
         log.close()
         lib.with_suffix(".seconds").write_text(
             f"{Path(log.name).stat().st_mtime - t0:.1f}")
@@ -244,6 +294,43 @@ def ptxas_entries(report: str) -> Dict[str, dict]:
             s = re.search(r"(\d+) bytes smem", line)
             cur["smem"] = int(s.group(1)) if s else 0
     return entries
+
+
+def ptx_locals(ptx: str) -> Dict[str, dict]:
+    """Per entry function of a PTX listing that uses local memory: the
+    bytes of its local depot (the arrays the compiler kept in memory, which
+    ptxas reports as its stack frame), and its local loads and stores by
+    the source line (``file:line``, from ``-lineinfo``) they were compiled
+    from, innermost inlined line first."""
+    files, out, entry, line = {}, {}, None, "?"
+    for text in ptx.splitlines():
+        m = re.match(r'\s*\.file\s+(\d+)\s+"([^"]+)"', text)
+        if m:
+            files[m.group(1)] = Path(m.group(2)).name
+            continue
+        m = re.match(r"\s*(?:\.visible\s+|\.weak\s+)?\.entry\s+([\w.$]+)",
+                     text)
+        if m:
+            entry = {"depot_bytes": 0, "ld": 0, "st": 0, "lines": {}}
+            out[m.group(1)] = entry
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"__local_depot\d+\[(\d+)\]", text)
+        if m:
+            entry["depot_bytes"] += int(m.group(1))
+            continue
+        m = re.match(r"\s*\.loc\s+(\d+)\s+(\d+)", text)
+        if m:
+            line = f"{files.get(m.group(1), m.group(1))}:{m.group(2)}"
+            continue
+        m = re.search(r"\b(ld|st)\.local\b", text)
+        if m:
+            entry[m.group(1)] += 1
+            counts = entry["lines"].setdefault(line, {"ld": 0, "st": 0})
+            counts[m.group(1)] += 1
+    return {k: e for k, e in out.items()
+            if e["depot_bytes"] or e["ld"] or e["st"]}
 
 
 def resident_blocks(regs: int, smem: int, threads: int) -> int:
@@ -317,6 +404,14 @@ def resources_by_kernel(log: Path, frag: str = LINEAR,
                               if kernel_template(k) == name},
                              THREADS, dynamic)
             for name in sorted({kernel_template(k) for k in ents})}
+
+
+def resources_by_entry(log: Path, frag: str = LINEAR,
+                       dynamic: int = 0) -> Dict[str, dict]:
+    """``linear_resources`` of each instantiation (entry function) on its
+    own: mangled name -> its numbers."""
+    return {k: _resources({k: e}, THREADS, dynamic)
+            for k, e in sorted(_entries(log, frag).items())}
 
 
 def cuobjdump_path() -> str:
@@ -669,15 +764,16 @@ def cases(n: int, groups) -> Dict[str, tuple]:
         if name.startswith(("k2", "k3", "k4", "k5")) and plain and timed:
             out[f"{name}_streamed"] = (
                 lambda run=run: streamed_ms(run, STREAMED), None, True)
-        if name.startswith(("k2", "k3", "k4", "k5", "k6")) and plain:
+        if name.startswith(("k1", "k2", "k3", "k4", "k5", "k6")) and plain:
             out[f"{name}_device"] = (lambda run=run: device_ms(run), None,
                                      True)
     return out
 
 
 def ww_cases(n: int, gen) -> Dict[str, tuple]:
-    """K1 at steps 1, 50 and K1_STEPS; K2 train 10 and learn 1; K3's
-    weightwise bodies, and on the soup's operands."""
+    """K1 at steps 1, 50 and K1_STEPS; K2 train 10, train 1 and learn 1,
+    unshuffled and shuffled; K3's weightwise bodies, and on the soup's
+    operands."""
     ww = Topology("weightwise", width=2, depth=2)
     damped = (fresh_lanes(ww, gen, n, "fused", "cuda") * 0.05).contiguous()
     w = fresh_lanes(ww, gen, n, "fused", "cuda").contiguous()
@@ -692,6 +788,9 @@ def ww_cases(n: int, gen) -> Dict[str, tuple]:
     out["k2_train10"] = (lambda: cwt.ww_train_epochs(ww, w, 10),
                          lambda: cwt.ww_sgd_plain(ww, w, None, 10, 0.01),
                          True)
+    out["k2_train1"] = (lambda: cwt.ww_train_epochs(ww, w, 1),
+                        lambda: cwt.ww_sgd_plain(ww, w, None, 1, 0.01),
+                        False)
     out["k2_learn1"] = (lambda: cwt.ww_learn_epochs(ww, w, other, 1),
                         lambda: cwt.ww_sgd_plain(ww, w, other, 1, 0.01),
                         False)
@@ -702,6 +801,9 @@ def ww_cases(n: int, gen) -> Dict[str, tuple]:
     out["k2s_train10"] = (
         lambda: cwt.ww_train_epochs(ww, w, 10, order=order10),
         lambda: cwt.ww_sgd_plain(ww, w, None, 10, 0.01, order10), True)
+    out["k2s_train1"] = (
+        lambda: cwt.ww_train_epochs(ww, w, 1, order=order1),
+        lambda: cwt.ww_sgd_plain(ww, w, None, 1, 0.01, order1), False)
     out["k2s_learn1"] = (
         lambda: cwt.ww_learn_epochs(ww, w, other, 1, order=order1),
         lambda: cwt.ww_sgd_plain(ww, w, other, 1, 0.01, order1), False)
@@ -718,27 +820,40 @@ def ww_cases(n: int, gen) -> Dict[str, tuple]:
 
 
 def ww_wide_cases(n: int, gen, width: int, depth: int) -> Dict[str, tuple]:
-    """K2 train 10 and learn 1 and K3's float32 and bfloat16 weightwise
-    bodies at ``width`` / ``depth`` (``k2w3d3_*``, ``k3www3d3_*``: the
-    build ``w3d3-linear``)."""
+    """K1 at steps 1 (a ``run_fixpoint`` step) and 50 on damped glorot
+    lanes, K2 train 10, train 1 (a ``run_training`` epoch) and learn 1 and
+    K3's float32 and bfloat16 weightwise
+    bodies at ``width`` / ``depth`` (``k1w3d3_*``, ``k2w3d3_*``,
+    ``k3www3d3_*``: the build ``w3d3-linear``)."""
     topo = Topology("weightwise", width=width, depth=depth)
     tag = f"w{width}d{depth}"
+    damped = (fresh_lanes(topo, gen, n, "fused", "cuda") * 0.05).contiguous()
     w = fresh_lanes(topo, gen, n, "fused", "cuda").contiguous()
     other = fresh_lanes(topo, gen, n, "fused", "cuda").contiguous()
-    out = {
+    out = {}
+    for steps in (1, 50):
+        out[f"k1{tag}_steps{steps}"] = (
+            lambda steps=steps: cw.ww_apply_population(topo, damped, steps),
+            lambda steps=steps: cw.ww_apply_population_plain(topo, damped,
+                                                             steps), True)
+    out.update({
         f"k2{tag}_train10": (lambda: cwt.ww_train_epochs(topo, w, 10),
                              lambda: cwt.ww_sgd_plain(topo, w, None, 10,
                                                       0.01), True),
+        f"k2{tag}_train1": (lambda: cwt.ww_train_epochs(topo, w, 1),
+                            lambda: cwt.ww_sgd_plain(topo, w, None, 1,
+                                                     0.01), False),
         f"k2{tag}_learn1": (lambda: cwt.ww_learn_epochs(topo, w, other, 1),
                             lambda: cwt.ww_sgd_plain(topo, w, other, 1,
-                                                     0.01), True)}
+                                                     0.01), True)})
     out.update(generation_cases(topo, w, gen, tag))
     return out
 
 
 def rnn_cases(n: int, gen) -> Dict[str, tuple]:
-    """K5 train 10 and learn 1 and K3's recurrent bodies at width 2 /
-    depth 2; K5 train 10 and learn 1 and K3's float32 body at width 3 /
+    """K5 train 10, train 1 and learn 1 and K3's recurrent bodies at width
+    2 / depth 2; K5 train 10, train 1 and learn 1 and K3's float32 body at
+    width 3 /
     depth 3 (``k5w3d3``, ``k3rnnw3d3``: the build ``w3d3-linear``)."""
     out = {}
     for tag, topo in (("", Topology("recurrent", width=2, depth=2)),
@@ -753,6 +868,10 @@ def rnn_cases(n: int, gen) -> Dict[str, tuple]:
                 lambda topo=topo, w=w: crt.rnn_train_epochs(topo, w, 10),
                 lambda topo=topo, w=w: crt.rnn_sgd_plain(topo, w, None, 10,
                                                          0.01), True),
+            f"k5{tag}_train1": (
+                lambda topo=topo, w=w: crt.rnn_train_epochs(topo, w, 1),
+                lambda topo=topo, w=w: crt.rnn_sgd_plain(topo, w, None, 1,
+                                                         0.01), False),
             f"k5{tag}_learn1": (
                 lambda topo=topo, w=w, o=other: crt.rnn_learn_epochs(
                     topo, w, o, 1),
@@ -763,27 +882,42 @@ def rnn_cases(n: int, gen) -> Dict[str, tuple]:
     return out
 
 
+def kvec_sgd_cases(topo, w, other, tag: str = "") -> Dict[str, tuple]:
+    """K4 of ``topo``: self-training 10 epochs (the soup's train phase) and
+    1 (a ``run_training`` epoch), imitating 1 (the learn phase)."""
+    out = {}
+    for mode, epochs in (("train", 10), ("train", 1), ("learn", 1)):
+        o = other if mode == "learn" else None
+        run = (lambda e=epochs: ck.kvec_train_epochs(topo, w, e)) \
+            if o is None else (lambda e=epochs: ck.kvec_learn_epochs(
+                topo, w, o, e))
+        out[f"k4{tag}_{mode}{epochs}"] = (
+            run, lambda e=epochs, o=o: ck.kvec_sgd_plain(topo, w, o, e, 0.01),
+            True)
+    return out
+
+
 def kvec_cases(n: int, gen) -> Dict[str, tuple]:
-    """K4 train 10 and learn 1; K3's k-vector bodies on aggregating and fft
-    particles; K6 at T = 14, 17 and 20, streamed only."""
+    """K4 train 10, train 1 and learn 1 (an Inf and a NaN weight among
+    glorot lanes); K3's k-vector bodies on aggregating and fft particles;
+    the same for each ``KVEC_WIDE`` build, K3 in float32 (``k4w3d3k4avg_*``,
+    ``k3kvecw3d3k4fft_*``, ...); K6 at T = 14, 17 and 20, streamed only."""
     agg = Topology("aggregating", width=2, depth=2, aggregates=4)
     fft = Topology("fft", width=2, depth=2, aggregates=4)
     rnn = Topology("recurrent", width=2, depth=2)
     w = fresh_lanes(agg, gen, n, "fused", "cuda").contiguous()
     other = fresh_lanes(agg, gen, n, "fused", "cuda").contiguous()
-    poisoned = w.clone()
-    poisoned[3, 0] = float("inf")
-    poisoned[10, 1] = float("nan")
-    out = {
-        "k4_train10": (lambda: ck.kvec_train_epochs(agg, poisoned, 10),
-                       lambda: ck.kvec_sgd_plain(agg, poisoned, None, 10,
-                                                 0.01), True),
-        "k4_learn1": (lambda: ck.kvec_learn_epochs(agg, poisoned, other, 1),
-                      lambda: ck.kvec_sgd_plain(agg, poisoned, other, 1,
-                                                0.01), True)}
+    out = kvec_sgd_cases(agg, poisoned(w), other)
     out.update(generation_cases(agg, w, gen))
     out.update(generation_cases(
         fft, fresh_lanes(fft, gen, n, "fused", "cuda").contiguous(), gen))
+    for tag, topo in kvec_wide_topos():
+        wide = fresh_lanes(topo, gen, n, "fused", "cuda").contiguous()
+        out.update(kvec_sgd_cases(
+            topo, poisoned(wide),
+            fresh_lanes(topo, gen, n, "fused", "cuda").contiguous(), tag))
+        out.update(generation_cases(topo, wide, gen, dtypes=("f32",),
+                                    tag=f"k3kvec{tag}"))
     probe = SoupProbe(n, agg)
     out["k3agg_f32_soup"] = (probe.launch, probe.plain, True)
     # timed by themselves: their runs return the time
@@ -802,17 +936,26 @@ def kvec_cases(n: int, gen) -> Dict[str, tuple]:
     return out
 
 
+def poisoned(w: torch.Tensor) -> torch.Tensor:
+    """A copy of the lanes ``w`` with an Inf at (3, 0) and a NaN at (10, 1),
+    as chip_smoke.py poisons K4's: the average's poison chains run there."""
+    w = w.clone()
+    w[3, 0] = float("inf")
+    w[10, 1] = float("nan")
+    return w
+
+
 #: K3 cases' tag by variant
 K3_TAGS = {"weightwise": "k3ww", "recurrent": "k3rnn", "aggregating": "k3agg",
            "fft": "k3fft"}
 
 
 def generation_cases(topo, w, gen, shape: str = "",
-                     dtypes=("f32", "bf16")) -> Dict[str, tuple]:
+                     dtypes=("f32", "bf16"), tag: str = "") -> Dict[str, tuple]:
     """K3's body of ``topo`` in each of ``dtypes`` (float32, bfloat16), at
     the gates and train only; ``shape`` tags a topology off the default
-    build."""
-    tag = K3_TAGS[topo.variant] + shape
+    build, ``tag`` replaces the cases' whole prefix."""
+    tag = tag or K3_TAGS[topo.variant] + shape
     out = {}
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         if dt not in dtypes:
@@ -845,6 +988,37 @@ def check(label: str, runs: Dict[str, tuple], refs: Dict[str, tuple]) -> None:
                 raise AssertionError(f"{label} {name}: dead masks differ")
 
 
+def reports(libs: Dict[tuple, Path]) -> dict:
+    """What the compiler made of each library of one variant: ptxas'
+    numbers (over the census fragment's instantiations and per kernel
+    template) and nvcc's seconds, the PTX's local memory (``ptx_locals``),
+    the SASS census and the SASS digests, whole and per kernel template;
+    each keyed by ``job_key``."""
+    built = {job_key(*job): (job, path) for job, path in libs.items()}
+    sass = {key: sass_text(path) for key, (_, path) in built.items()}
+    return {
+        "ptxas": {key: {**linear_resources(
+            path.with_suffix(".log"), census_fragment(*job),
+            dynamic=dynamic_smem(path)),
+                        "by_kernel": resources_by_kernel(
+                            path.with_suffix(".log"), census_fragment(*job),
+                            dynamic_smem(path)),
+                        "by_instantiation": resources_by_entry(
+                            path.with_suffix(".log"), census_fragment(*job),
+                            dynamic_smem(path)),
+                        "nvcc_s": float(path.with_suffix(
+                            ".seconds").read_text())}
+                  for key, (job, path) in built.items()},
+        "ptx_locals": {key: ptx_locals(path.with_suffix(".ptx").read_text())
+                       for key, (_, path) in built.items()
+                       if path.with_suffix(".ptx").exists()},
+        "sass": {key: sass_census(sass[key], census_fragment(*job))
+                 for key, (job, _) in built.items()},
+        "sass_digest": {key: sass_digest(sass[key]) for key in built},
+        "sass_digest_by_kernel": {
+            key: sass_digests_by_kernel(sass[key]) for key in built}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", type=parse_variant, action="append",
@@ -854,6 +1028,9 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=1_000_000)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--sass-only", action="store_true",
+                    help="build and report ptxas, PTX local memory and SASS "
+                         "only: no checks, no timing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels needs a CUDA card")
@@ -865,6 +1042,12 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     libs = build(variants, jobs)
+    if args.sass_only:
+        for v in variants:
+            print(json.dumps({"label": v.label, "csrc": str(v.csrc),
+                              "card": smi, **reports(libs[v.label])}),
+                  flush=True)
+        return 0
     runs = cases(args.size, groups)
     refs = {name: plain() for name, (_, plain, _) in runs.items() if plain}
     results, failed = {}, []
@@ -884,27 +1067,9 @@ def main(argv=None) -> int:
             print(f"{v.label}: {e}", flush=True)
             failed.append(v.label)
             continue
-        built = {job_key(*job): (job, path)
-                 for job, path in libs[v.label].items()}
-        sass = {key: sass_text(path) for key, (_, path) in built.items()}
         results[v.label] = {
             "label": v.label, "csrc": str(v.csrc),
-            "card": smi, "bitwise": True,
-            "ptxas": {key: {**linear_resources(
-                path.with_suffix(".log"), census_fragment(*job),
-                dynamic=dynamic_smem(path)),
-                            "by_kernel": resources_by_kernel(
-                                path.with_suffix(".log"),
-                                census_fragment(*job),
-                                dynamic_smem(path)),
-                            "nvcc_s": float(path.with_suffix(
-                                ".seconds").read_text())}
-                      for key, (job, path) in built.items()},
-            "sass": {key: sass_census(sass[key], census_fragment(*job))
-                     for key, (job, _) in built.items()},
-            "sass_digest": {key: sass_digest(sass[key]) for key in built},
-            "sass_digest_by_kernel": {
-                key: sass_digests_by_kernel(sass[key]) for key in built},
+            "card": smi, "bitwise": True, **reports(libs[v.label]),
             "ms": {name: [] for name, (_, _, t) in avail[v.label].items()
                    if t},
             "clocks": {name: [] for name, (_, _, t) in avail[v.label].items()

@@ -48,6 +48,18 @@
 //                                     the last epoch's loss (0 for e = 0);
 //   B::kStageTile                     optional, false when absent: stage
 //                                     the block's tile (STAGE below);
+//   B::kParkRows                      optional, false when absent (needs
+//                                     kStageTile): the lane's rows wait in
+//                                     the dealt thread's own column of the
+//                                     tile through the gated phases (PARK
+//                                     below); B::apply then takes views
+//                                     that read a row where it is used
+//                                     (the attacker's, the target's
+//                                     column: PopColumn, the tile's:
+//                                     Column) and, instead of B::learn,
+//                                     B::learn_parked(col, other, e, lr,
+//                                     co) reads the rows from the tile
+//                                     column ``col`` and writes them back;
 //   B::kColumnFloats                  optional, 0 when absent: the floats
 //                                     of dynamic shared memory a thread
 //                                     gets (its column, [slot][threadIdx.x]);
@@ -91,6 +103,15 @@ __device__ __forceinline__ void store_pop(float* p, long long k, float v) { p[k]
 __device__ __forceinline__ void store_pop(__nv_bfloat16* p, long long k, float v) {
   p[k] = __float2bfloat16_rn(v);
 }
+
+// A lane's column of a (P, n) population in device memory, each row read
+// where it is used (PARK's operands).
+template <class Pop>
+struct PopColumn {
+  const Pop* p;
+  long long n, i;
+  __device__ __forceinline__ float operator[](int r) const { return load_f32(p, lane(r, n, i)); }
+};
 
 template <class Pop>
 struct GenArgs {
@@ -168,6 +189,12 @@ struct BlockSetup<B, std::void_t<decltype(B::kBlockSetup)>>
     : std::bool_constant<B::kBlockSetup> {};
 
 template <class B, class = void>
+struct ParkRows : std::false_type {};
+template <class B>
+struct ParkRows<B, std::void_t<decltype(B::kParkRows)>>
+    : std::bool_constant<B::kParkRows> {};
+
+template <class B, class = void>
 struct ColumnFloats : std::integral_constant<int, 0> {};
 template <class B>
 struct ColumnFloats<B, std::void_t<decltype(B::kColumnFloats)>>
@@ -187,12 +214,31 @@ struct StagedTile {
   int dead[2][kThreads];
 };
 
+// PARK (B::kParkRows, on a staged tile): a lane's rows in registers through
+// the gated phases would sit beside the attacker's rows and, for a learner,
+// its target's and that target's attacker's -- three or four P-long arrays
+// at once, which set the whole kernel's registers.  Parked, they wait in
+// the tile, and the gated phases read every operand where they use it:
+// the attack reduces the rows from the tile before it reads the attacker's
+// weights from device memory, and writes its result back to the tile; a
+// learner's target is transformed the same way, reduced to its sample, and
+// only then are the rows read for the imitation epochs.  The tile holds
+// them in the dealt thread's own column (a thread dealt past the end
+// copies the last lane's there first), so no two threads write one
+// column.
+
 // The block's staged tile (a function's shared memory, so that a kernel
 // that does not stage declares none).
 template <int P>
 __device__ __forceinline__ StagedTile<P>& staged_tile() {
   __shared__ StagedTile<P> tile;
   return tile;
+}
+
+// Column c of the block's staged tile, row r at [r].
+template <int P>
+__device__ __forceinline__ Column<kThreads> tile_column(int c) {
+  return {&staged_tile<P>().rows[0][c]};
 }
 
 template <class B, class Pop, bool STAGE>
@@ -217,8 +263,19 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
   // a staged block's threads all reach its barriers: a thread dealt a
   // column past the end runs the last lane's phases and keeps nothing
   const long long i = STAGE && dealt >= n ? n - 1 : dealt;
+  constexpr bool PARK = ParkRows<B>::value;
+  static_assert(!PARK || (STAGE && !OneAttackSite<B>::value && !StagedLearn<B>::value),
+                "kParkRows parks the rows in the staged tile");
+  [[maybe_unused]] const int own = static_cast<int>(dealt - base);  // PARK's column
   float rows[P];
-  if constexpr (STAGE) {
+  if constexpr (PARK) {
+    if (dealt >= n) {
+      const Column<kThreads> parked = tile_column<P>(own);
+#pragma unroll
+      for (int r = 0; r < P; ++r) parked[r] = staged_tile<P>().rows[r][i - base];
+    }
+    __syncthreads();  // every column read before any is overwritten
+  } else if constexpr (STAGE) {
 #pragma unroll
     for (int r = 0; r < P; ++r) rows[r] = staged_tile<P>().rows[r][i - base];
     __syncthreads();  // every column read before any is overwritten
@@ -230,7 +287,15 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
   // attack: the gated lanes are rewritten by their attacker's net (on a
   // body with one attack call site, pass 0 below)
   if constexpr (!OneAttackSite<B>::value) {
-    if (g.atk != nullptr && g.gates[lane(0, n, i)] != 0) {
+    if constexpr (PARK) {
+      if (g.atk != nullptr && g.gates[lane(0, n, i)] != 0) {
+        const Column<kThreads> parked = tile_column<P>(own);
+        float t[P];
+        B::apply(PopColumn<Pop>{g.atk, n, i}, parked, t, co);
+#pragma unroll
+        for (int r = 0; r < P; ++r) parked[r] = t[r];
+      }
+    } else if (g.atk != nullptr && g.gates[lane(0, n, i)] != 0) {
       float a[P], t[P];
 #pragma unroll
       for (int r = 0; r < P; ++r) a[r] = load_f32(g.atk, lane(r, n, i));
@@ -272,23 +337,40 @@ generation_kernel(GenArgs<Pop> g, typename B::Consts co) {
       if (pass == 0) B::unstage(rows, co);
     }
   } else if (g.oth != nullptr && g.severity > 0 && g.gates[lane(1, n, i)] != 0) {
-    float o[P];
+    if constexpr (PARK) {
+      const PopColumn<Pop> other{g.oth, n, i};
+      float o[P];  // the target, transformed where its attacker is recomputed
+      if (g.oatk != nullptr && g.gates[lane(2, n, i)] != 0) {
+        B::apply(PopColumn<Pop>{g.oatk, n, i}, other, o, co);
+      } else {
 #pragma unroll
-    for (int r = 0; r < P; ++r) o[r] = load_f32(g.oth, lane(r, n, i));
-    if (g.oatk != nullptr && g.gates[lane(2, n, i)] != 0) {
-      float a[P], t[P];
-#pragma unroll
-      for (int r = 0; r < P; ++r) a[r] = load_f32(g.oatk, lane(r, n, i));
-      B::apply(a, o, t, co);
-#pragma unroll
-      for (int r = 0; r < P; ++r) o[r] = t[r];
-    }
-    if constexpr (StagedLearn<B>::value) {
-      B::stage(o, co);
-      learned = g.severity;
+        for (int r = 0; r < P; ++r) o[r] = other[r];
+      }
+      B::learn_parked(tile_column<P>(own), o, g.severity, g.lr, co);
     } else {
-      B::learn(rows, o, g.severity, g.lr, co);
+      float o[P];
+#pragma unroll
+      for (int r = 0; r < P; ++r) o[r] = load_f32(g.oth, lane(r, n, i));
+      if (g.oatk != nullptr && g.gates[lane(2, n, i)] != 0) {
+        float a[P], t[P];
+#pragma unroll
+        for (int r = 0; r < P; ++r) a[r] = load_f32(g.oatk, lane(r, n, i));
+        B::apply(a, o, t, co);
+#pragma unroll
+        for (int r = 0; r < P; ++r) o[r] = t[r];
+      }
+      if constexpr (StagedLearn<B>::value) {
+        B::stage(o, co);
+        learned = g.severity;
+      } else {
+        B::learn(rows, o, g.severity, g.lr, co);
+      }
     }
+  }
+  if constexpr (PARK) {
+    const Column<kThreads> parked = tile_column<P>(own);
+#pragma unroll
+    for (int r = 0; r < P; ++r) rows[r] = parked[r];
   }
 
   // self-training, sample refreshed at each epoch top

@@ -20,7 +20,12 @@
 // population tile through shared memory (kStageTile), every thread loading
 // and storing its own column.  The reduce's exact finite path and the
 // compile-time DFT tables (kvec_common.cuh) cut the training's
-// instructions.
+// instructions.  Past the default build the lane's rows wait in that tile
+// through the gated phases (kParkRows), whose operands are read where they
+// are used: held in registers there beside the attacker's and the target's
+// rows, they set the whole kernel's registers (the aggregating body at
+// width 3 / depth 3: 149, 12 warps an SM; parked, 80 and 24, and 0.294 ->
+// 0.240 ms of device time at N = 1M on one H100: PERF.md).
 
 #include "generation_common.cuh"
 #include "kvec_common.cuh"
@@ -31,9 +36,17 @@ template <int W, int D, int K, int A, int R, bool TGT>
 struct KvecBody {
   static constexpr int P = srnn::KV<W, D, K>::P;
   static constexpr bool kStageTile = true;
+  // past the default build (P = 20), a transform that reads the lane's own
+  // rows (TGT) leaves them in the tile through the gated phases
+  // (generation_common.cuh, PARK; the fft transform of the attacker's own
+  // rows does not hold them there, and parked was 3-5% slower at P = 28)
+  static constexpr bool kParkRows = TGT && P > 20;
   struct Consts {};  // the tables are compile-time (kvec_common.cuh)
-  __device__ static void apply(const float (&self)[P], const float (&x)[P],
-                               float (&out)[P], const Consts&) {
+  // self, x: the rows in registers, or (parked) views that read a row where
+  // it is used
+  template <class Self, class X>
+  __device__ static void apply(const Self& self, const X& x, float (&out)[P],
+                               const Consts&) {
     srnn::kvec_apply<W, D, K, A, R, TGT>(self, x, out);
   }
   __device__ static void learn(float (&rows)[P], const float (&other)[P],
@@ -41,6 +54,20 @@ struct KvecBody {
     float snap[K];
     srnn::reduce_rows<W, D, K, R>(other, snap);
     srnn::kvec_sgd<W, D, K, A, R, false>(rows, snap, epochs, lr);
+  }
+  // learn with the rows parked in the tile column ``col``: the sample is
+  // reduced before the rows come into registers
+  __device__ static void learn_parked(const srnn::Column<srnn::kThreads>& col,
+                                      const float (&other)[P], int epochs,
+                                      float lr, const Consts&) {
+    float snap[K];
+    srnn::reduce_rows<W, D, K, R>(other, snap);
+    float rows[P];
+#pragma unroll
+    for (int r = 0; r < P; ++r) rows[r] = col[r];
+    srnn::kvec_sgd<W, D, K, A, R, false>(rows, snap, epochs, lr);
+#pragma unroll
+    for (int r = 0; r < P; ++r) col[r] = rows[r];
   }
   __device__ static float train(float (&rows)[P], int epochs, float lr,
                                 const Consts&) {

@@ -243,9 +243,8 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 // The DFT's terms, one per (coefficient J, row M) as template parameters:
 // acc chains the terms whose coefficient is not 0.0, the first one starting
 // it.
-template <int P, int K, int R, int J, int M>
-__device__ __forceinline__ void dft_term(const float (&rows)[P], float& acc,
-                                         bool& have) {
+template <int P, int K, int R, int J, int M, class Rows>
+__device__ __forceinline__ void dft_term(const Rows& rows, float& acc, bool& have) {
   using C = DftCoef<P, K, R, J, M>;
   if constexpr (red_kind(C::red) != SKIP) {
     float term;
@@ -259,8 +258,8 @@ __device__ __forceinline__ void dft_term(const float (&rows)[P], float& acc,
   }
 }
 
-template <int P, int K, int R, int J, int... Ms>
-__device__ __forceinline__ float dft_coefficient(const float (&rows)[P],
+template <int P, int K, int R, int J, class Rows, int... Ms>
+__device__ __forceinline__ float dft_coefficient(const Rows& rows,
                                                  std::integer_sequence<int, Ms...>) {
   float acc = 0.0f;  // 0.0 when every coefficient is skipped
   bool have = false;
@@ -268,8 +267,8 @@ __device__ __forceinline__ float dft_coefficient(const float (&rows)[P],
   return acc;
 }
 
-template <int P, int K, int R, int... Js>
-__device__ __forceinline__ void dft_reduce(const float (&rows)[P], float (&out)[K],
+template <int P, int K, int R, class Rows, int... Js>
+__device__ __forceinline__ void dft_reduce(const Rows& rows, float (&out)[K],
                                            std::integer_sequence<int, Js...>) {
   ((out[Js] = dft_coefficient<P, K, R, Js>(rows, std::make_integer_sequence<int, P>())),
    ...);
@@ -303,24 +302,54 @@ __device__ __forceinline__ void dft_expand(const float (&o)[K], float (&out)[P],
    ...);
 }
 
+// Each segment's chain over its rows in row order: out[j] = rows[s], then
+// out[j] = f(out[j], rows[r]) for r in (s, e).  Where the segments are all
+// of one size (P a multiple of K: the default build's 5 rows, the fence's
+// 8), a loop over the segments with an inner loop over each one's rows;
+// else one loop over the P rows, each row's segment a compile-time
+// constant.  The nested loop stayed a run-time loop where the last segment
+// is longer than the others (width 3 / depth 3 with 4 aggregates: 10, 10,
+// 10 and 12 rows), so the rows it read lived in local memory, stored and
+// reloaded at every epoch; the one loop unrolls into constant indices
+// whatever the segments' sizes (PERF.md).
+template <int W, int D, int K, class Rows, class F>
+__device__ __forceinline__ void segment_chains(const Rows& rows, float (&out)[K], F f) {
+  using T = KV<W, D, K>;
+  if constexpr (T::P % K == 0) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int s = T::seg_start(j), e = T::seg_end(j);
+      float acc = rows[s];
+#pragma unroll
+      for (int r = s + 1; r < e; ++r) acc = f(acc, rows[r]);
+      out[j] = acc;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < T::P; ++r) {
+      const int j = T::seg_of(r);
+      if (r == T::seg_start(j)) {
+        out[j] = rows[r];
+      } else {
+        out[j] = f(out[j], rows[r]);
+      }
+    }
+  }
+}
+
 // P weight rows -> K aggregates / DFT coefficients (``_reduce_rows``).
-template <int W, int D, int K, int R>
-__device__ __forceinline__ void reduce_rows(const float (&rows)[KV<W, D, K>::P],
-                                            float (&out)[K]) {
+// Rows: the P rows in registers (float[P]), or a view that reads row r
+// where it is used (K3's parked rows: generation_common.cuh), as for every
+// read-only row argument below.
+template <int W, int D, int K, int R, class Rows>
+__device__ __forceinline__ void reduce_rows(const Rows& rows, float (&out)[K]) {
   using T = KV<W, D, K>;
   constexpr int P = T::P;
   if constexpr (R == DFT || R == RDFT) {
     dft_reduce<P, K, R>(rows, out, std::make_integer_sequence<int, K>());
   } else if constexpr (R == AVERAGE) {
     float sum[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int s = T::seg_start(j), e = T::seg_end(j);
-      float acc = rows[s];
-#pragma unroll
-      for (int r = s + 1; r < e; ++r) acc = acc + rows[r];
-      sum[j] = acc;
-    }
+    segment_chains<W, D, K>(rows, sum, [](float acc, float w) { return acc + w; });
     float total = sum[0];
 #pragma unroll
     for (int j = 1; j < K; ++j) total = total + sum[j];
@@ -349,28 +378,20 @@ __device__ __forceinline__ void reduce_rows(const float (&rows)[KV<W, D, K>::P],
       out[j] = (sum[j] + zpre[s] + zsuf[e]) * inv;
     }
   } else {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int s = T::seg_start(j), e = T::seg_end(j);
-      float acc = rows[s];
-#pragma unroll
-      for (int r = s + 1; r < e; ++r) {
-        const float w = rows[r];
-        if constexpr (R == MAX) {
-          acc = nan_max(acc, w);
-        } else {
-          acc = (w > acc && w != 0.0f) ? w : acc;
-        }
+    segment_chains<W, D, K>(rows, out, [](float acc, float w) {
+      if constexpr (R == MAX) {
+        return nan_max(acc, w);
+      } else {
+        return (w > acc && w != 0.0f) ? w : acc;
       }
-      out[j] = acc;
-    }
+    });
   }
 }
 
 // The MLP with weights ``w`` on the K-vector ``x``, every layer's
 // activations kept in ``acts`` (acts[0] = x, acts[L] = the output).
-template <int W, int D, int K, int A>
-__device__ __forceinline__ void kvec_forward(const float (&w)[KV<W, D, K>::P],
+template <int W, int D, int K, int A, class Wts>
+__device__ __forceinline__ void kvec_forward(const Wts& w,
                                              const float (&x)[K],
                                              float (&acts)[KV<W, D, K>::L + 1]
                                                           [KV<W, D, K>::M]) {
@@ -453,9 +474,8 @@ __device__ __forceinline__ float kvec_sgd(float (&rows)[KV<W, D, K>::P],
 // out = f_self(x): reduce (the target, or for the fft variant without
 // fft_use_target the attacker's own rows: TGT), one forward, expand
 // (``pallas_generation.apply_rows``, k-vector body).
-template <int W, int D, int K, int A, int R, bool TGT>
-__device__ __forceinline__ void kvec_apply(const float (&self)[KV<W, D, K>::P],
-                                           const float (&x)[KV<W, D, K>::P],
+template <int W, int D, int K, int A, int R, bool TGT, class Self, class X>
+__device__ __forceinline__ void kvec_apply(const Self& self, const X& x,
                                            float (&out)[KV<W, D, K>::P]) {
   using T = KV<W, D, K>;
   constexpr int P = T::P;

@@ -153,10 +153,13 @@ def dft_table_header(topo: Topology) -> str:
             "};\n")
 
 
+@functools.lru_cache(maxsize=None)
 def kvec_build(topo: Topology):
     """The build of the k-vector sources that runs ``topo``
     (``cuda_sgd_common.kernel_build``), with its generated DFT table where
-    it is an fft topology off the written-out one."""
+    it is an fft topology off the written-out one.  Kept per topology: every
+    launch asks for it, and generating the table's text takes longer than
+    the launch."""
     kind = reduce_kind(topo)
     headers = ()
     if topo.variant == "fft" and (topo.num_weights,

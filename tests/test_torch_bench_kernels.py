@@ -1,10 +1,10 @@
 """``srnn_tpu_torch.bench_kernels``' report plumbing on the CPU: the build
-jobs of each group (the weightwise and recurrent builds off the default
-one included),
-ptxas' report parsed per kernel, the residency that registers and shared
-memory admit on an H100 SM, and the SASS digests and census on a
-hand-written ``cuobjdump -sass`` excerpt.  The timing and the kernels
-themselves run only on the card."""
+jobs of each group (the weightwise, recurrent and k-vector builds off the
+default one included), ptxas' report parsed per kernel and per
+instantiation, the residency that registers and shared memory admit on an
+H100 SM, the SASS digests and census on a hand-written ``cuobjdump -sass``
+excerpt, and the local memory of a hand-written PTX excerpt by source
+line.  The timing and the kernels themselves run only on the card."""
 
 import pytest
 
@@ -45,12 +45,26 @@ def test_jobs_for_groups():
                     for src in ("rnn_train", "generation_rnn")]
     ww = bk.jobs_for(["ww"])
     assert [n for n, b in ww if b == _build.DEFAULT] == list(bk.GROUPS["ww"])
-    # K2 and K3's two weightwise bodies at each WW_WIDE topology, not K1
+    # K1, K2 and K3's two weightwise bodies at each WW_WIDE topology
     assert [bk.job_key(n, b) for n, b in ww if b != _build.DEFAULT] == [
         f"{src}[w{w}d{d}-linear]" for w, d in bk.WW_WIDE
-        for src in ("ww_train", "generation", "generation_bf16")]
+        for src in ("ww_apply", "ww_train", "generation", "generation_bf16")]
     assert bk.WW_WIDE == ((3, 3),)
     assert bk.census_fragment(*ww[-1]) == ""
+    # K4 and K3's float32 k-vector body at each KVEC_WIDE topology, average
+    # and fft (the fft build with its generated DFT table)
+    kvec = bk.jobs_for(["kvec"])
+    assert [n for n, b in kvec if b == _build.DEFAULT] == list(
+        bk.GROUPS["kvec"])
+    assert [bk.job_key(n, b) for n, b in kvec if b != _build.DEFAULT] == [
+        f"{src}[{shape}-linear-{kind}]" for shape in ("w3d3k4", "w2d2k6")
+        for kind in ("average", "fft")
+        for src in ("kvec_train", "generation_kvec")]
+    assert [t for t, _ in bk.kvec_wide_topos()] == [
+        "w3d3k4avg", "w3d3k4fft", "w2d2k6avg", "w2d2k6fft"]
+    assert [topo.num_weights for _, topo in bk.kvec_wide_topos()] == [
+        42, 42, 28, 28]
+    assert kvec[-1][1].headers and not kvec[-3][1].headers
 
 
 def test_census_fragment():
@@ -78,6 +92,11 @@ def test_ptxas_entries_and_resources(tmp_path):
     assert by["rnn_sgd_kernel"]["registers"] == 255
     assert by["rnn_sgd_kernel"]["spill_bytes"] == 7860
     assert by["rnn_sgd_kernel"]["warps_per_sm"] == 8
+    # per instantiation: each entry on its own
+    ents = bk.resources_by_entry(log, "Li3ELi3ELi0E")
+    assert len(ents) == 2
+    assert sorted((e["registers"], e["stack_bytes"], e["spill_bytes"])
+                  for e in ents.values()) == [(200, 0, 0), (255, 2224, 7860)]
 
 
 @pytest.mark.parametrize("regs,smem,blocks", [
@@ -106,6 +125,38 @@ def test_sass_census_and_digests():
     assert bk.sass_digests_by_kernel(alone.replace(".L_x_7", ".L_x_1"))[
         "rnn_sgd_kernel"] == by_kernel["rnn_sgd_kernel"]
     assert bk.sass_digest(SASS) != bk.sass_digest(SASS.replace("FADD", "FMUL"))
+
+
+PTX = """\
+	.file	1 "/src/kvec_common.cuh"
+	.file	2 "/src/kvec_train.cu"
+.entry _ZN12_GLOBAL__N_115kvec_sgd_kernelILi3ELi3ELi4ELi0ELi0ELb1EEEvPKfS2_PfS3_xif(
+{
+	.local .align 4 .b8 	__local_depot0[168];
+	.loc	2 40 5
+	ld.global.f32 	%f1, [%rd4];
+	.loc	1 441 9
+	st.local.f32 	[%rd5+4], %f1;
+	st.local.f32 	[%rd5+8], %f1;
+	.loc	1 447 26, function_name $L__info_string0, inlined_at 2 51 20
+	ld.local.f32 	%f2, [%rd5+4];
+}
+.entry _ZN12_GLOBAL__N_115kvec_sgd_kernelILi3ELi3ELi4ELi0ELi0ELb0EEEvPKfS2_PfS3_xif(
+{
+	.loc	2 40 5
+	ld.global.f32 	%f1, [%rd4];
+}
+"""
+
+
+def test_ptx_locals():
+    locs = bk.ptx_locals(PTX)
+    # only the entry that uses local memory, its loads and stores by line
+    (name, e), = locs.items()
+    assert "Lb1E" in name
+    assert e == {"depot_bytes": 168, "ld": 1, "st": 2,
+                 "lines": {"kvec_common.cuh:441": {"ld": 0, "st": 2},
+                           "kvec_common.cuh:447": {"ld": 1, "st": 0}}}
 
 
 def test_kernel_template():

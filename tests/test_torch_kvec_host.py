@@ -254,6 +254,12 @@ def _population(topo, seed: int, scale: float = 0.5) -> np.ndarray:
     w[0, 6] = np.float32(2e38)      # finite sums whose total overflows
     w[seg, 6] = np.float32(2e38)
     w[0:seg, 7] = -0.0        # one segment sum -0, the others finite
+    # each segment's chain starts at its first row: an Inf at row 0,
+    # one at the first row of the last segment (which takes the leftovers),
+    # a NaN at a segment's first row
+    w[0, 9] = np.inf
+    w[seg * (topo.aggregates - 1), 10] = np.inf
+    w[seg, 11] = np.nan
     return np.ascontiguousarray(w)
 
 

@@ -153,3 +153,28 @@ def test_zero_epochs_dispatch_and_fences():
         ck.kvec_train_epochs(Topology("weightwise"), wT, 1)
     with pytest.raises(ValueError, match="population"):
         ck.kvec_learn_epochs(topo, wT, wT[:14].contiguous(), 1)
+
+
+@pytest.mark.parametrize("topo", [Topology("fft", width=3, depth=3),
+                                  Topology("fft", width=3, depth=3,
+                                           fft_mode="rfft")],
+                         ids=["fft-w3d3", "rfft-w3d3"])
+def test_kvec_build_once_per_topology(monkeypatch, topo):
+    """Every launch asks ``kvec_build`` for its build: an fft topology's
+    DFT table is generated on the first ask only, and the next asks (an
+    equal topology, not the same object) get an equal build."""
+    made = []
+    real = ck.dft_table_header
+
+    def header(t):
+        made.append(t)
+        return real(t)
+
+    ck.kvec_build.cache_clear()
+    monkeypatch.setattr(ck, "dft_table_header", header)
+    first = ck.kvec_build(topo)
+    again = ck.kvec_build(dataclasses.replace(topo))
+    assert again == first and first.headers
+    assert len(made) == 1
+    assert first.headers[0][1] == real(topo)
+    ck.kvec_build.cache_clear()
