@@ -92,7 +92,24 @@ Phases, each fatal on failure:
    width-3 / depth-3 row-major weightwise soup (K2), each run's launches
    exact per build, generations/s beside PR 10's autograd route; and the
    autograd route driven by a particle past the fence (weightwise width 6
-   / depth 2, P = 66, 3 generations);
+   / depth 2, P = 66, 3 generations); then attack_impl /
+   learn_from_impl='compact' against 'full' on the population-major phase
+   chain at N = 1M (the weightwise, aggregating and recurrent particles and
+   the width-3 / depth-3 weightwise one, 20 generations each way): weights,
+   uids and the last events bitwise equal, launches exact, the learn
+   launches (and the recurrent attack's K6) over the block's 102,528 lanes
+   and the train launches over N, ms a generation both ways, the host
+   synchronisations of a generation by line (torch's sync debug mode; the
+   compact one has exactly two more, one per compacted phase), the learn
+   kernel's device ms over the block and over N; fused + compact against
+   fused + full bitwise, one K3 launch a generation; then streaming
+   capture: ``utils.evolve_captured`` of the N = 1M weightwise fused soup,
+   20 generations, a 72 MB frame every 5, into a temporary directory,
+   pipelined and blocking, every frame bitwise equal to
+   ``evolve(record=True)``, the walls beside the uncaptured run's, the K3
+   launches exact, whether the native writer loaded; and
+   ``evolve_multi_captured`` of a mixed soup at N = 30,000 against its
+   generations bitwise;
 5. the fixpoint engines and setups: at N = 1M, weightwise ``run_fixpoint``
    (100 steps: K1 once a step), ``run_training`` (100 epochs: K2 once an
    epoch), ``run_training`` with a shuffle generator (100 epochs: K2's
@@ -2683,6 +2700,314 @@ def sequential_trajectory(torch, kernels):
         f"{counts.tolist()} (BASELINE.md:29: 13 fix_other / 7 other)")
 
 
+# ------------------------------------------------- compact phases, capture
+
+
+#: the lane-count argument of each wrapped entry point (lane_call's n for
+#: the SGD kernels, K6's n)
+LANES_ARG = {"ww_train": 4, "kvec_train": 4, "rnn_train": 4, "rnn_apply": 3}
+
+
+class LanesSeen:
+    """While inside, every launch of the SGD kernels and K6 is recorded by
+    row as (learn / train / apply, lanes); the launch counts are the
+    wrappers' own."""
+
+    def __init__(self, kernels):
+        self.kernels = [k for k in kernels if k.source in LANES_ARG]
+        self.seen = collections.defaultdict(collections.Counter)
+
+    def __enter__(self):
+        for k in self.kernels:
+            def launch(build, *args, k=k, orig=k.launch):
+                orig(build, *args)
+                what = ("apply" if k.source == "rnn_apply" else
+                        "learn" if args[1] else "train")
+                self.seen[row_name(k, build.tag)][
+                    (what, args[LANES_ARG[k.source]])] += 1
+            k.launch = launch
+        return self.seen
+
+    def __exit__(self, *exc):
+        for k in self.kernels:
+            del k.launch
+
+
+def count_syncs(torch, fn) -> collections.Counter:
+    """Host synchronisations of ``fn()``, as torch's sync debug mode warns
+    of them, by the line of the package that made each."""
+    import traceback
+    import warnings
+
+    torch.cuda.synchronize()
+    where = collections.Counter()
+
+    def record(message, *args, **kw):
+        if "called a synchronizing CUDA operation" in str(message):
+            frames = [f for f in traceback.extract_stack()
+                      if "srnn_tpu_torch" in f.filename]
+            where[f"{os.path.basename(frames[-1].filename)}:"
+                  f"{frames[-1].lineno}" if frames else "?"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return where
+
+
+def states_equal(torch, what, a, ev_a, b, ev_b) -> None:
+    """Two soups' weights, uids, next_uid and last events, bitwise."""
+    pairs = [("weights", a.weights, b.weights), ("uids", a.uids, b.uids),
+             ("next_uid", a.next_uid, b.next_uid)]
+    pairs += [(f"events.{f}", x, y) for f, x, y in zip(ev_a._fields, ev_a,
+                                                        ev_b)]
+    for field, x, y in pairs:
+        if x.dtype.is_floating_point:
+            x, y = x.float().view(torch.int32), y.float().view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {field} differ")
+    log(f"  {what}: weights, uids, next_uid and the last events bitwise "
+        "equal")
+
+
+def compact_topos():
+    """(topology, SGD kernel row, expected per-generation launches of the
+    phase chain) of the compact phase: the three standard particles at
+    width 2 / depth 2 and the weightwise one at width 3 / depth 3."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.ops import cuda_ww_train as cwt
+
+    ww3 = wide_topos()["ww"]
+    return ((st.Topology("weightwise"), "ww_sgd", {"ww_sgd": 2}),
+            (st.Topology("aggregating", aggregates=4), "kvec_sgd",
+             {"kvec_sgd": 2}),
+            (st.Topology("recurrent"), "rnn_sgd",
+             {"rnn_sgd": 2, "rnn_apply": 1}),
+            (ww3, wide_row(cwt.WW_SGD, ww3), {wide_row(cwt.WW_SGD, ww3): 2}))
+
+
+def compact_path(torch, kernels, totals):
+    """attack_impl / learn_from_impl='compact' against 'full' at N = 1M on
+    the population-major phase chain: per particle, 20 generations after a
+    warm-up generation each way (the last one through evolve_step for its
+    events), weights, uids and last events bitwise equal, launch counts
+    exact with the learn (and K6) launches over the block's lanes, ms a
+    generation both ways, and the host synchronisations of one generation;
+    then the learn kernel's device ms over the block's lanes and over N;
+    then fused + compact against fused + full, one K3 launch a
+    generation."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.ops import cuda_kvec_train as ck
+    from srnn_tpu_torch.ops import cuda_rnn_train as crt
+    from srnn_tpu_torch.ops import cuda_ww_train as cwt
+    from srnn_tpu_torch.soup import _attack_capacity
+
+    cap = _attack_capacity(N, 0.1)
+    log(f"compact block: {cap} lanes of N={N} at rate 0.1 "
+        "(soup._attack_capacity)")
+    g = GENERATIONS
+    learn = {"weightwise": (cwt.ww_learn_epochs, sgd_ops_per_epoch),
+             "aggregating": (ck.kvec_learn_epochs, lambda t: (
+                 kvec_reduce_ops(t) + kvec_sgd_ops_per_epoch(t, False))),
+             "recurrent": (crt.rnn_learn_epochs, rnn_sgd_ops_per_epoch)}
+    for topo, sgd_row, per_gen in compact_topos():
+        base = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
+                             learn_from_rate=0.1, learn_from_severity=1,
+                             train=10, remove_divergent=True,
+                             remove_zero=True, respawn_draws="fused",
+                             layout="popmajor")
+        what = (f"{topo.variant} width {topo.width} depth {topo.depth} "
+                "soup phases")
+        s0 = st.evolve(base, st.seed(base, 0, device="cuda"), 1)
+        out, ms, syncs = {}, {}, {}
+        for impl in ("full", "compact"):
+            cfg = base._replace(attack_impl=impl, learn_from_impl=impl)
+            st.evolve(cfg, s0, 1)  # warm-up
+            torch.cuda.synchronize()
+            reset(kernels)
+            with LanesSeen(kernels) as seen:
+                t0 = time.perf_counter()
+                s = st.evolve(cfg, s0, g - 1)
+                out[impl] = st.evolve_step(cfg, s)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            ms[impl] = dt * 1e3 / g
+            got = check_launches(kernels, f"{what} {impl}",
+                                 {r: n * g for r, n in per_gen.items()})
+            for name, n in got.items():
+                totals[name] += n
+            lanes = {r: dict(c) for r, c in seen.items()}
+            log(f"  {what} {impl}: launches by (phase, lanes) {lanes}")
+            block = cap if impl == "compact" else N
+            want = {sgd_row: {("learn", block): g, ("train", N): g}}
+            if "rnn_apply" in per_gen:
+                want["rnn_apply"] = {("apply", block): g}
+            if lanes != want:
+                raise AssertionError(f"{what} {impl}: launches by lanes "
+                                     f"{lanes}, expected {want}")
+            where = count_syncs(torch, lambda: st.evolve(cfg, s0, 1))
+            syncs[impl] = sum(where.values())
+            log(f"  {what} {impl}: {ms[impl]:.3f} ms/generation at N={N}, "
+                f"{syncs[impl]} host synchronisations in a generation "
+                f"{dict(where)}")
+        if syncs["compact"] != syncs["full"] + 2:
+            raise AssertionError(
+                f"{what}: {syncs['compact']} host synchronisations a "
+                f"compact generation, expected the full one's "
+                f"{syncs['full']} + 2 (one per compacted phase)")
+        (a, ev_a), (b, ev_b) = out["full"], out["compact"]
+        states_equal(torch, f"{what} compact vs full", a, ev_a, b, ev_b)
+        log(f"  {what}: compact {ms['compact']:.3f} vs full "
+            f"{ms['full']:.3f} ms/generation (compact / full "
+            f"{ms['compact'] / ms['full']:.3f})")
+        # the learn kernel over the block and over N (learn 1)
+        fn, ops_of = learn[topo.variant]
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        p = topo.num_weights
+        for n in (cap, N):
+            w = population(topo, n, gen, 0.5)
+            other = population(topo, n, gen, 0.5)
+            run = lambda: fn(topo, w, other, 1)
+            b, by = bound_ms((3 * p + 1) * n * 4, n * ops_of(topo))
+            log(f"  {sgd_row} learn 1 over {n} lanes: kernel "
+                f"{timed_ms(torch, run, 10):.4f} ms (device "
+                f"{device_ms(run):.4f}), bound {b:.4f} ms ({by})")
+    # fused + compact: the compaction is ignored (the JAX package's
+    # _phases_view), one K3 launch a generation
+    topo = st.Topology("weightwise")
+    base = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
+                         learn_from_rate=0.1, learn_from_severity=1,
+                         train=10, remove_divergent=True, remove_zero=True,
+                         respawn_draws="fused", layout="popmajor",
+                         generation_impl="fused")
+    s0 = st.seed(base, 1, device="cuda")
+    out = {}
+    for impl in ("full", "compact"):
+        cfg = base._replace(attack_impl=impl, learn_from_impl=impl)
+        reset(kernels)
+        s = st.evolve(cfg, s0, g - 1)
+        out[impl] = st.evolve_step(cfg, s)
+        torch.cuda.synchronize()
+        for name, n in check_launches(kernels, f"weightwise fused {impl}",
+                                      {"generation": g}).items():
+            totals[name] += n
+    states_equal(torch, "weightwise fused compact vs full", *out["full"],
+                 *out["compact"])
+
+
+def frames_equal(np, what, out, ref_weights, ref_uids, gens) -> None:
+    """A store's frames against the recorded history (generations 1, 2,
+    ... of a run from time 0) at ``gens``, bitwise."""
+    if out["generations"].tolist() != list(gens):
+        raise AssertionError(f"{what}: generations {out['generations']}")
+    idx = [x - 1 for x in gens]
+    if not (np.array_equal(out["weights"].view(np.int32),
+                           ref_weights[idx].view(np.int32))
+            and np.array_equal(out["uids"], ref_uids[idx])):
+        raise AssertionError(f"{what}: frames differ from the record")
+    log(f"  {what}: {len(idx)} frames bitwise equal to the recorded "
+        "generations")
+
+
+def capture_path(torch, kernels, totals):
+    """Streaming capture: evolve_captured at N = 1M, the weightwise fused
+    soup, 20 generations, a frame every 5 (4 frames of 72 MB) into a
+    temporary directory, pipelined and blocking, each frame bitwise equal
+    to evolve(record=True), each run's walls beside the uncaptured run's
+    and its K3 launches exact; then evolve_multi_captured of a mixed soup
+    at N = 30,000 (the population-major phase chain), pipelined and
+    blocking, against the generations of evolve_multi_step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.soup import _stored_view
+    from srnn_tpu_torch.utils import (TrajStore, evolve_captured,
+                                      evolve_multi_captured,
+                                      native_available, read_store)
+    from srnn_tpu_torch.utils.pipeline import live_threads
+
+    log(f"trajectory store: native writer {native_available()}")
+    g, every = GENERATIONS, 5
+    gens = list(range(every, g + 1, every))
+    topo = st.Topology("weightwise")
+    cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
+                        learn_from_rate=0.1, learn_from_severity=1,
+                        train=10, remove_divergent=True, remove_zero=True,
+                        respawn_draws="fused", layout="popmajor",
+                        generation_impl="fused")
+    s0 = st.seed(cfg, 2, device="cuda")
+    # the record, also the warm-up of the runs below
+    _, (_, w_rec, u_rec) = st.evolve(cfg, s0, g, record=True)
+    w_rec, u_rec = w_rec.cpu().numpy(), u_rec.cpu().numpy()
+    walls = {}
+    tmp = tempfile.mkdtemp(prefix="srnn-capture-")
+    try:
+        for run in ("uncaptured", "pipelined", "blocking", "pipelined 2",
+                    "uncaptured 2"):
+            torch.cuda.synchronize()
+            reset(kernels)
+            path = os.path.join(tmp, "soup.traj")
+            t0 = time.perf_counter()
+            if run.startswith("uncaptured"):
+                st.evolve(cfg, s0, g)
+                torch.cuda.synchronize()
+            else:
+                with TrajStore(path, N, topo.num_weights) as store:
+                    evolve_captured(cfg, s0, g, store, every=every,
+                                    pipelined=run.startswith("pipelined"))
+            walls[run] = time.perf_counter() - t0
+            for name, n in check_launches(kernels, f"capture {run}",
+                                          {"generation": g}).items():
+                totals[name] += n
+            if not run.startswith("uncaptured"):
+                frames_equal(np, f"capture {run}", read_store(path), w_rec,
+                             u_rec, gens)
+                os.remove(path)
+        log("  walls of 20 generations, a frame every 5 (4 frames of "
+            f"{(8 + N * topo.num_weights * 4 + 16 * N + 4) / 1e6:.1f} MB): "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+        if live_threads():
+            raise AssertionError(f"capture left threads {live_threads()}")
+        # the mixed soup, smaller
+        from srnn_tpu_torch import multisoup as ms
+
+        mcfg = mega_multi_config(layout="popmajor")._replace(
+            sizes=(10_000, 10_000, 10_000))
+        m0 = ms.seed_multi(mcfg, 3, device="cuda")
+        state, rec = m0, []
+        for _ in range(g):
+            state, _ev = ms.evolve_multi_step(mcfg, state)
+            rec.append([_stored_view(mcfg, w, None).cpu().numpy()
+                        for w in state.weights]
+                       + [u.cpu().numpy() for u in state.uids])
+        types = len(mcfg.topos)
+        for run in ("pipelined", "blocking"):
+            paths = [os.path.join(tmp, f"t{t}.traj") for t in range(types)]
+            stores = [TrajStore(p, n, tp.num_weights) for p, n, tp in
+                      zip(paths, mcfg.sizes, mcfg.topos)]
+            try:
+                evolve_multi_captured(mcfg, m0, g, stores, every=every,
+                                      pipelined=run == "pipelined")
+            finally:
+                for s in stores:
+                    s.close()
+            for t in range(types):
+                frames_equal(np, f"mixed capture {run} type {t}",
+                             read_store(paths[t]),
+                             np.stack([r[t] for r in rec]),
+                             np.stack([r[types + t] for r in rec]), gens)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2753,6 +3078,8 @@ def main() -> int:
     for what, t0, t1 in CLOCK_WINDOWS:
         log(f"clocks during {what}: {sampler.at(t0, t1)}")
     launches = phase("main path", main_path, torch, kernels)
+    phase("compact phases", compact_path, torch, kernels, launches)
+    phase("trajectory capture", capture_path, torch, kernels, launches)
     phase("fixpoint engines and setups", engines_and_setups, torch, kernels,
           launches)
     phase("small soups vs cpu", small_soup_vs_cpu, torch, kernels)

@@ -7,14 +7,17 @@ dense per-generation history (weights, uids, action codes, counterparts),
 the vectorized equivalent of ``historical_particles[uid].states``.  Port of
 ``srnn_tpu/setups/soup_trajectorys.py``: the row-major soup, seeded from a
 generator on the CPU (not the JAX package's stream); ``--checkpoint``
-writes ``checkpoint/`` (``experiment.save_checkpoint``).  ``--store`` (the
-native trajectory store) is not ported (ROADMAP.md, queue A) and is
-refused.
+writes ``checkpoint/`` (``experiment.save_checkpoint``).  ``--store``
+streams every ``--capture-every``-th generation to ``soup.traj`` in the run
+directory (``utils.evolve_captured``; the file format of the JAX package's
+``read_store``) instead of keeping the history on the device -- the
+mega-soup path.
 """
 
 from ..experiment import Experiment, format_counters, save_checkpoint
 from ..soup import ACTION_NAMES, SoupConfig, count, evolve, seed
 from ..topology import Topology
+from ..utils import TrajStore, evolve_captured
 from .common import base_parser, device, generator, register
 
 
@@ -30,8 +33,11 @@ def build_parser():
                    help="also write a resumable checkpoint of the final "
                         "state (checkpoint/)")
     p.add_argument("--store", action="store_true",
-                   help="not ported: stream frames to a native trajstore; "
-                        "refused")
+                   help="stream frames to a native trajstore (soup.traj) "
+                        "instead of materializing the full history on device "
+                        "-- the mega-soup path")
+    p.add_argument("--capture-every", type=int, default=1,
+                   help="store every k-th generation (trajectory stride)")
     return p
 
 
@@ -47,17 +53,26 @@ def run(args):
         epsilon=args.epsilon, train_mode=args.train_mode)
     with Experiment("soup", root=args.root, seed=args.seed) as exp:
         state = seed(cfg, generator(args.seed), dev)
-        final, (events, weights_hist, uids_hist) = evolve(
-            cfg, state, generations=args.generations, record=True)
+        if args.store:
+            with TrajStore(f"{exp.dir}/soup.traj", cfg.size,
+                           topo.num_weights) as store:
+                final = evolve_captured(cfg, state, args.generations, store,
+                                        every=args.capture_every)
+            history = {}
+        else:
+            final, (events, weights_hist, uids_hist) = evolve(
+                cfg, state, generations=args.generations, record=True)
+            history = {"soup": {
+                "weights": weights_hist,      # (G, N, P)
+                "uids": uids_hist,            # (G, N)
+                "action": events.action,      # (G, N) ACTION_NAMES codes
+                "counterpart": events.counterpart,
+                "loss": events.loss,
+            }}
         counts = count(cfg, final)
         exp.log(format_counters(counts), counts=counts)
-        exp.save(soup={
-            "weights": weights_hist,      # (G, N, P)
-            "uids": uids_hist,            # (G, N)
-            "action": events.action,      # (G, N) ACTION_NAMES codes
-            "counterpart": events.counterpart,
-            "loss": events.loss,
-        }, action_names=list(ACTION_NAMES), all_counters=counts)
+        exp.save(**history, action_names=list(ACTION_NAMES),
+                 all_counters=counts)
         if args.checkpoint:
             save_checkpoint(f"{exp.dir}/checkpoint", final)
         return exp.dir
@@ -65,13 +80,7 @@ def run(args):
 
 @register("soup_trajectorys")
 def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.store:
-        parser.error("--store: the native trajectory store is not ported "
-                     "to srnn_tpu_torch (ROADMAP.md, queue A); run without "
-                     "--store")
-    return run(args)
+    return run(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

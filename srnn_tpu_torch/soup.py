@@ -12,9 +12,9 @@ collisions resolve last-attacker-wins, as in the JAX package.
 
 Scope of this port: all four variants (weightwise, aggregating, fft,
 recurrent) with every activation, width, depth and aggregates, either
-``rnn_scan`` and, row-major, either shuffler; full-width phases, the three
-population dtypes (``population_dtype`` 'f32' | 'bf16' | 'int8'),
-``mode='parallel'`` in either layout below, and ``mode='sequential'``:
+``rnn_scan`` and, row-major, either shuffler; the three population dtypes
+(``population_dtype`` 'f32' | 'bf16' | 'int8'), ``mode='parallel'`` in
+either layout below, and ``mode='sequential'``:
 
   * ``layout='rowmajor'`` (the default, as in the JAX package): the
     population stays (N, P) between generations.  The attack is the
@@ -31,7 +31,11 @@ population dtypes (``population_dtype`` 'f32' | 'bf16' | 'int8'),
     its sequential train mode only); ``generation_impl='phases'`` runs the
     phases one after another, the train and learn_from chains on the
     variant's SGD kernel (the weightwise full batch on its plain step) and
-    the recurrent attack on its attack kernel.
+    the recurrent attack on its attack kernel.  ``attack_impl`` /
+    ``learn_from_impl='compact'`` run the attack / learn_from phase of the
+    phase chain on a block of the gated lanes only (``_attack_capacity``
+    lanes, the full width on overflow), bitwise equal to 'full'; the fused
+    generation ignores them, as the JAX package's ``_phases_view`` does.
   * ``mode='sequential'`` (``_evolve_sequential``, ``soup.py:880-943`` of
     the JAX package; row-major, float32, per-particle respawn draws, no
     trial axis): the reference's strict particle-by-particle order, each
@@ -97,6 +101,7 @@ the draws move to the population's device.  A caller may instead hand
 over the JAX package's own draws.
 """
 
+import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -141,8 +146,8 @@ class SoupConfig(NamedTuple):
     layout: str = "rowmajor"            # 'rowmajor' | 'popmajor'
     respawn_draws: str = "perparticle"  # 'perparticle' | 'fused': one law
     train_impl: str = "plain"           # 'plain' | 'kernel' (routes)
-    attack_impl: str = "full"
-    learn_from_impl: str = "full"
+    attack_impl: str = "full"           # 'full' | 'compact' (popmajor)
+    learn_from_impl: str = "full"       # 'full' | 'compact' (popmajor)
     apply_impl: str = "plain"           # 'plain' | 'kernel' (K6)
     generation_impl: str = "phases"     # 'phases' | 'fused'
     population_dtype: str = "f32"
@@ -317,8 +322,8 @@ def _check_config(config: SoupConfig) -> None:
             raise ValueError(
                 "attack_impl/learn_from_impl='compact' compact lanes of the "
                 "popmajor layout; layout='rowmajor' needs 'full'")
-        raise ValueError(f"{field}={getattr(config, field)!r} is not "
-                         "ported; srnn_tpu_torch runs 'full'")
+        if getattr(config, field) != "compact":
+            raise ValueError(f"unknown {field} {getattr(config, field)!r}")
     topo = config.topo
     if not rowmajor and topo.shuffler == "random":
         raise ValueError(
@@ -355,6 +360,11 @@ def _check_config(config: SoupConfig) -> None:
             f"{KERNEL_MAX_WEIGHTS} weights); this config "
             f"(variant={topo.variant!r}, activation={topo.activation!r}, "
             f"P={topo.num_weights}) needs apply_impl='plain'")
+    if config.apply_impl == "kernel" and config.attack_impl == "compact":
+        raise ValueError(
+            "apply_impl='kernel' and attack_impl='compact' are mutually "
+            "exclusive, as in the JAX package (its compact block defeats "
+            "the kernel's lane blocking); use attack_impl='full'")
     resolved_train_impl(topo, config.train_mode, config.train_impl,
                         config.layout)
 
@@ -469,20 +479,99 @@ def _finish(config: SoupConfig, state: SoupState, gates, wT, train_loss,
     return new_state, SoupEvents(act, cp, train_loss), wT
 
 
+def _attack_capacity(n: int, rate: float) -> int:
+    """Lane capacity of a compacted phase's block (the JAX package's
+    ``_attack_capacity``, ``soup.py:413-424``): mean + 8 sd of the gated
+    count Binomial(n, rate), plus 16, rounded up to a multiple of 128 and
+    at most n.  P(overflow) < 1e-14."""
+    rate = min(max(rate, 0.0), 1.0)
+    mean = n * rate
+    sd = math.sqrt(n * rate * (1.0 - rate))
+    cap = int(math.ceil(mean + 8.0 * sd)) + 16
+    return min(n, ((cap + 127) // 128) * 128)
+
+
+def _compact_gated_lanes(wT: torch.Tensor, gate: torch.Tensor, cap: int,
+                         block_fn) -> torch.Tensor:
+    """Run ``block_fn`` on the gated lanes of ``wT`` only and put its
+    columns back (``_compact_gated_lanes``, ``soup.py:426-455`` of the JAX
+    package).
+
+    ``block_fn(cols)`` returns the transformed columns ``wT[:, cols]`` by
+    per-lane arithmetic alone, so a lane's result does not depend on the
+    block it rides in: the result equals the full-width phase bitwise, and
+    ungated lanes are untouched.  The block holds the first ``cap`` gated
+    lanes in lane order (``jnp.nonzero(size=cap, fill_value=n)``: the
+    k-th gated lane is where the running count first reaches k); its fill
+    slots compute on lane 0's columns and are never read back.  The
+    results come back by a gather, each gated lane reading its slot, so no
+    two writes land on one lane.  When more than ``cap`` lanes are gated
+    the phase runs at full width: the count is read on the host, one
+    synchronisation per compacted phase (the JAX package decides on the
+    device with ``lax.cond``)."""
+    n = wT.shape[1]
+    running = torch.cumsum(gate, 0) if cap < n else None
+    if running is None or int(running[-1]) > cap:
+        return torch.where(gate[None, :],
+                           block_fn(torch.arange(n, device=wT.device)), wT)
+    lanes = torch.searchsorted(
+        running, torch.arange(1, cap + 1, device=wT.device))
+    block = block_fn(torch.where(lanes < n, lanes, 0))
+    slot = (running - 1).clamp(0, cap - 1)
+    return torch.where(gate[None, :], block[:, slot], wT)
+
+
+def _attack_popmajor_compact(topo: Topology, wT: torch.Tensor,
+                             att_idx: torch.Tensor, has_attacker: torch.Tensor,
+                             cap: int) -> torch.Tensor:
+    """The attack over the attacked victims' lanes only
+    (``_attack_popmajor_compact``, ``soup.py:458-478`` of the JAX
+    package): the transform of ``apply_popmajor`` on a block of ``cap``
+    lanes (K6 for a recurrent particle on its route)."""
+    attacker = att_idx.clamp(min=0)
+
+    def block(cols):
+        return apply_popmajor(topo, wT[:, attacker[cols]], wT[:, cols])
+
+    return _compact_gated_lanes(wT, has_attacker, cap, block)
+
+
+def _learn_popmajor_compact(config, topo: Topology, wT: torch.Tensor,
+                            learn_gate: torch.Tensor, learn_tgt: torch.Tensor,
+                            cap: int) -> torch.Tensor:
+    """learn_from over the learners' lanes only
+    (``_learn_popmajor_compact``, ``soup.py:481-503`` of the JAX package):
+    the imitation chain on its route (K2, K4 or K5 on the card) over a
+    block of ``cap`` lanes toward the post-attack counterparts."""
+    def block(cols):
+        learned, _ = learn_epochs_popmajor(
+            topo, wT[:, cols], wT[:, learn_tgt[cols]],
+            config.learn_from_severity, config.lr, config.train_mode,
+            layout=config.layout)
+        return learned
+
+    return _compact_gated_lanes(wT, learn_gate, cap, block)
+
+
 def _learn_train_respawn(config, topo: Topology, wT, fresh, learn_gate,
-                         learn_tgt):
+                         learn_tgt, learn_cap: Optional[int] = None):
     """The phase chain after the attack (``soup.py:62-86``): learn_from
     toward the (post-attack) counterparts, train, the respawn predicates
     and the fresh select.  ``config`` is a ``SoupConfig`` or a mixed
-    soup's config (the same dynamics fields).  Returns (wT, last train
-    loss, dead_div, dead_zero)."""
+    soup's config (the same dynamics fields); ``learn_cap``, where given,
+    compacts learn_from to a block of that many lanes.  Returns (wT, last
+    train loss, dead_div, dead_zero)."""
     n = wT.shape[1]
     dev = wT.device
     if config.learn_from_rate > 0 and config.learn_from_severity > 0:
-        learned, _ = learn_epochs_popmajor(
-            topo, wT, wT[:, learn_tgt], config.learn_from_severity,
-            config.lr, config.train_mode, layout=config.layout)
-        wT = torch.where(learn_gate[None, :], learned, wT)
+        if learn_cap is not None:
+            wT = _learn_popmajor_compact(config, topo, wT, learn_gate,
+                                         learn_tgt, learn_cap)
+        else:
+            learned, _ = learn_epochs_popmajor(
+                topo, wT, wT[:, learn_tgt], config.learn_from_severity,
+                config.lr, config.train_mode, layout=config.layout)
+            wT = torch.where(learn_gate[None, :], learned, wT)
     if config.train > 0:
         wT, train_loss = train_epochs_popmajor(
             topo, wT, config.train, config.lr, config.train_mode,
@@ -516,12 +605,19 @@ def _evolve_parallel_popmajor(config: SoupConfig, state: SoupState,
     # --- attack (soup.py:56-61) -----------------------------------------
     if config.attacking_rate > 0:
         has_attacker = att_idx >= 0
-        attacked = apply_popmajor(topo, wT[:, att_idx.clamp(min=0)], wT)
-        wT = torch.where(has_attacker[None, :], attacked, wT)
+        if config.attack_impl == "compact":
+            wT = _attack_popmajor_compact(
+                topo, wT, att_idx, has_attacker,
+                _attack_capacity(n, config.attacking_rate))
+        else:
+            attacked = apply_popmajor(topo, wT[:, att_idx.clamp(min=0)], wT)
+            wT = torch.where(has_attacker[None, :], attacked, wT)
 
     # --- learn_from, train, respawn (soup.py:62-86) -----------------------
+    learn_cap = _attack_capacity(n, config.learn_from_rate) \
+        if config.learn_from_impl == "compact" else None
     wT, train_loss, dead_div, dead_zero = _learn_train_respawn(
-        config, topo, wT, d.fresh, learn_gate, learn_tgt)
+        config, topo, wT, d.fresh, learn_gate, learn_tgt, learn_cap)
     return _finish(config, state, gates, wT, train_loss, dead_div, dead_zero)
 
 

@@ -38,7 +38,9 @@ for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
              "srnn_tpu_torch.setups.network_trajectorys",
              "srnn_tpu_torch.setups.soup_trajectorys",
              "srnn_tpu_torch.setups.learn_from_soup",
-             "srnn_tpu_torch.setups.mixed_soup"):
+             "srnn_tpu_torch.setups.mixed_soup",
+             "srnn_tpu_torch.utils.pipeline", "srnn_tpu_torch.utils.trajstore",
+             "srnn_tpu_torch.utils.capture"):
     assert name in names, name
 """
 

@@ -191,7 +191,10 @@ def test_port_soup_own_draws_and_fences():
     assert int(a.time) == 2 and int(s0.time) == 0
     assert int(torch.unique(a.uids).numel()) == cfg.size
     for bad in (dict(layout="columnar"), dict(population_dtype="f16"),
-                dict(mode="sequential"), dict(attack_impl="compact"),
+                dict(mode="sequential"), dict(attack_impl="sparse"),
+                dict(learn_from_impl="sparse"),
+                dict(apply_impl="kernel", attack_impl="compact",
+                     topo=st.Topology("recurrent")),
                 dict(apply_impl="pallas"),
                 dict(train_mode="full_batch", generation_impl="fused"),
                 dict(train_impl="pallas"),

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from srnn_tpu import experiment as jexperiment
+from srnn_tpu.utils import read_store
 import srnn_tpu_torch as st
 from srnn_tpu_torch import experiment
 from srnn_tpu_torch import soup
@@ -139,7 +140,9 @@ def _shapes(tree):
 
 def test_soup_trajectorys_smoke(tmp_path, on_cpu):
     """(g) soup_trajectorys: the (G, N, P) history and the counters, a
-    checkpoint that restores, and ``--store`` refused."""
+    checkpoint that restores, ``--store`` streaming the history to
+    ``soup.traj`` instead (tests/test_torch_capture.py holds its frames),
+    and ``--service`` refused."""
     run_dir = _run("soup_trajectorys", tmp_path / "runs", ["--checkpoint"])
     g, n = 5, 6
     assert _shapes(_load(run_dir, "soup")) == {
@@ -156,9 +159,13 @@ def test_soup_trajectorys_smoke(tmp_path, on_cpu):
     np.testing.assert_array_equal(final.uids.numpy(),
                                   _load(run_dir, "soup")["uids"][-1])
     assert json.loads(on_cpu.read_text())["ww_sgd"] == 0
+    stored = _run("soup_trajectorys", tmp_path / "stored", ["--store"])
+    assert read_store(os.path.join(stored, "soup.traj"))[
+        "generations"].tolist() == list(range(1, g + 1))
+    assert not os.path.exists(os.path.join(stored, "soup.npz"))
     with pytest.raises(SystemExit):
         setups_main(["soup_trajectorys", "--smoke", "--root",
-                     str(tmp_path / "refused"), "--store"])
+                     str(tmp_path / "refused"), "--service", "svc.sock"])
     assert not os.path.exists(tmp_path / "refused")
 
 
