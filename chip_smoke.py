@@ -3008,6 +3008,373 @@ def capture_path(torch, kernels, totals):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------- device telemetry
+
+
+#: the three flags of evolve / evolve_multi (lineage_state added per run)
+FLAGS = dict(metrics=True, health=True, lineage=True)
+
+
+def metered(torch, cfg, state, generations, **kw):
+    """``evolve`` with all three carries on, seeded with a fresh lineage."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch.telemetry.dynamics import seed_lineage
+
+    return st.evolve(cfg, state, generations, **FLAGS,
+                     lineage_state=seed_lineage(cfg.size, device="cuda"),
+                     **kw)
+
+
+def syncs_per_generation(torch, run) -> tuple:
+    """(host synchronisations a generation, those of the call around it,
+    where the 1-generation call made them) of ``run(generations)``: from
+    one call of 1 generation and one of 3."""
+    where = count_syncs(torch, lambda: run(1))
+    one = sum(where.values())
+    three = sum(count_syncs(torch, lambda: run(3)).values())
+    per_gen = (three - one) / 2
+    return per_gen, one - per_gen, dict(where)
+
+
+def traced_per_generation(torch, run) -> dict:
+    """Host operators, device events (kernels and copies) and device ms a
+    generation of ``run(generations)`` under torch.profiler, from one
+    traced call of 1 generation and one of 3 (to inform: the profiler
+    inflates host time)."""
+    from srnn_tpu_torch.profile_soup import _device_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = []
+    for gens in (1, 3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            run(gens)
+            torch.cuda.synchronize()
+        ops = sum(1 for e in prof.events()
+                  if e.name.startswith("aten::") and e.cpu_parent is None)
+        dev = [(e.count, _device_us(e)) for e in prof.key_averages()
+               if _device_us(e) > 0]
+        out.append((ops, sum(c for c, _ in dev),
+                    sum(us for _, us in dev) / 1e3))
+    return {key: (b - a) / 2 for key, a, b in
+            zip(("host_ops", "device_events", "device_ms"), *out)}
+
+
+def np_health(np, views, epsilon):
+    """NumPy recount of a HealthStats from per-generation (N, P) float32
+    views (the JAX package's formula: max |w| per particle, float32 log2
+    buckets)."""
+    from srnn_tpu_torch.telemetry import device as dev
+
+    hist = np.zeros(dev.N_HEALTH_BUCKETS, np.int64)
+    counts, lo, hi = [], np.inf, -np.inf
+    for w in views:
+        norm = np.abs(w).max(axis=-1)
+        finite = np.isfinite(norm)
+        counts.append((int((~finite).sum()),
+                       int((finite & (norm <= np.float32(epsilon))).sum())))
+        safe = np.where(finite & (norm > 0), norm,
+                        np.float32(2.0) ** dev.HEALTH_BUCKET_LO)
+        b = np.clip((np.floor(np.log2(safe)).astype(np.int64)
+                     - dev.HEALTH_BUCKET_LO) // dev.HEALTH_BUCKET_STEP, 0,
+                    dev.N_HEALTH_BUCKETS - 1)
+        hist += np.bincount(b[finite], minlength=dev.N_HEALTH_BUCKETS)
+        if finite.any():
+            lo, hi = min(lo, norm[finite].min()), max(hi, norm[finite].max())
+    return counts, hist, lo, hi
+
+
+def np_census(np, w, fw, epsilon):
+    """NumPy basin labels of (N, P) weights and their self-application."""
+    from srnn_tpu_torch.telemetry import dynamics as dyn
+
+    linf = np.abs(fw - w).max(axis=-1)
+    div = ~np.isfinite(w).all(axis=-1) | ~np.isfinite(linf)
+    eps = np.float32(epsilon)
+    zero = (np.abs(w) <= eps).all(axis=-1) & ~div
+    fix = ~div & ~zero & (linf < eps)
+    return np.select([div, zero, fix], [dyn.BASIN_DIV, dyn.BASIN_ZERO,
+                                        dyn.BASIN_FIX], dyn.BASIN_DRIFT)
+
+
+def check_carries_on_host(torch, what, cfg, s0, final, recs, m, h, lineage):
+    """The carries of a metered ``evolve(record=True)`` at N = 1M against
+    the host: actions against a bincount of the recorded events, health
+    against a NumPy recount of every recorded view, the census and labels
+    against a NumPy recount of the final state and its self-application,
+    respawn births against the uid advance, the window within capacity."""
+    import numpy as np
+
+    from srnn_tpu_torch.ops.popmajor import apply_popmajor
+    from srnn_tpu_torch.telemetry import device as dev
+
+    ev, views, _ = recs
+    acts = np.bincount(ev.action.cpu().numpy().reshape(-1),
+                       minlength=dev.N_ACTIONS)
+    if not np.array_equal(acts, m.actions.cpu().numpy()):
+        raise AssertionError(f"{what}: actions {m.actions.tolist()} against "
+                             f"the recorded events' {acts.tolist()}")
+    loss = float(ev.loss.double().sum())
+    if abs(float(m.loss_sum) - loss) > 1e-5 * abs(loss):
+        raise AssertionError(f"{what}: loss_sum {float(m.loss_sum)} against "
+                             f"{loss}")
+    counts, hist, lo, hi = np_health(
+        np, (views[g].float().cpu().numpy() for g in range(len(views))),
+        cfg.epsilon)
+    got = (int(h.nonfinite), int(h.zero), int(h.nonfinite_peak),
+           int(h.zero_peak), float(h.norm_min), float(h.norm_max))
+    want = (counts[-1][0], counts[-1][1], max(c[0] for c in counts),
+            max(c[1] for c in counts), float(lo), float(hi))
+    if got != want or not np.array_equal(hist, h.norm_hist.cpu().numpy()):
+        raise AssertionError(f"{what}: health {got} {h.norm_hist.tolist()} "
+                             f"against the recount {want} {hist.tolist()}")
+    lin, win, stats = lineage
+    wT = final.weights.float().t().contiguous()
+    fw = apply_popmajor(cfg.topo, wT, wT).t().cpu().numpy()
+    basin = np_census(np, final.weights.float().cpu().numpy(), fw,
+                      cfg.epsilon)
+    census = np.bincount(basin, minlength=4)
+    if not (np.array_equal(census, stats.census.cpu().numpy())
+            and np.array_equal(basin, lin.basin.cpu().numpy())):
+        raise AssertionError(f"{what}: census {stats.census.tolist()} "
+                             f"against the recount {census.tolist()}")
+    births = win.births.cpu().numpy()[0]
+    advance = int(final.next_uid) - int(s0.next_uid)
+    if births[1] != advance or int(lin.next_pid) != cfg.size + births.sum():
+        raise AssertionError(f"{what}: births {births.tolist()}, uid advance "
+                             f"{advance}, next_pid {int(lin.next_pid)}")
+    if not 0 < int(win.n_edges) <= win.edges.shape[0]:
+        raise AssertionError(f"{what}: n_edges {int(win.n_edges)}")
+    log(f"  {what}: carries equal the host recounts: actions "
+        f"{acts.tolist()}, health nonfinite/zero {counts[-1]} (peaks "
+        f"{want[2:4]}, norms {lo:.6g}..{hi:.6g}), census [fixpoint, "
+        f"drifting, divergent, zero] {census.tolist()}, births "
+        f"{births.tolist()} (uid advance {advance}), edges "
+        f"{int(win.n_edges)} kept / {int(win.dropped)} dropped")
+
+
+def fused_telemetry_run(torch, kernels, totals, topo, row, close):
+    """The fused soup of ``topo`` at N = 1M, 20 generations with the three
+    carries against 20 without: state and recorded events bitwise, launches
+    exact (``row`` once a generation, ``close`` at the window's close), the
+    synchronisations a generation no more than unmetered, ms a generation
+    both ways in turns, and the carries against the host."""
+    import srnn_tpu_torch as st
+
+    g = GENERATIONS
+    what = f"{topo.variant} fused soup"
+    cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
+                        learn_from_rate=0.1, learn_from_severity=1, train=10,
+                        remove_divergent=True, remove_zero=True,
+                        respawn_draws="fused", layout="popmajor",
+                        generation_impl="fused")
+    s0 = st.evolve(cfg, st.seed(cfg, 0, device="cuda"), 1)  # warm-up
+    metered(torch, cfg, s0, 1)
+    torch.cuda.synchronize()
+    ms_gen = collections.defaultdict(list)
+    for run in ("off", "on", "off", "on"):
+        reset(kernels)
+        t0 = time.perf_counter()
+        if run == "on":
+            metered(torch, cfg, s0, g)
+        else:
+            st.evolve(cfg, s0, g)
+        torch.cuda.synchronize()
+        ms_gen[run].append((time.perf_counter() - t0) * 1e3 / g)
+        expect = {row: g, **({r: n for r, n in close.items()}
+                             if run == "on" else {})}
+        for name, n in check_launches(kernels, f"{what} flags {run}",
+                                      expect).items():
+            totals[name] += n
+    sync = {run: syncs_per_generation(torch, (
+        lambda k: metered(torch, cfg, s0, k)) if run == "on" else (
+        lambda k: st.evolve(cfg, s0, k))) for run in ("off", "on")}
+    if sync["on"][0] > sync["off"][0]:
+        raise AssertionError(f"{what}: {sync['on'][0]} host synchronisations "
+                             f"a metered generation, {sync['off'][0]} "
+                             "unmetered")
+    traced = {run: traced_per_generation(torch, (
+        lambda k: metered(torch, cfg, s0, k)) if run == "on" else (
+        lambda k: st.evolve(cfg, s0, k))) for run in ("off", "on")}
+    log(f"  {what}: a generation under torch.profiler: off {traced['off']}, "
+        f"on {traced['on']}")
+    log(f"  {what}: ms a generation at N={N}, in turns: off "
+        f"{ms_gen['off']}, on {ms_gen['on']}; host synchronisations a "
+        f"generation off {sync['off'][0]:g}, on {sync['on'][0]:g} (the call "
+        f"around them: off {sync['off'][1]:g}, on {sync['on'][1]:g}; a "
+        f"1-generation call's by line: off {sync['off'][2]}, on "
+        f"{sync['on'][2]})")
+    plain, recs = st.evolve(cfg, s0, g, record=True)
+    final, recs2, m, h, lineage = metered(torch, cfg, s0, g, record=True)
+    states_equal(torch, f"{what} flags on vs off", plain,
+                 st.SoupEvents(*(e[-1] for e in recs[0])), final,
+                 st.SoupEvents(*(e[-1] for e in recs2[0])))
+    for name, x, y in zip(("action", "counterpart", "loss", "views", "uids"),
+                          (*recs[0], recs[1], recs[2]),
+                          (*recs2[0], recs2[1], recs2[2])):
+        if x.dtype.is_floating_point:
+            x, y = x.float().view(torch.int32), y.float().view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: recorded {name} differ with the "
+                                 "flags on")
+    check_carries_on_host(torch, what, cfg, s0, final, recs2, m, h, lineage)
+    return {"ms_off": ms_gen["off"], "ms_on": ms_gen["on"],
+            "syncs_off": sync["off"][0], "syncs_on": sync["on"][0],
+            "traced_off": traced["off"], "traced_on": traced["on"]}
+
+
+def bitwise_metered(torch, kernels, totals, what, run, expect_off,
+                    expect_on):
+    """``run(metered)`` (the final state; ``metered`` True runs the three
+    carries) both ways: launches exact each way, the states bitwise."""
+    out = {}
+    for flag in (False, True):
+        reset(kernels)
+        out[flag] = run(flag)
+        torch.cuda.synchronize()
+        for name, n in check_launches(
+                kernels, f"{what} flags {'on' if flag else 'off'}",
+                expect_on if flag else expect_off).items():
+            totals[name] += n
+    a, b = out[False], out[True]
+    for field in ("weights", "uids"):
+        xs, ys = getattr(a, field), getattr(b, field)
+        for x, y in zip(xs if isinstance(xs, tuple) else (xs,),
+                        ys if isinstance(ys, tuple) else (ys,)):
+            if x.dtype.is_floating_point:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: {field} differ with the "
+                                     "flags on")
+    if not torch.equal(a.next_uid, b.next_uid):
+        raise AssertionError(f"{what}: next_uid differs with the flags on")
+    log(f"  {what}: weights, uids and next_uid bitwise with the flags on")
+
+
+def telemetry_path(torch, kernels, totals):
+    """Device telemetry (``metrics=`` / ``health=`` / ``lineage=``): the
+    fused weightwise, aggregating and recurrent soups at N = 1M, metered
+    against unmetered (``fused_telemetry_run``); then bitwise against
+    unmetered with launches exact: the weightwise phase chain, the
+    row-major weightwise soup, the mixed fused soup at mega_multisoup's
+    split, and the N = 1M capture run with a registry (its counters
+    against the metrics carry of the same 20 generations); then a small
+    metered soup on the card against the same soup on the CPU."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+    from srnn_tpu_torch.telemetry import (EVENT_COUNTERS, MetricsRegistry,
+                                          seed_lineage, seed_lineage_blocks)
+    from srnn_tpu_torch.utils import TrajStore, evolve_captured
+
+    g = GENERATIONS
+    report = {}
+    for topo, row, close in (
+            (st.Topology("weightwise"), "generation", {}),
+            (st.Topology("aggregating", aggregates=4), "generation_kvec", {}),
+            # the popmajor close self-applies through K6 (apply_popmajor)
+            (st.Topology("recurrent"), "generation_rnn", {"rnn_apply": 1})):
+        report[topo.variant] = fused_telemetry_run(torch, kernels, totals,
+                                                   topo, row, close)
+    log(f"telemetry overhead (ms a generation, syncs a generation): "
+        f"{json.dumps(report)}")
+
+    base = dict(size=N, attacking_rate=0.1, learn_from_rate=0.1,
+                learn_from_severity=1, train=10, remove_divergent=True,
+                remove_zero=True, respawn_draws="fused")
+    ww = st.Topology("weightwise")
+    for what, cfg in (("weightwise phase chain", st.SoupConfig(
+            topo=ww, layout="popmajor", **base)),
+            ("weightwise row-major soup", st.SoupConfig(topo=ww, **base))):
+        s0 = st.seed(cfg, 5, device="cuda")
+        bitwise_metered(
+            torch, kernels, totals, what,
+            lambda on, cfg=cfg, s0=s0: metered(torch, cfg, s0, g)[0] if on
+            else st.evolve(cfg, s0, g), {"ww_sgd": 2 * g}, {"ww_sgd": 2 * g})
+    mcfg = mega_multi_config(layout="popmajor", generation_impl="fused")
+    m0 = ms.seed_multi(mcfg, 6, device="cuda")
+    attacks = {"rnn_apply_t14": g, "rnn_apply_t20": g, "rnn_apply": g}
+    bitwise_metered(
+        torch, kernels, totals, "mixed fused soup",
+        lambda on: ms.evolve_multi(
+            mcfg, m0, g, **FLAGS,
+            lineage_state=seed_lineage_blocks(mcfg.sizes, device="cuda"))[0]
+        if on else ms.evolve_multi(mcfg, m0, g),
+        {"generation": g, "generation_kvec": g, "generation_rnn": g,
+         **attacks},
+        {"generation": g, "generation_kvec": g, "generation_rnn": g,
+         **attacks, "rnn_apply": g + 1})
+
+    # the capture run with a registry: every generation metered
+    cfg = st.SoupConfig(topo=ww, layout="popmajor", generation_impl="fused",
+                        **base)
+    s0 = st.seed(cfg, 7, device="cuda")
+    _, m = st.evolve(cfg, s0, g, metrics=True)
+    tmp = tempfile.mkdtemp(prefix="srnn-telemetry-")
+    try:
+        reg = MetricsRegistry()
+        reset(kernels)
+        with TrajStore(os.path.join(tmp, "soup.traj"), N,
+                       ww.num_weights) as store:
+            final = evolve_captured(cfg, s0, g, store, every=5, registry=reg)
+        for name, n in check_launches(kernels, "capture with a registry",
+                                      {"generation": g}).items():
+            totals[name] += n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counters = {name: reg.counter(EVENT_COUNTERS[name][0]).value()
+                for name in EVENT_COUNTERS}
+    want = {name: int(m.actions[st.soup.ACTION_NAMES.index(name)])
+            for name in EVENT_COUNTERS}
+    if reg.counter("soup_generations_total").value() != g or \
+            counters != want or not torch.equal(
+                final.weights, st.evolve(cfg, s0, g).weights):
+        raise AssertionError(f"capture with a registry: counters {counters} "
+                             f"against the metrics carry {want}")
+    log(f"  capture with a registry: {g} generations metered, counters "
+        f"{counters} equal the metrics carry, the state bitwise")
+
+    # a small metered soup, card against CPU, from one CPU generator
+    for impl in ("fused", "phases"):
+        cfg = st.SoupConfig(topo=ww, size=640, attacking_rate=0.3,
+                            learn_from_rate=0.3, learn_from_severity=1,
+                            train=2, remove_divergent=True, remove_zero=True,
+                            layout="popmajor", generation_impl=impl)
+        out = {}
+        for d in ("cuda", "cpu"):
+            s = st.seed(cfg, torch.Generator().manual_seed(9), device=d)
+            out[d] = st.evolve(cfg, s, 5, **FLAGS, lineage_state=seed_lineage(
+                640, device=d), lineage_capacity=512)
+        tag = f"small metered {impl} soup"
+        (fa, ma, ha, (la, wa, sa)), (fb, mb, hb, (lb, wb, sb)) = \
+            out["cuda"], out["cpu"]
+        for name, x, y in (("uids", fa.uids, fb.uids),
+                           ("actions", ma.actions, mb.actions),
+                           *((f"health.{f}", getattr(ha, f), getattr(hb, f))
+                             for f in ("nonfinite", "zero", "norm_hist")),
+                           *((f"lineage.{f}", x, y) for f, x, y in
+                             zip(la._fields, la, lb)),
+                           *((f"window.{f}", x, y) for f, x, y in
+                             zip(wa._fields, wa, wb)),
+                           ("census", sa.census, sb.census),
+                           ("transitions", sa.transitions, sb.transitions)):
+            equal_ints(torch, f"{tag} {name}", x, y)
+        compare(torch, f"{tag} weights", fa.weights.cpu(), fb.weights)
+        compare(torch, f"{tag} loss_sum", ma.loss_sum.cpu(), mb.loss_sum)
+        compare(torch, f"{tag} norm extrema",
+                torch.stack([ha.norm_min, ha.norm_max]).cpu(),
+                torch.stack([hb.norm_min, hb.norm_max]))
+        compare(torch, f"{tag} distance maxima",
+                torch.stack([sa.l2_max, sa.linf_max]).cpu(),
+                torch.stack([sb.l2_max, sb.linf_max]))
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -3080,6 +3447,7 @@ def main() -> int:
     launches = phase("main path", main_path, torch, kernels)
     phase("compact phases", compact_path, torch, kernels, launches)
     phase("trajectory capture", capture_path, torch, kernels, launches)
+    phase("device telemetry", telemetry_path, torch, kernels, launches)
     phase("fixpoint engines and setups", engines_and_setups, torch, kernels,
           launches)
     phase("small soups vs cpu", small_soup_vs_cpu, torch, kernels)

@@ -132,3 +132,36 @@ def multisoup_state_from_arrays(weights: Sequence, uids: Sequence, next_uid,
                               device=gen.device),
         time=torch.tensor(int(time), dtype=torch.int32, device=gen.device),
         key=gen, scales=None if scales is None else tuple(scs))
+
+
+def lineage_state_from_arrays(pid, parent, birth, basin, next_pid,
+                              device="cuda"):
+    """A ``telemetry.dynamics.LineageState`` from the fields of a JAX
+    ``LineageState`` (``np.asarray`` of each), so that a JAX run's lineage
+    resumes here: (N,) pid, parent, birth and basin, the scalar
+    next_pid, all int32."""
+    from .telemetry.dynamics import LineageState
+
+    dev = torch.device(device)
+    fields = [np.asarray(a) for a in (pid, parent, birth, basin)]
+    n = fields[0].shape
+    if len(n) != 1 or any(f.shape != n for f in fields):
+        raise ValueError("pid, parent, birth and basin must be (N,) arrays "
+                         "of one length")
+    vecs = [torch.as_tensor(f.astype(np.int32), device=dev) for f in fields]
+    return LineageState(*vecs, next_pid=torch.tensor(
+        int(next_pid), dtype=torch.int32, device=dev))
+
+
+def lineage_states_from_arrays(states: Sequence, device="cuda") -> tuple:
+    """Per-type carries of a mixed soup: one
+    :func:`lineage_state_from_arrays` per entry of ``states``, each a
+    mapping of a JAX ``LineageState``'s fields (``lin._asdict()``) or a
+    sequence of them in field order."""
+    out = []
+    for fields in states:
+        if isinstance(fields, Mapping):
+            fields = [fields[f] for f in ("pid", "parent", "birth", "basin",
+                                          "next_pid")]
+        out.append(lineage_state_from_arrays(*fields, device=device))
+    return tuple(out)

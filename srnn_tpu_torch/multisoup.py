@@ -50,8 +50,9 @@ Layouts (``layout``):
 
 The types share ``population_dtype``: weights upcast to float32 at
 generation entry and round once at exit, as in ``soup.py`` (the fused
-route's K3 runs its float32 bodies here).  The metrics, health and lineage
-carries of ``evolve_multi`` are not ported.
+route's K3 runs its float32 bodies here).  ``evolve_multi`` takes the
+device telemetry carries (``metrics=`` / ``health=`` / ``lineage=``, one
+per type; see ``soup.evolve``).
 
 Randomness: as in ``soup.py``, the state carries a ``torch.Generator``
 (``key``) and ``evolve_multi_step`` draws from a copy of it, unless the
@@ -320,12 +321,14 @@ def _resolve_draws(config: MultiSoupConfig, state: MultiSoupState, device,
 
 def _attack(config: MultiSoupConfig, ws, d: MultiSoupDraws, dev):
     """The cross-type attack phase on the float32 populations ``ws`` in the
-    config's layout: (new ws, attack_gate, attack_tgt).  ``att_idx[v]`` is
-    victim v's highest-indexed attacker or -1 (last attacker wins)."""
+    config's layout: (new ws, attack_gate, attack_tgt, att_idx).
+    ``att_idx[v]`` is victim v's highest-indexed attacker or -1 (last
+    attacker wins)."""
     n, offs = config.total, config.offsets
     if config.attacking_rate <= 0:
         return (ws, torch.zeros(n, dtype=torch.bool, device=dev),
-                torch.zeros(n, dtype=torch.int64, device=dev))
+                torch.zeros(n, dtype=torch.int64, device=dev),
+                torch.full((n,), -1, dtype=torch.int64, device=dev))
     rowmajor = config.layout == "rowmajor"
     gate, tgt = d.attack_gate, d.attack_tgt
     src = torch.where(gate, torch.arange(n, device=dev), -1)
@@ -346,7 +349,7 @@ def _attack(config: MultiSoupConfig, ws, d: MultiSoupDraws, dev):
                                                 ws[b])
                 out = torch.where(mask[None, :], attacked, out)
         new.append(out)
-    return new, gate, tgt
+    return new, gate, tgt, att_idx
 
 
 def _type_generation(config: MultiSoupConfig, topo: Topology, wT, fresh,
@@ -368,13 +371,41 @@ def _type_generation(config: MultiSoupConfig, topo: Topology, wT, fresh,
         remove_zero=config.remove_zero, epsilon=config.epsilon)
 
 
+def _record_multi_lineage(lins, win, gen, lin_info, lincfg):
+    """One mixed generation's lineage bookkeeping (``_record_multi_lineage``,
+    ``multisoup.py:176-205`` of the JAX package), run after the whole
+    weights loop: per type ``dynamics.record_step`` with mint bases chained
+    type-major through one shared counter (the respawn uid blocks' order).
+    ``lin_info`` holds per type (att_idx slice, learn_gate, learn_tgt,
+    dead); the attacker pids are the start-of-generation ones of every
+    type.  Returns (the per-type carries, all on the shared counter, the
+    window)."""
+    from .telemetry.dynamics import record_step
+
+    all_pid0 = torch.cat([lin.pid for lin in lins])
+    running = lins[0].next_pid
+    new_lins = []
+    for t, (att_b, learn_gate, learn_tgt, dead) in enumerate(lin_info):
+        lin_t, win = record_step(
+            lins[t]._replace(next_pid=running), win, gen=gen,
+            attacked=att_b >= 0, attacker_pid=all_pid0[att_b.clamp(min=0)],
+            learn_gate=learn_gate, learn_tgt=learn_tgt, dead=dead,
+            caps=lincfg[0][t], capacity=lincfg[1])
+        running = lin_t.next_pid
+        new_lins.append(lin_t)
+    return tuple(lin._replace(next_pid=running) for lin in new_lins), win
+
+
 def _evolve_multi_generation(config: MultiSoupConfig, state: MultiSoupState,
-                             ws, draws: Optional[MultiSoupDraws] = None):
+                             ws, draws: Optional[MultiSoupDraws] = None,
+                             lineage=None):
     """One mixed generation on the stored populations ``ws`` in the
     config's layout, (N_t, P_t) row-major or (P_t, N_t) population-major
     (``state.weights`` is carried only for metadata); the JAX package's
     ``_evolve_multi_step`` and ``_evolve_multi_popmajor``.  Returns
-    (new_state, events, new stored ws in the same layout)."""
+    (new_state, events, new stored ws in the same layout), and with a
+    ``lineage`` carry (per-type lins, win, (per-type caps, capacity)) the
+    advanced (lins, win) after them."""
     offs = config.offsets
     rowmajor = config.layout == "rowmajor"
     paxis = 0 if rowmajor else -1
@@ -383,7 +414,8 @@ def _evolve_multi_generation(config: MultiSoupConfig, state: MultiSoupState,
     ws = [_upcast(config, w, None if state.scales is None
                   else state.scales[t], paxis=paxis)
           for t, w in enumerate(ws)]
-    ws, attack_gate, attack_tgt = _attack(config, ws, d, dev)
+    ws, attack_gate, attack_tgt, att_idx = _attack(config, ws, d, dev)
+    lin_info = []
 
     all_uids = torch.cat(state.uids)
     attack_cp = all_uids[attack_tgt]
@@ -408,6 +440,9 @@ def _evolve_multi_generation(config: MultiSoupConfig, state: MultiSoupState,
             state.uids[t], state.next_uid + total_deaths, dead_div,
             dead_zero)
         total_deaths = total_deaths + deaths
+        if lineage is not None:
+            lin_info.append((att_idx[sl], learn_gate, learn_tgt,
+                             dead_div | dead_zero))
         action, counterpart = _event_record(
             n_t, attack_gate[sl], attack_cp[sl], learn_gate,
             state.uids[t][learn_tgt], config.train > 0, death, death_cp)
@@ -428,7 +463,11 @@ def _evolve_multi_generation(config: MultiSoupConfig, state: MultiSoupState,
         else None)
     events = MultiSoupEvents(tuple(actions), tuple(counterparts),
                              tuple(losses))
-    return new_state, events, out_ws
+    if lineage is None:
+        return new_state, events, out_ws
+    lins, win, lincfg = lineage
+    return (new_state, events, out_ws) + _record_multi_lineage(
+        lins, win, state.time, lin_info, lincfg)
 
 
 def _stored_multi(config: MultiSoupConfig, state: MultiSoupState) -> list:
@@ -468,16 +507,74 @@ def evolve_multi_step(config: MultiSoupConfig, state: MultiSoupState,
 
 
 def evolve_multi(config: MultiSoupConfig, state: MultiSoupState,
-                 generations: int = 1) -> MultiSoupState:
+                 generations: int = 1, metrics: bool = False,
+                 health: bool = False, lineage: bool = False,
+                 lineage_state=None, lineage_capacity: int = 4096):
     """Evolve ``generations`` mixed steps, every type kept in the config's
     layout between them (population-major: one transpose per type at
-    entry and one at exit); ``state`` is left as it was."""
+    entry and one at exit); ``state`` is left as it was.
+
+    The device telemetry carries of ``soup.evolve``, one per type, on the
+    population's device, the evolved state bit for bit the unmetered
+    run's (``_evolve_multi``, ``multisoup.py:585-750`` of the JAX
+    package): ``metrics=True`` a tuple of ``SoupMetrics``; ``health=True``
+    a tuple of ``HealthStats`` from each type's stored view;
+    ``lineage=True`` (``lineage_state`` one ``LineageState`` per type over
+    one pid space, ``telemetry.dynamics.seed_lineage_blocks``) the triple
+    (the advanced per-type carries, one shared ``LineageWindow``, per-type
+    ``FixpointStats``), each type's window closed on its own
+    self-application as the layout computes it.  Returns ``final``, then
+    those asked for in that order (``final`` alone if none is)."""
+    from .soup import (_Meters, _check_lineage_state, _close_window,
+                       _lineage_caps)
+    from .telemetry.dynamics import zero_window
+
     _check_multi(config)
+    types = len(config.topos)
+    if lineage and (lineage_state is None or len(lineage_state) != types):
+        raise ValueError(
+            "lineage=True needs lineage_state= (one "
+            "telemetry.dynamics.LineageState per type — seed with "
+            "seed_lineage over each type's uid block)")
     ws = _stored_multi(config, state)
+    dev = ws[0].device
+    meters = [_Meters(config, topo, dev, metrics, health)
+              for topo in config.topos]
+    carry = None
+    if lineage:
+        for lin, n_t in zip(lineage_state, config.sizes):
+            _check_lineage_state(lin, n_t, dev)
+        carry = (tuple(lineage_state), zero_window(lineage_capacity, dev),
+                 (tuple(_lineage_caps(n_t, config, lineage_capacity)
+                        for n_t in config.sizes), lineage_capacity))
+    rowmajor = config.layout == "rowmajor"
+    paxis, axis = (0, -1) if rowmajor else (-1, 0)
     state = _forked(state)
+
+    def scales(t):
+        return None if state.scales is None else state.scales[t]
+
     for _ in range(generations):
-        state, _, ws = _evolve_multi_generation(config, state, ws)
-    return _with_weights(config, state, ws)
+        out = _evolve_multi_generation(config, state, ws, lineage=carry)
+        state, events, ws = out[:3]
+        if lineage:
+            carry = out[3:] + carry[2:]
+        for t, m in enumerate(meters):
+            m.fold(events.action[t], events.loss[t],
+                   _stored_view(config, ws[t], scales(t), paxis=paxis)
+                   if health else None, axis)
+    final = _with_weights(config, state, ws)
+    per_type = [m.outputs(w, scales(t), axis)
+                for t, (m, w) in enumerate(zip(meters, ws))]
+    out = (final,) + tuple(zip(*per_type))
+    if lineage:
+        lins, win = carry[:2]
+        closed = [_close_window(config, topo, lin_t, w, scales(t), axis)
+                  for t, (topo, lin_t, w) in enumerate(zip(config.topos,
+                                                           lins, ws))]
+        out += ((tuple(c[0] for c in closed), win,
+                 tuple(c[1] for c in closed)),)
+    return out if len(out) > 1 else final
 
 
 def count_multi(config: MultiSoupConfig,

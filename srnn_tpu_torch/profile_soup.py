@@ -1,7 +1,7 @@
 """Where a soup generation's time goes on the card.
 
     python -m srnn_tpu_torch.profile_soup [--size 1000000] [--generations 10]
-        [--population-dtype f32|bf16|int8] [--mixed]
+        [--population-dtype f32|bf16|int8] [--mixed] [--telemetry]
 
 Runs the full-dynamics soup (attack 0.1, learn_from 0.1, severity 1,
 train 10, both removals, fused respawn draws) of the weightwise,
@@ -18,8 +18,10 @@ over wall time), and the device time by kernel, largest first.
 profiles instead the mixed-type soup at setups/mega_multisoup.py's split
 (the size in thirds: weightwise takes the remainder, then aggregating and
 recurrent), the same dynamics, on the same three routes (``rowmajor``:
-the row-major cross attack in plain torch, the types' SGD kernels).  Needs
-a CUDA card.
+the row-major cross attack in plain torch, the types' SGD kernels).
+``--telemetry`` runs every soup with the device telemetry carries
+(``metrics=``, ``health=``, ``lineage=``, one window over the profiled
+generations).  Needs a CUDA card.
 """
 
 import argparse
@@ -49,19 +51,32 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def profile_route(cfg, generations: int, top: int = 12) -> dict:
+def profile_route(cfg, generations: int, top: int = 12,
+                  telemetry: bool = False) -> dict:
     """Profile ``generations`` generations of a ``SoupConfig`` or a
-    ``MultiSoupConfig``, after a warm-up generation."""
+    ``MultiSoupConfig``, after a warm-up generation; with ``telemetry``
+    all three device telemetry carries on."""
+    from .telemetry.dynamics import seed_lineage, seed_lineage_blocks
+
     mixed = isinstance(cfg, MultiSoupConfig)
     state = (seed_multi if mixed else seed)(cfg, 0, device="cuda")
-    run = evolve_multi if mixed else evolve
-    state = run(cfg, state, 1)  # warm-up
+    evolve_fn = evolve_multi if mixed else evolve
+
+    def run(state, gens):
+        if not telemetry:
+            return evolve_fn(cfg, state, gens)
+        lin = (seed_lineage_blocks(cfg.sizes, device="cuda") if mixed
+               else seed_lineage(cfg.size, device="cuda"))
+        return evolve_fn(cfg, state, gens, metrics=True, health=True,
+                         lineage=True, lineage_state=lin)[0]
+
+    state = run(state, 1)  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state = run(cfg, state, generations)
+        state = run(state, generations)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()]
@@ -87,6 +102,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mixed", action="store_true",
                     help="profile the mixed-type soup (mega_multisoup's "
                          "split) instead of the homogeneous soups")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="run with the metrics, health and lineage carries")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_soup: needs a CUDA card", file=sys.stderr)
@@ -112,8 +129,10 @@ def main(argv=None) -> int:
             row = {"variant": variant, "route": name, "size": args.size,
                    "population_dtype": args.population_dtype,
                    "generations": args.generations,
+                   "telemetry": args.telemetry,
                    "device": torch.cuda.get_device_name(0)}
-            row.update(profile_route(cfg, args.generations))
+            row.update(profile_route(cfg, args.generations,
+                                     telemetry=args.telemetry))
             print(json.dumps(row), flush=True)
     return 0
 

@@ -101,7 +101,6 @@ the draws move to the population's device.  A caller may instead hand
 over the JAX package's own draws.
 """
 
-import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -481,14 +480,12 @@ def _finish(config: SoupConfig, state: SoupState, gates, wT, train_loss,
 
 def _attack_capacity(n: int, rate: float) -> int:
     """Lane capacity of a compacted phase's block (the JAX package's
-    ``_attack_capacity``, ``soup.py:413-424``): mean + 8 sd of the gated
-    count Binomial(n, rate), plus 16, rounded up to a multiple of 128 and
-    at most n.  P(overflow) < 1e-14."""
-    rate = min(max(rate, 0.0), 1.0)
-    mean = n * rate
-    sd = math.sqrt(n * rate * (1.0 - rate))
-    cap = int(math.ceil(mean + 8.0 * sd)) + 16
-    return min(n, ((cap + 127) // 128) * 128)
+    ``_attack_capacity``, ``soup.py:413-424``): the lineage edge block's
+    Binomial(n, rate) bound, ``telemetry.dynamics.edge_capacity``.
+    P(overflow) < 1e-14."""
+    from .telemetry.dynamics import edge_capacity
+
+    return edge_capacity(n, rate)
 
 
 def _compact_gated_lanes(wT: torch.Tensor, gate: torch.Tensor, cap: int,
@@ -586,14 +583,30 @@ def _learn_train_respawn(config, topo: Topology, wT, fresh, learn_gate,
     return wT, train_loss, dead_div, dead_zero
 
 
+def _record_lineage(lineage, gen, att_idx, learn_gate, learn_tgt, dead):
+    """The lineage carry advanced by one generation's gates, read after
+    its weights math (``dynamics.record_step``): ``lineage`` is (lin, win,
+    (caps, capacity)); returns (lin, win)."""
+    from .telemetry.dynamics import lookup_pids, record_step
+
+    lin, win, (caps, capacity) = lineage
+    return record_step(
+        lin, win, gen=gen, attacked=att_idx >= 0,
+        attacker_pid=lookup_pids(lin.pid, att_idx.clamp(min=0)),
+        learn_gate=learn_gate, learn_tgt=learn_tgt, dead=dead, caps=caps,
+        capacity=capacity)
+
+
 def _evolve_parallel_popmajor(config: SoupConfig, state: SoupState,
                               wT: torch.Tensor,
-                              draws: Optional[SoupDraws] = None):
+                              draws: Optional[SoupDraws] = None,
+                              lineage=None):
     """One generation on the stored (P, N) population ``wT``
     (``state.weights`` is carried only for metadata).  Returns (new_state,
-    events, new stored wT)."""
+    events, new stored wT), and with a ``lineage`` carry (lin, win,
+    (caps, capacity)) the advanced (lin, win) after them."""
     if config.generation_impl == "fused":
-        return _evolve_fused_popmajor(config, state, wT, draws)
+        return _evolve_fused_popmajor(config, state, wT, draws, lineage)
     n = config.size
     topo = config.topo
     dev = wT.device
@@ -618,12 +631,16 @@ def _evolve_parallel_popmajor(config: SoupConfig, state: SoupState,
         if config.learn_from_impl == "compact" else None
     wT, train_loss, dead_div, dead_zero = _learn_train_respawn(
         config, topo, wT, d.fresh, learn_gate, learn_tgt, learn_cap)
-    return _finish(config, state, gates, wT, train_loss, dead_div, dead_zero)
+    out = _finish(config, state, gates, wT, train_loss, dead_div, dead_zero)
+    if lineage is None:
+        return out
+    return out + _record_lineage(lineage, state.time, att_idx, learn_gate,
+                                 learn_tgt, dead_div | dead_zero)
 
 
 def _evolve_fused_popmajor(config: SoupConfig, state: SoupState,
                            wT: torch.Tensor,
-                           draws: Optional[SoupDraws] = None):
+                           draws: Optional[SoupDraws] = None, lineage=None):
     """One generation as one launch of the generation kernel: the same
     draws, phase order and event record as the phase chain.  Counterpart
     operands are gathered from the START-of-generation population; the
@@ -657,18 +674,24 @@ def _evolve_fused_popmajor(config: SoupConfig, state: SoupState,
         train=config.train, lr=config.lr,
         remove_divergent=config.remove_divergent,
         remove_zero=config.remove_zero, epsilon=config.epsilon)
-    return _finish(config, state, gates, wT, train_loss, dead_div, dead_zero)
+    out = _finish(config, state, gates, wT, train_loss, dead_div, dead_zero)
+    if lineage is None:
+        return out
+    return out + _record_lineage(lineage, state.time, att_idx, learn_gate,
+                                 learn_tgt, dead_div | dead_zero)
 
 
 def _rowmajor_generation(config: SoupConfig, state: SoupState,
-                         draws: Optional[Sequence[SoupDraws]] = None):
+                         draws: Optional[Sequence[SoupDraws]] = None,
+                         lineage=None):
     """One parallel row-major generation (``_evolve_parallel``,
     ``soup.py:330-410`` of the JAX package) of the B soups of a stacked
     ``state`` at once; ``draws`` replaces the trials' draws (one
     ``SoupDraws`` each).  Each trial's attack and learn targets index
     within its own trial (a ``b * N`` offset on the flattened rows), and
     every phase runs on all B * N rows: one kernel launch per phase.
-    Returns (new stacked state, events (B, N))."""
+    Returns (new stacked state, events (B, N)), and with a ``lineage``
+    carry (one soup, B = 1) the advanced (lin, win) after them."""
     b, n, p = state.weights.shape
     topo = config.topo
     dev = state.weights.device
@@ -696,6 +719,7 @@ def _rowmajor_generation(config: SoupConfig, state: SoupState,
         rows = torch.where((att_idx >= 0)[:, None], attacked, rows)
     else:
         attack_gate, attack_tgt = none, zero_tgt
+        att_idx = torch.full((b * n,), -1, dtype=torch.int64, device=dev)
 
     # --- learn_from (soup.py:62-68): the counterparts' samples fixed ------
     if config.learn_from_rate > 0:
@@ -734,8 +758,13 @@ def _rowmajor_generation(config: SoupConfig, state: SoupState,
         stored.reshape(b, n, p), uids, state.next_uid + deaths,
         state.time + 1, state.key,
         None if scales is None else scales.reshape(b, n))
-    return new_state, SoupEvents(act.reshape(b, n), cp.reshape(b, n),
-                                 train_loss.reshape(b, n))
+    events = SoupEvents(act.reshape(b, n), cp.reshape(b, n),
+                        train_loss.reshape(b, n))
+    if lineage is None:
+        return new_state, events
+    return (new_state, events) + _record_lineage(
+        lineage, state.time[0], att_idx, learn_gate, learn_tgt,
+        dead_div | dead_zero)
 
 
 def _evolve_sequential(config: SoupConfig, state: SoupState,
@@ -952,26 +981,158 @@ class _Record:
         return self.events, self.weights, self.uids
 
 
+def _lineage_caps(n: int, config, capacity: int) -> Tuple[int, int, int]:
+    """Per-generation edge-row widths (attack, learn, respawn) of an
+    ``n``-particle population (``_lineage_caps``, ``soup.py:1004`` of the
+    JAX package): the Binomial bound for the gated phases, full width
+    (clipped to the window) for respawn storms, 0 for a phase the config
+    turns off, which removes its block (``dynamics.record_step``)."""
+    from .telemetry.dynamics import edge_capacity
+
+    return (min(edge_capacity(n, config.attacking_rate), capacity)
+            if config.attacking_rate > 0 else 0,
+            min(edge_capacity(n, config.learn_from_rate), capacity)
+            if config.learn_from_rate > 0 else 0,
+            min(n, capacity)
+            if (config.remove_divergent or config.remove_zero) else 0)
+
+
+class _Meters:
+    """The ``metrics=`` / ``health=`` / ``lineage=`` carries of one
+    population (a soup, or one type of a mixed soup) on its device, folded
+    once a generation; each reads the generation's record and gates and
+    writes nothing the run returns.  With a ``lineage_state`` (a soup's;
+    a mixed soup chains its types' carries through one shared window
+    itself) ``lineage`` is the (carry, window, (caps, capacity)) that
+    each generation's ``record_step`` advances."""
+
+    def __init__(self, config, topo: Topology, device, metrics: bool,
+                 health: bool, lineage_state=None,
+                 lineage_capacity: int = 0):
+        from .telemetry.device import zero_health, zero_soup_metrics
+        from .telemetry.dynamics import zero_window
+
+        self.config, self.topo = config, topo
+        self.m = zero_soup_metrics(device) if metrics else None
+        self.h = zero_health(device) if health else None
+        self.lineage = None
+        if lineage_state is not None:
+            self.lineage = (lineage_state, zero_window(lineage_capacity,
+                                                       device),
+                            (_lineage_caps(config.size, config,
+                                           lineage_capacity),
+                             lineage_capacity))
+
+    def fold(self, action: torch.Tensor, loss: torch.Tensor,
+             view: Optional[torch.Tensor], axis: int) -> None:
+        """One generation's event record and stored view (read for
+        health)."""
+        from .telemetry.device import accumulate_health, accumulate_soup_metrics
+
+        if self.m is not None:
+            self.m = accumulate_soup_metrics(self.m, action.reshape(-1),
+                                             loss.reshape(-1))
+        if self.h is not None:
+            self.h = accumulate_health(self.h, view, axis,
+                                       self.config.epsilon)
+
+    def advance(self, lin_win) -> None:
+        self.lineage = tuple(lin_win) + self.lineage[2:]
+
+    def outputs(self, w: torch.Tensor, scales, axis: int) -> tuple:
+        """The carries in the JAX package's order, the window closed on
+        the final stored population ``w`` (``_close_window``)."""
+        out = tuple(c for c in (self.m, self.h) if c is not None)
+        if self.lineage is not None:
+            lin, win = self.lineage[:2]
+            lin, stats = _close_window(self.config, self.topo, lin, w,
+                                       scales, axis)
+            out += ((lin, win, stats),)
+        return out
+
+
+def _close_window(config, topo: Topology, lin, w: torch.Tensor, scales,
+                  axis: int):
+    """(labelled lineage carry, ``FixpointStats``) of a stored population
+    ``w`` ((P, N) with ``axis=0``, else (N, P)), self-applied in float32
+    as the JAX package's window close computes it per layout:
+    ``apply_popmajor`` (K6 for a recurrent particle on its route)
+    population-major, the row-major transform row-major (for the
+    recurrent particle they differ in the last bits)."""
+    from .telemetry.dynamics import close_window
+
+    wc = _upcast(config, w, scales, paxis=-1 if axis == 0 else 0)
+    fw = apply_popmajor(topo, wc, wc) if axis == 0 \
+        else apply_to_weights(topo, wc, wc)
+    return close_window(lin, wc, fw, axis, config.epsilon)
+
+
+def _check_lineage_state(lin, n: int, device) -> None:
+    if tuple(lin.pid.shape) != (n,) or lin.pid.device != device:
+        raise ValueError(f"lineage_state must hold ({n},) tensors on "
+                         f"{device}, got {tuple(lin.pid.shape)} on "
+                         f"{lin.pid.device}")
+
+
 def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
            record: bool = False, metrics: bool = False,
-           health: bool = False, lineage: bool = False):
+           health: bool = False, lineage: bool = False,
+           lineage_state=None, lineage_capacity: int = 4096):
     """Evolve ``generations`` steps (``_evolve``, ``soup.py:1020-1170`` of
     the JAX package); ``state`` is left as it was.  The row-major
     population stays (N, P), or (B, N, P) for a stacked state; the
     population-major one is kept (P, N) between generations (one transpose
     at entry and one at exit).
 
-    With ``record=True`` returns ``(final, (SoupEvents stacked (G, N),
-    weights (G, N, P) in the stored view, uids (G, N)))`` (a stacked state:
-    (G, B, N) and (G, B, N, P)), preallocated on the population's device;
-    an int8 population records its dequantized float32 view.  The JAX
-    package's ``metrics=`` / ``health=`` / ``lineage=`` carries are not
-    ported (ROADMAP.md, queue A.4) and raise."""
+    With ``record=True`` also returns (SoupEvents stacked (G, N), weights
+    (G, N, P) in the stored view, uids (G, N)) (a stacked state: (G, B, N)
+    and (G, B, N, P)), preallocated on the population's device; an int8
+    population records its dequantized float32 view.
+
+    The device telemetry carries (``telemetry``; one soup, not a stacked
+    state), folded once a generation on the population's device with no
+    read on the host, the evolved state bit for bit the unmetered run's:
+
+      * ``metrics=True``: a ``telemetry.device.SoupMetrics`` (the action
+        histogram and summed train loss of the event record);
+      * ``health=True``: a ``telemetry.device.HealthStats`` from each
+        generation's stored view (NaN/Inf and zero-collapse counts, the
+        weight-norm sketch);
+      * ``lineage=True`` (parallel mode; ``lineage_state`` the persistent
+        ``telemetry.dynamics.LineageState``, from ``seed_lineage``): the
+        triple (advanced lineage state, the window's ``LineageWindow`` of
+        ``lineage_capacity`` edge rows, the end-of-window
+        ``FixpointStats``).  The window closes on the float32 population's
+        self-application as the JAX package computes it per layout:
+        ``apply_popmajor`` (K6 for a recurrent particle on its route) in
+        the population-major layout, the row-major transform in the
+        row-major one.
+
+    Returns ``final``, then the record, then the metrics, health and
+    lineage carries, those asked for, in that order (``final`` alone if
+    none is)."""
     _check_config(config)
-    if metrics or health or lineage:
-        raise NotImplementedError(
-            "evolve(metrics=, health=, lineage=): the device telemetry "
-            "carries are not ported to srnn_tpu_torch (ROADMAP.md, A.4)")
+    if lineage:
+        if config.mode != "parallel":
+            raise ValueError(
+                "lineage=True rides the parallel step's phase gates; "
+                f"mode={config.mode!r} is unsupported")
+        if lineage_state is None:
+            raise ValueError("lineage=True needs lineage_state= (seed one "
+                             "with telemetry.dynamics.seed_lineage)")
+    metered = metrics or health or lineage
+    if metered and isinstance(state.key, tuple):
+        raise ValueError(
+            "metrics=, health= and lineage= carry one population's "
+            "telemetry; evolve the trials of a stacked state one by one")
+    meters = None
+    if metered:
+        dev = state.weights.device
+        if lineage:
+            _check_lineage_state(lineage_state, config.size, dev)
+        meters = _Meters(config, config.topo, dev, metrics, health,
+                         lineage_state if lineage else None,
+                         lineage_capacity)
     rec = None
     if config.mode == "sequential":
         state = _sequential(config, state)
@@ -981,29 +1142,70 @@ def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
             state, events = _evolve_sequential(config, state)
             if record:
                 rec.put(g, events, state.weights, state.uids)
+            if meters is not None:
+                meters.fold(events.action, events.loss, state.weights, -1)
         final = state
+        carries = () if meters is None else meters.outputs(state.weights,
+                                                           None, -1)
     elif config.layout == "popmajor":
         wT = _popmajor(config, state)
         state = _forked(state)
         if record:
             rec = _Record(config, generations, (), wT.device)
         for g in range(generations):
-            state, events, wT = _evolve_parallel_popmajor(config, state, wT)
+            out = _evolve_parallel_popmajor(
+                config, state, wT,
+                lineage=None if meters is None else meters.lineage)
+            state, events, wT = out[:3]
+            view = _stored_view(config, wT, state.scales, paxis=-1) \
+                if (health or record) else None
             if record:
-                rec.put(g, events, _stored_view(config, wT, state.scales,
-                                                paxis=-1).t(), state.uids)
+                rec.put(g, events, view.t(), state.uids)
+            if meters is not None:
+                meters.fold(events.action, events.loss, view, 0)
+                if lineage:
+                    meters.advance(out[3:])
         final = state._replace(weights=wT.t().contiguous())
+        carries = () if meters is None else meters.outputs(wT, state.scales,
+                                                           0)
     else:
         trials, is_stacked = _stacked(config, _forked(state))
         if record:
             lead = (len(trials.key),) if is_stacked else ()
             rec = _Record(config, generations, lead, trials.weights.device)
         for g in range(generations):
-            trials, events = _rowmajor_generation(config, trials)
+            out = _rowmajor_generation(
+                config, trials,
+                lineage=None if meters is None else meters.lineage)
+            trials, events = out[:2]
+            view = _rows_view(config, trials) if (health or record) else None
             if record:
-                rec.put(g, events, _rows_view(config, trials), trials.uids)
+                rec.put(g, events, view, trials.uids)
+            if meters is not None:
+                meters.fold(events.action, events.loss,
+                            view.reshape(config.size, -1) if health
+                            else None, -1)
+                if lineage:
+                    meters.advance(out[2:])
         final = _unstacked(trials, is_stacked)
-    return (final, rec.result()) if record else final
+        carries = () if meters is None else meters.outputs(
+            final.weights, final.scales, -1)
+    out = (final,) + ((rec.result(),) if record else ()) + carries
+    return out if len(out) > 1 else final
+
+
+def probe_dynamics(topo: Topology, weights: torch.Tensor,
+                   epsilon: float = DEFAULT_EPSILON):
+    """One-shot fixpoint census of a row-major (N, P) population already in
+    hand (``probe_dynamics``, ``soup.py:1174`` of the JAX package), on its
+    device: every particle self-applied once and labelled, no pids, no
+    edges, the transitions from the unknown row."""
+    from .telemetry.dynamics import BASIN_UNKNOWN, fixpoint_stats
+
+    fw = apply_to_weights(topo, weights, weights)
+    prev = torch.full((weights.shape[0],), BASIN_UNKNOWN, dtype=torch.int32,
+                      device=weights.device)
+    return fixpoint_stats(weights, fw, -1, epsilon, prev)[1]
 
 
 def _rows_view(config: SoupConfig, state: SoupState) -> torch.Tensor:

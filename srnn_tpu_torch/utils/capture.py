@@ -28,9 +28,15 @@ the host and an append after every chunk).  Pass ``writer=`` to share a
 caller's writer (the caller then owns flush ordering); otherwise a private
 writer is created and closed -- joined and flushed -- before returning.
 
-``registry=`` (the telemetry registry) is not ported (ROADMAP.md, A.3) and
-raises; the sharded capture (``open_process_shard``,
-``sharded_evolve_captured``) waits for multi-GPU (A.6).
+``registry=`` (a ``telemetry.MetricsRegistry``) meters every generation,
+not a stride sample: the chunk's ``every - 1`` generations ride
+``evolve``'s metrics carry and the captured step's events, already in
+hand, are counted with ``telemetry.count_events``; ``update_registry``
+folds both (per type, ``type=<variant>``, for a mixed soup).  Pipelined,
+the carries are snapshotted like the frames and folded on the writer
+thread, so the loop reads nothing back; blocking, they are folded after
+each chunk.  The sharded capture (``open_process_shard``,
+``sharded_evolve_captured``) waits for multi-GPU (ROADMAP.md, A.6).
 """
 
 from typing import Optional
@@ -44,14 +50,29 @@ from .pipeline import BackgroundWriter, PinnedPool, resolve, snapshot
 from .trajstore import TrajStore
 
 
-def _check(generations: int, every: int, registry) -> None:
+def _check(generations: int, every: int) -> None:
     if every < 1 or generations % every != 0:
         raise ValueError(
             f"generations={generations} not divisible by every={every}")
-    if registry is not None:
-        raise NotImplementedError(
-            "registry=: the metrics registry is not ported to "
-            "srnn_tpu_torch (ROADMAP.md, A.3)")
+
+
+def _update(registry, carries, labels) -> None:
+    """Fold metrics carries (device tensors or host arrays) into the
+    registry, one ``update_registry`` keyword set each."""
+    from ..telemetry.device import SoupMetrics
+    from ..telemetry.soup_metrics import update_registry
+
+    for m, kw in zip(carries, labels):
+        update_registry(registry, SoupMetrics(*m), **kw)
+
+
+def _update_snapshot(registry, snap, labels) -> None:
+    """Writer job: wait for snapshotted metrics carries, fold them, hand
+    the buffers back."""
+    try:
+        _update(registry, resolve(snap), labels)
+    finally:
+        snap.release()
 
 
 def _view(config, weights, scales):
@@ -100,13 +121,18 @@ def _append_snapshot(stores, snap) -> None:
         snap.release()
 
 
-def _run(stores, generations, every, chunk, pipelined, writer) -> None:
+def _run(stores, generations, every, chunk, pipelined, writer,
+         registry) -> None:
     """The capture loop over the stores (one per type) of ``chunk()``
-    frames, each a (time, per-type weights, uids, action, counterpart,
-    loss) tree of tensors."""
+    results: a (time, per-type weights, uids, action, counterpart, loss)
+    frame of tensors, and the chunk's metrics carries with their
+    ``update_registry`` keywords (empty without a ``registry``)."""
     if not pipelined:
         for _ in range(generations // every):
-            _append(stores, *resolve(chunk()))
+            frame, carries, labels = chunk()
+            _append(stores, *resolve(frame))
+            if registry is not None:
+                _update(registry, carries, labels)
         for store in stores:
             store.flush()
         return
@@ -118,7 +144,11 @@ def _run(stores, generations, every, chunk, pipelined, writer) -> None:
     pool = PinnedPool()
     try:
         for _ in range(generations // every):
-            w.submit(_append_snapshot, stores, snapshot(chunk(), pool))
+            frame, carries, labels = chunk()
+            if registry is not None:
+                w.submit(_update_snapshot, registry,
+                         snapshot([tuple(m) for m in carries], pool), labels)
+            w.submit(_append_snapshot, stores, snapshot(frame, pool))
         for store in stores:
             w.submit(store.flush)
     finally:
@@ -144,22 +174,32 @@ def evolve_captured(
     (action / counterpart / loss), so the event log matches the unsampled
     run at the captured points.  ``owned=True`` says the caller hands
     ``state`` over and skips the copy of its tensors that otherwise keeps
-    the run from sharing any with it.  ``pipelined`` / ``writer``: see the
-    module docstring."""
-    _check(generations, every, registry)
+    the run from sharing any with it.  ``registry`` / ``pipelined`` /
+    ``writer``: see the module docstring."""
+    from ..telemetry.device import count_events
+
+    _check(generations, every)
     if not owned:
         state = _own(state)
     carry = [state]
+    kw = {"n_particles": config.size}
 
     def chunk():
         s = carry[0]
+        carries = []
         if every > 1:
-            s = evolve(config, s, every - 1)
+            if registry is not None:
+                s, m = evolve(config, s, every - 1, metrics=True)
+                carries.append(m)
+            else:
+                s = evolve(config, s, every - 1)
         s, events = evolve_step(config, s)
+        if registry is not None:
+            carries.append(count_events(events.action, events.loss))
         carry[0] = s
-        return _frame(config, s, events)
+        return _frame(config, s, events), carries, [kw] * len(carries)
 
-    _run((store,), generations, every, chunk, pipelined, writer)
+    _run((store,), generations, every, chunk, pipelined, writer, registry)
     return carry[0]
 
 
@@ -176,8 +216,12 @@ def evolve_multi_captured(
 ) -> MultiSoupState:
     """Mixed-soup twin of :func:`evolve_captured`: one :class:`TrajStore`
     per TYPE (``stores[t]`` holds type t's (N_t, P_t) frames).  Returns the
-    final state."""
-    _check(generations, every, registry)
+    final state; ``registry`` meters every generation per type
+    (``type=<variant>``, ``telemetry.soup_metrics.type_names``)."""
+    from ..telemetry.device import count_events
+    from ..telemetry.soup_metrics import type_names
+
+    _check(generations, every)
     _check_multi(config)
     if len(stores) != len(config.topos):
         raise ValueError(f"need one store per type "
@@ -185,14 +229,27 @@ def evolve_multi_captured(
     if not owned:
         state = _own(state)
     carry = [state]
+    kws = [{"type_name": name, "n_particles": n}
+           for name, n in zip(type_names(config), config.sizes)]
 
     def chunk():
         s = carry[0]
+        carries, labels = [], []
         if every > 1:
-            s = evolve_multi(config, s, every - 1)
+            if registry is not None:
+                s, ms = evolve_multi(config, s, every - 1, metrics=True)
+                carries += list(ms)
+                labels += kws
+            else:
+                s = evolve_multi(config, s, every - 1)
         s, events = evolve_multi_step(config, s)
+        if registry is not None:
+            carries += [count_events(a, l)
+                        for a, l in zip(events.action, events.loss)]
+            labels += kws
         carry[0] = s
-        return _multi_frame(config, s, events)
+        return _multi_frame(config, s, events), carries, labels
 
-    _run(tuple(stores), generations, every, chunk, pipelined, writer)
+    _run(tuple(stores), generations, every, chunk, pipelined, writer,
+         registry)
     return carry[0]

@@ -26,9 +26,8 @@ work:
     dispatch chunk *k+1*'s device work, *then* run chunk *k*'s host
     finisher (``depth=1``); ``depth=0`` is the blocking order.
   * :class:`OverlapMeter` -- host-side attribution of each chunk's wall
-    time into device-wait and host-I/O seconds.  Its gauges need the
-    telemetry registry, which is not ported (ROADMAP.md, A.3): a
-    ``registry`` raises.
+    time into device-wait and host-I/O seconds, exported as ``pipeline_*``
+    gauges and counters of a ``telemetry.MetricsRegistry`` when given one.
 
 Thread hygiene: :func:`spawn_thread` is the only way this package starts a
 thread -- it registers the thread with the module's join-on-exit registry
@@ -565,18 +564,19 @@ class OverlapMeter:
     ``device_wait_s``, ``host_io_s``, ``device_idle_bound_s`` (``wall -
     device_wait``: an upper bound on device idleness; in the blocking loop
     it IS the host stall) and ``overlap_ratio`` (``device_wait / wall``:
-    1.0 means host I/O fully hidden behind device compute) -- and adds it
-    to the run totals; ``summary()`` returns those.  The JAX package also
-    exports them as ``pipeline_*`` gauges of a ``MetricsRegistry``, which
-    is not ported (ROADMAP.md, A.3): a ``registry`` raises.
+    1.0 means host I/O fully hidden behind device compute) -- adds it to
+    the run totals and, given a ``registry`` (a
+    ``telemetry.MetricsRegistry``), sets the JAX package's gauges of the
+    last chunk (labelled ``stage=``): ``pipeline_chunk_wall_s``,
+    ``pipeline_chunk_device_wait_s``, ``pipeline_chunk_host_io_s``,
+    ``pipeline_chunk_device_idle_bound_s`` and ``pipeline_overlap_ratio``,
+    and advances the ``pipeline_*_seconds_total`` counters.
+    ``summary()`` returns the run totals.
     """
 
     def __init__(self, registry=None, stage: str = "",
                  writer: Optional[BackgroundWriter] = None):
-        if registry is not None:
-            raise NotImplementedError(
-                "OverlapMeter(registry=): the metrics registry is not "
-                "ported to srnn_tpu_torch (ROADMAP.md, A.3)")
+        self.registry = registry
         self.stage = stage
         self.writer = writer
         self._lock = threading.Lock()
@@ -631,6 +631,35 @@ class OverlapMeter:
         self.totals["device_wait_s"] += wait
         self.totals["host_io_s"] += io
         self.totals["chunks"] += 1
+        if self.registry is not None:
+            g = self.registry.gauge
+            labels = {"stage": self.stage} if self.stage else {}
+            g("pipeline_chunk_wall_s",
+              help="last chunk wall seconds", unit="seconds").set(
+                  round(wall, 4), **labels)
+            g("pipeline_chunk_device_wait_s",
+              help="last chunk seconds blocked on device results",
+              unit="seconds").set(round(wait, 4), **labels)
+            g("pipeline_chunk_host_io_s",
+              help="last chunk host-I/O seconds (background + foreground)",
+              unit="seconds").set(round(io, 4), **labels)
+            g("pipeline_chunk_device_idle_bound_s",
+              help="last chunk upper bound on device idle seconds "
+                   "(wall - device wait)", unit="seconds").set(
+                  round(row["device_idle_bound_s"], 4), **labels)
+            g("pipeline_overlap_ratio",
+              help="device-bound fraction of the last chunk "
+                   "(1.0 = host I/O fully hidden)").set(
+                  round(row["overlap_ratio"], 4), **labels)
+            c = self.registry.counter
+            c("pipeline_wall_seconds_total",
+              help="chunk-loop wall seconds", unit="seconds").inc(
+                  wall, **labels)
+            c("pipeline_device_wait_seconds_total",
+              help="seconds blocked on device results",
+              unit="seconds").inc(wait, **labels)
+            c("pipeline_host_io_seconds_total",
+              help="host-I/O seconds", unit="seconds").inc(io, **labels)
         return row
 
     def summary(self) -> dict:

@@ -31,6 +31,8 @@ from srnn_tpu.utils import evolve_captured as j_evolve_captured
 from srnn_tpu.utils import read_store as j_read_store
 from srnn_tpu_torch import experiment
 from srnn_tpu_torch.setups.__main__ import main as setups_main
+from srnn_tpu_torch.soup import ACTION_NAMES
+from srnn_tpu_torch.telemetry import EVENT_COUNTERS, MetricsRegistry
 from srnn_tpu_torch.utils import (TrajStore, evolve_captured,
                                   evolve_multi_captured, read_store)
 from srnn_tpu_torch.utils.pipeline import BackgroundWriter, live_threads
@@ -148,8 +150,22 @@ def test_shared_writer_and_refusals(tmp_path):
                    cfg.topo.num_weights) as store:
         with pytest.raises(ValueError, match="divisible"):
             evolve_captured(cfg, s0, 5, store, every=2)
-        with pytest.raises(NotImplementedError, match="A.3"):
-            evolve_captured(cfg, s0, 2, store, registry=object())
+    # registry= meters every generation, pipelined and blocking alike: the
+    # counters equal the metrics carry of the uncaptured run
+    _, m = st.evolve(cfg, s0, 4, metrics=True)
+    for pipelined in (True, False):
+        reg = MetricsRegistry()
+        with TrajStore(str(tmp_path / f"m{pipelined}.traj"), cfg.size,
+                       cfg.topo.num_weights) as store:
+            evolve_captured(cfg, s0, 4, store, every=2, registry=reg,
+                            pipelined=pipelined)
+        assert reg.counter("soup_generations_total").value() == 4
+        assert reg.counter("soup_particle_generations_total").value() == \
+            4 * cfg.size
+        for code, name in enumerate(ACTION_NAMES):
+            if name in EVENT_COUNTERS:
+                assert reg.counter(EVENT_COUNTERS[name][0]).value() == \
+                    int(m.actions[code]), name
     assert live_threads() == []
 
 

@@ -40,7 +40,13 @@ for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
              "srnn_tpu_torch.setups.learn_from_soup",
              "srnn_tpu_torch.setups.mixed_soup",
              "srnn_tpu_torch.utils.pipeline", "srnn_tpu_torch.utils.trajstore",
-             "srnn_tpu_torch.utils.capture"):
+             "srnn_tpu_torch.utils.capture", "srnn_tpu_torch.telemetry",
+             "srnn_tpu_torch.telemetry.metrics",
+             "srnn_tpu_torch.telemetry.device",
+             "srnn_tpu_torch.telemetry.dynamics",
+             "srnn_tpu_torch.telemetry.soup_metrics",
+             "srnn_tpu_torch.telemetry.flightrec",
+             "srnn_tpu_torch.telemetry.genealogy"):
     assert name in names, name
 """
 

@@ -170,8 +170,26 @@ def test_overlap_meter_folds_writer_busy_seconds_into_host_io():
 
 
 def test_overlap_meter_registry_waits_for_telemetry():
-    with pytest.raises(NotImplementedError, match="A.3"):
-        OverlapMeter(registry=object())
+    """With a registry the meter exports the JAX package's pipeline gauges
+    of the last chunk and the running seconds counters, labelled by
+    stage."""
+    from srnn_tpu_torch.telemetry import MetricsRegistry
+
+    reg = MetricsRegistry()
+    m = OverlapMeter(registry=reg, stage="capture")
+    with m.waiting():
+        time.sleep(0.01)
+    m.chunk_done(0.05)
+    row = m.chunk_done(0.1)
+    g = reg.gauge("pipeline_chunk_wall_s")
+    assert g.value(stage="capture") == 0.1 == round(row["wall_s"], 4)
+    assert reg.gauge("pipeline_overlap_ratio").value(stage="capture") == 0.0
+    assert reg.counter("pipeline_wall_seconds_total").value(
+        stage="capture") == pytest.approx(0.15)
+    assert reg.counter("pipeline_device_wait_seconds_total").value(
+        stage="capture") >= 0.01
+    assert "srnn_pipeline_chunk_device_idle_bound_s{stage=\"capture\"} 0.1" \
+        in reg.to_prometheus()
 
 
 def test_snapshot_is_a_copy_and_resolves_to_numpy():

@@ -253,10 +253,15 @@ def test_rowmajor_refusals_and_default():
         with pytest.raises(ValueError, match=match):
             st.evolve(cfg._replace(**bad), s0, 1)
     assert int(st.evolve(cfg._replace(mode="sequential"), s0, 1).time) == 1
-    with pytest.raises(NotImplementedError, match="A.4"):
-        st.evolve(cfg, s0, 1, metrics=True)
-    # the popmajor layout takes no trial axis
+    # the telemetry carries (tests/test_torch_telemetry.py) take one soup:
+    # a stacked state with a flag raises, a lone one evolves as unmetered
     stacked = psoup.stack([s0, s0])
+    with pytest.raises(ValueError, match="stacked state"):
+        st.evolve(cfg, stacked, 1, metrics=True)
+    metered, m = st.evolve(cfg, s0, 1, metrics=True)
+    assert torch.equal(metered.weights, st.evolve(cfg, s0, 1).weights)
+    assert int(m.generations) == 1 and int(m.actions.sum()) == N
+    # the popmajor layout takes no trial axis
     with pytest.raises(ValueError, match="rowmajor"):
         st.evolve(cfg._replace(layout="popmajor"), stacked, 1)
     # train_impl / apply_impl 'plain' select nothing; their 'kernel'
