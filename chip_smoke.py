@@ -3374,6 +3374,388 @@ def telemetry_path(torch, kernels, totals):
                 torch.stack([sb.l2_max, sb.linf_max]))
     return report
 
+# ------------------------------------------------------------- mega runs
+#: mega_soup as the phase "mega runs" drives it: N = 1M, 20 generations in
+#: two chunks, training and imitation on, the fused route, every plane on
+MEGA_GENERATIONS = 20
+MEGA_SOUP = ["--size", str(N), "--generations", str(MEGA_GENERATIONS),
+             "--checkpoint-every", "10", "--train", "10",
+             "--learn-from-rate", "0.1", "--generation-impl", "fused",
+             "--lineage"]
+#: the steady-rate runs' generations: six chunks of 10
+MEGA_STEADY = 60
+MEGA_MULTI_GENERATIONS = 10
+MEGA_MULTI = ["--size", str(N), "--generations",
+              str(MEGA_MULTI_GENERATIONS), "--generation-impl", "fused"]
+MEGA_FAST_BACKOFF = ["--backoff-base-s", "0.01", "--backoff-max-s", "0.05"]
+MEGA_PIPE_PLANES_OFF = ["--no-spans", "--no-export", "--no-profile",
+                        "--no-health"]
+MEGA_PLANES_OFF = ["--no-pipeline"] + MEGA_PIPE_PLANES_OFF
+
+
+def mega_start(root, tag, name, argv):
+    """Start ``python -m srnn_tpu_torch.setups name argv`` on the card, its
+    output and its launch counts to files under ``root``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k != "SRNN_SETUPS_PLATFORM"}
+    env["SRNN_LAUNCH_COUNTS"] = os.path.join(root, f"{tag}.launches.json")
+    with open(os.path.join(root, f"{tag}.out"), "w") as out, \
+            open(os.path.join(root, f"{tag}.err"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "srnn_tpu_torch.setups", name, *argv],
+            cwd=here, env=env, stdout=out, stderr=err)
+    return tag, proc, time.perf_counter()
+
+
+def mega_wait(root, started, want_rc) -> dict:
+    """Wait for the started CLIs; each must exit with ``want_rc[tag]``.
+    Returns tag -> (stdout, launches, wall seconds of the process)."""
+    out = {}
+    try:
+        for tag, proc, t0 in started:
+            rc = proc.wait(timeout=600)
+            wall = time.perf_counter() - t0
+            with open(os.path.join(root, f"{tag}.out")) as f:
+                text = f.read()
+            with open(os.path.join(root, f"{tag}.err")) as f:
+                err = f.read()
+            if rc != want_rc[tag]:
+                raise AssertionError(f"mega {tag}: rc {rc}, expected "
+                                     f"{want_rc[tag]}\n{text[-3000:]}\n"
+                                     f"{err[-3000:]}")
+            with open(os.path.join(root, f"{tag}.launches.json")) as f:
+                out[tag] = (text, json.load(f), wall)
+    finally:
+        for _, proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def mega_rate(text, skip: int = 0) -> float:
+    """Generations/s of a mega run's chunk loop from its log: the
+    generations of its chunk lines over the sum of their seconds (a line's
+    seconds run from the previous finisher to its own, so one chunk's
+    share can land in the next line's; their sum is the loop's wall),
+    past the first ``skip`` lines of an attempt."""
+    gens, secs, last, seen = 0, 0.0, None, 0
+    for line in text.splitlines():
+        if line.startswith("gen ") and "gens/s" in line:
+            g = int(line.split()[1].split("/")[0])
+            seen += 1
+            if last is not None and seen > skip:
+                gens += g - last
+                secs += (g - last) / float(line.split()[2])
+            last = g
+        elif line.startswith("resumed from") or line.startswith(
+                "mega-soup N=") or line.startswith("mega-multisoup N="):
+            last = int(line.split()[-1]) if line.startswith("resumed") \
+                else 0
+            seen = 0
+    return gens / secs if secs else float("nan")
+
+
+def mega_checkpoint(torch, run_dir, gen):
+    """A mega run's checkpoint ``gen`` as its saved tree."""
+    path = os.path.join(run_dir, f"ckpt-gen{gen:08d}", "state.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def mega_same(torch, what, a, b) -> None:
+    """Two checkpoint trees bitwise: population, uids, counters and the
+    generator's state."""
+    for key in ("weights", "uids", "next_uid", "time", "key_state"):
+        x, y = a[key], b[key]
+        xs, ys = (x, y) if isinstance(x, list) else ([x], [y])
+        if len(xs) != len(ys) or not all(
+                torch.equal(u, v) for u, v in zip(xs, ys)):
+            raise AssertionError(f"{what}: checkpoint {key} differs")
+
+
+def mega_tree(state) -> dict:
+    """A soup's or a mixed soup's state as a checkpoint's tree (on the
+    host)."""
+    def cpu(x):
+        return [t.cpu() for t in x] if isinstance(x, (list, tuple)) \
+            else x.cpu()
+
+    return {"weights": cpu(state.weights), "uids": cpu(state.uids),
+            "next_uid": state.next_uid.cpu(), "time": state.time.cpu(),
+            "key_state": state.key.get_state()}
+
+
+def mega_pipeline(run_dir) -> dict:
+    """A mega run's pipeline attribution (its ``kind: pipeline`` event:
+    chunks, wall, device wait and host I/O seconds, the writer's busy
+    seconds in the last)."""
+    with open(os.path.join(run_dir, "events.jsonl")) as f:
+        rows = [json.loads(line) for line in f if '"pipeline"' in line]
+    return [r for r in rows if r.get("kind") == "pipeline"][-1]
+
+
+def mega_checkpoint_ms(torch, root, state) -> dict:
+    """ms of one N = 1M checkpoint write, three times each: pipelined
+    (``CheckpointSnapshot`` taken, then saved: the writer's job) and
+    blocking (``save_checkpoint``)."""
+    from srnn_tpu_torch.experiment import CheckpointSnapshot, save_checkpoint
+
+    out = {"snapshot+save": [], "save_checkpoint": []}
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointSnapshot(state).save(os.path.join(root, f"snap{i}"))
+        out["snapshot+save"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(root, f"blocking{i}"), state)
+        out["save_checkpoint"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def mega_sane(torch, what, tree, n) -> None:
+    """A final checkpoint holds n finite particles with unique uids."""
+    ws = tree["weights"] if isinstance(tree["weights"], list) \
+        else [tree["weights"]]
+    uids = torch.cat(tree["uids"] if isinstance(tree["uids"], list)
+                     else [tree["uids"]])
+    if sum(w.shape[0] for w in ws) != n or not all(
+            bool(torch.isfinite(w).all()) for w in ws):
+        raise AssertionError(f"{what}: not {n} finite particles")
+    if int(torch.unique(uids).numel()) != n:
+        raise AssertionError(f"{what}: uids are not unique")
+
+
+def mega_bare(torch):
+    """mega_soup's config (``mega_soup._make_config`` of ``MEGA_SOUP``) and
+    a ``run(generations)`` of a bare ``soup.evolve`` with the same carries
+    from its seed, no run plumbing."""
+    from srnn_tpu_torch import soup as sp
+    from srnn_tpu_torch.setups.mega_soup import _make_config, build_parser
+    from srnn_tpu_torch.telemetry.dynamics import seed_lineage
+
+    cfg = _make_config(build_parser().parse_args(MEGA_SOUP))
+    state = sp.seed(cfg, 0, "cuda")
+
+    def run(generations, state=state):
+        return sp.evolve(cfg, state, generations, metrics=True, health=True,
+                         lineage=True, lineage_state=seed_lineage(
+                             cfg.size, device="cuda"))
+
+    return cfg, state, run
+
+
+def mega_multi_bare(torch):
+    """mega_multisoup's final state as a bare ``evolve_multi`` of
+    ``MEGA_MULTI``'s config from its seed, with the run's carries."""
+    from srnn_tpu_torch import multisoup as ms
+    from srnn_tpu_torch.setups.mega_multisoup import (_make_config,
+                                                      build_parser)
+
+    cfg = _make_config(build_parser().parse_args(MEGA_MULTI))
+    return ms.evolve_multi(cfg, ms.seed_multi(cfg, 0, "cuda"),
+                           MEGA_MULTI_GENERATIONS, metrics=True,
+                           health=True)[0]
+
+
+def mega_bare_loop(torch) -> float:
+    """To inform: mega_soup's two chunks as a bare ``soup.evolve`` loop of
+    the same config and carries, the count read after each: ms a
+    generation after a warm-up generation."""
+    from srnn_tpu_torch import soup as sp
+
+    cfg, state, run = mega_bare(torch)
+    state = run(1)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MEGA_GENERATIONS // 10):
+        state = run(10, state)[0]
+        sp.count(cfg, state).cpu()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / MEGA_GENERATIONS
+
+
+def mega_syncs(torch, root) -> dict:
+    """Host synchronisations a generation (``syncs_per_generation``): of
+    the mega loop itself -- an in-process mega_soup of one chunk of 1
+    generation against one of 3, every plane on -- and of the bare evolve
+    of the same config and carries."""
+    from srnn_tpu_torch.setups import REGISTRY
+
+    def loop(generations):
+        argv = list(MEGA_SOUP)
+        argv[argv.index("--generations") + 1] = str(generations)
+        argv[argv.index("--checkpoint-every") + 1] = "100"
+        REGISTRY["mega_soup"](argv + ["--root", os.path.join(
+            root, f"syncs{generations}")])
+
+    return {"loop": syncs_per_generation(torch, loop),
+            "bare": syncs_per_generation(torch, mega_bare(torch)[2])}
+
+
+def mega_path(torch, kernels, totals):
+    """Phase "mega runs": the CLIs as subprocesses on the card.
+
+    mega_soup at N = 1M, 20 generations, a checkpoint every 10, every
+    plane on and --lineage: exit 0 with K3 launched exactly once a
+    generation (20).  The same with --chaos sigterm@0 (the flag is seen
+    at the gen-10 boundary: exit 75), then --resume (exit 0); with
+    --chaos device_loss@10 (exit 3: the gen-10 checkpoint is still in the
+    pipeline, so the attempt restarts from scratch); both final
+    checkpoints bitwise equal to the uninterrupted run's, and it equal to
+    a bare ``soup.evolve`` of its config from its seed.  mega_multisoup
+    at N = 1M, 10 generations, fused: exit 0, K3 once a type a
+    generation, K6 once a victim type a generation, its checkpoint equal
+    to a bare ``evolve_multi``'s.  To inform: generations/s of each log,
+    the run with every plane off, the steady rate of 60 generations with
+    the planes on, off but pipelined, and off and blocking, with their
+    pipeline attribution, the time of one checkpoint write, a bare evolve
+    loop, and the host synchronisations a generation of the loop (no more
+    than the bare evolve's)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="srnn_mega_")
+    try:
+        runs = os.path.join(root, "runs")
+        reset(kernels)
+        # the drills and the mixed soup, three processes at once
+        got = mega_wait(root, [
+            mega_start(root, "sigterm", "mega_soup",
+                       MEGA_SOUP + ["--chaos", "sigterm@0", "--root",
+                                    os.path.join(runs, "sigterm")]),
+            mega_start(root, "device_loss", "mega_soup",
+                       MEGA_SOUP + ["--chaos", "device_loss@10", "--root",
+                                    os.path.join(runs, "loss")]
+                       + MEGA_FAST_BACKOFF),
+            mega_start(root, "multisoup", "mega_multisoup",
+                       MEGA_MULTI + ["--root", os.path.join(runs, "multi")]),
+        ], {"sigterm": 75, "device_loss": 3, "multisoup": 0})
+        (d_term,) = [os.path.join(runs, "sigterm", d)
+                     for d in os.listdir(os.path.join(runs, "sigterm"))]
+        got.update(mega_wait(root, [mega_start(
+            root, "resumed", "mega_soup", MEGA_SOUP + ["--resume", d_term])],
+            {"resumed": 0}))
+        # alone on the card: the run every other is held against, then the
+        # same with every plane off
+        port = _free_port()
+        got.update(mega_wait(root, [mega_start(
+            root, "uninterrupted", "mega_soup",
+            MEGA_SOUP + ["--metrics-port", str(port), "--root",
+                         os.path.join(runs, "full")])],
+            {"uninterrupted": 0}))
+        got.update(mega_wait(root, [mega_start(
+            root, "planes_off", "mega_soup",
+            MEGA_SOUP + MEGA_PLANES_OFF + ["--root",
+                                           os.path.join(runs, "off")])],
+            {"planes_off": 0}))
+        # to inform: the loop's steady rate, six chunks with every plane
+        # on and off, the first two chunks' lines left out
+        steady = ["--generations", str(MEGA_STEADY)]
+        got.update(mega_wait(root, [mega_start(
+            root, "steady_on", "mega_soup",
+            MEGA_SOUP + steady + ["--root", os.path.join(runs, "son")])],
+            {"steady_on": 0}))
+        got.update(mega_wait(root, [mega_start(
+            root, "steady_pipe_off", "mega_soup",
+            MEGA_SOUP + MEGA_PIPE_PLANES_OFF + steady
+            + ["--root", os.path.join(runs, "spipe")])],
+            {"steady_pipe_off": 0}))
+        got.update(mega_wait(root, [mega_start(
+            root, "steady_off", "mega_soup",
+            MEGA_SOUP + MEGA_PLANES_OFF + steady
+            + ["--root", os.path.join(runs, "soff")])], {"steady_off": 0}))
+        k3 = {"generation": MEGA_GENERATIONS}
+        for tag, expect in (
+                ("uninterrupted", k3), ("planes_off", k3),
+                ("steady_on", {"generation": MEGA_STEADY}),
+                ("steady_pipe_off", {"generation": MEGA_STEADY}),
+                ("steady_off", {"generation": MEGA_STEADY}),
+                # 10 generations before the preemption, 10 after
+                ("sigterm", {"generation": 10}),
+                ("resumed", {"generation": 10}),
+                # 10 before the fault, then 20 from scratch
+                ("device_loss", {"generation": 10 + MEGA_GENERATIONS}),
+                ("multisoup", {
+                    name: MEGA_MULTI_GENERATIONS for name in (
+                        "generation", "generation_kvec", "generation_rnn",
+                        "rnn_apply_t14", "rnn_apply_t20", "rnn_apply")})):
+            counts = check_launches(kernels, f"mega {tag}", expect,
+                                    got[tag][1])
+            if tag in ("uninterrupted", "multisoup"):
+                for name, n in counts.items():
+                    totals[name] += n
+        run_dir = {tag: got[tag][0].strip().splitlines()[-1]
+                   for tag in got}
+        want = mega_checkpoint(torch, run_dir["uninterrupted"],
+                               MEGA_GENERATIONS)
+        mega_sane(torch, "mega uninterrupted", want, N)
+        for tag in ("resumed", "device_loss", "planes_off"):
+            mega_same(torch, f"mega {tag}", mega_checkpoint(
+                torch, run_dir[tag], MEGA_GENERATIONS), want)
+        if run_dir["resumed"] != d_term:
+            raise AssertionError("mega resumed: another run directory")
+        multi = mega_checkpoint(torch, run_dir["multisoup"],
+                                MEGA_MULTI_GENERATIONS)
+        mega_sane(torch, "mega multisoup", multi, N)
+        # the reference: a bare evolve of the run's config from its seed
+        _, state0, run = mega_bare(torch)
+        mega_same(torch, "mega uninterrupted against the bare evolve",
+                  want, mega_tree(run(MEGA_GENERATIONS)[0]))
+        mega_same(torch, "mega multisoup against the bare evolve_multi",
+                  multi, mega_tree(mega_multi_bare(torch)))
+        with open(os.path.join(run_dir["uninterrupted"], "log.txt")) as f:
+            text = f.read()
+        for needle in ("done:", f"live on http://127.0.0.1:{port}",
+                       "lineage: epoch 0"):
+            if needle not in text:
+                raise AssertionError(f"mega uninterrupted: log lacks "
+                                     f"{needle!r}")
+        log("  mega bitwise: the SIGTERM-resumed, device-loss-recovered "
+            "and planes-off runs' final checkpoints equal the "
+            "uninterrupted run's, and it a bare soup.evolve of its config "
+            "from its seed; the mixed run's a bare evolve_multi's "
+            "(weights, uids, next_uid, time, generator state)")
+        for tag, (text, _, wall) in got.items():
+            skip = 2 if tag.startswith("steady") else 0
+            log(f"  mega {tag}: {wall:.1f} s of process, "
+                f"{mega_rate(text, skip):.3f} generations/s in its chunk "
+                "loop" + (" past its first two chunks" if skip else "")
+                + (" (three processes at once)" if tag in
+                   ("sigterm", "device_loss", "multisoup") else ""))
+        for tag in ("steady_on", "steady_pipe_off", "steady_off"):
+            pipe = mega_pipeline(run_dir[tag])
+            log(f"  mega {tag} pipeline: {pipe['chunks']} chunks, wall "
+                f"{pipe['wall_s']} s, device wait {pipe['device_wait_s']} "
+                f"s, host I/O {pipe['host_io_s']} s (pipelined: the "
+                f"writer's busy seconds), pipelined "
+                f"{pipe.get('pipelined')}")
+        ckpt_ms = mega_checkpoint_ms(torch, root, state0)
+        for what, ms in ckpt_ms.items():
+            log(f"  mega checkpoint of N = {N}, {what}: "
+                + " / ".join(f"{t:.3f}" for t in ms) + " ms (warm page "
+                "cache)")
+        log(f"  mega bare soup.evolve loop, same config and carries: "
+            f"{mega_bare_loop(torch):.3f} ms/generation")
+        syncs = mega_syncs(torch, os.path.join(root, "syncs"))
+        for what, (per_gen, per_call, where) in syncs.items():
+            log(f"  mega {what} host synchronisations: {per_gen:g} a "
+                f"generation, {per_call:g} a call (of 1 generation: "
+                f"{where})")
+        if syncs["loop"][0] > syncs["bare"][0]:
+            raise AssertionError("mega loop: the run plumbing synchronises "
+                                 "the host every generation")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
 
 def main() -> int:
     try:
@@ -3448,6 +3830,7 @@ def main() -> int:
     phase("compact phases", compact_path, torch, kernels, launches)
     phase("trajectory capture", capture_path, torch, kernels, launches)
     phase("device telemetry", telemetry_path, torch, kernels, launches)
+    phase("mega runs", mega_path, torch, kernels, launches)
     phase("fixpoint engines and setups", engines_and_setups, torch, kernels,
           launches)
     phase("small soups vs cpu", small_soup_vs_cpu, torch, kernels)

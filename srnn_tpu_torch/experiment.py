@@ -268,13 +268,16 @@ class Experiment:
         if event_fields:
             self.event(message=str(message), **event_fields)
 
-    def event(self, **fields):
+    def event(self, _fsync: bool = False, **fields):
         """Append one structured record to ``events.jsonl``; every write is
-        flushed so a killed run keeps its structured tail."""
+        flushed so a killed run keeps its structured tail, and
+        ``_fsync=True`` (heartbeats) also forces it past the OS cache."""
         fields.setdefault("t", time.time() - self._t0)
         with self._events_lock:
             self._events.write(json.dumps(_jsonify(fields), default=str) + "\n")
             self._events.flush()
+            if _fsync:
+                os.fsync(self._events.fileno())
 
     def save_log(self, log_name: str = "log"):
         with open(os.path.join(self.dir, f"{log_name}.txt"), "w") as f:
@@ -421,6 +424,45 @@ def save_multi_checkpoint(path: str, state: MultiSoupState) -> str:
         [u.cpu() for u in state.uids],
         None if state.scales is None else [s.cpu() for s in state.scales]),
         state.time)
+
+
+class CheckpointSnapshot:
+    """A checkpoint of a soup or a mixed soup taken now and written later
+    (the mega runs' pipelined checkpoints).  The state's tensors start
+    their copy to the host at once (``utils.pipeline.snapshot``: on a side
+    stream, ordered after the work that produced them) and the generator's
+    state is read at once; :meth:`save` waits for the copies and writes
+    what :func:`save_checkpoint` / :func:`save_multi_checkpoint` would
+    have written of the state, so it restores bitwise the same."""
+
+    def __init__(self, state):
+        from .utils.pipeline import snapshot
+
+        multi = isinstance(state, MultiSoupState)
+        self.kind = "multisoup" if multi else "soup"
+        self.device = (state.weights[0] if multi else state.weights).device
+        if isinstance(state.key, tuple):
+            raise ValueError("a checkpoint takes one soup, not a stacked "
+                             "state")
+        self._key = (str(state.key.device), state.key.get_state())
+        self._snap = snapshot((state.weights, state.uids, state.next_uid,
+                               state.time, state.scales))
+
+    def save(self, path: str) -> str:
+        """Write the checkpoint directory ``path`` (its copies waited
+        for); may be called more than once."""
+        self._snap.wait()
+        weights, uids, next_uid, time_, scales = self._snap.tree
+        if self.kind == "multisoup":
+            weights, uids = list(weights), list(uids)
+            scales = None if scales is None else list(scales)
+        tree = {"kind": self.kind, "weights": weights, "uids": uids,
+                "next_uid": next_uid, "time": time_,
+                "device": str(self.device), "key_device": self._key[0],
+                "key_state": self._key[1]}
+        if scales is not None:
+            tree["scales"] = scales
+        return _write_checkpoint(path, tree, time_)
 
 
 def restore_multi_checkpoint(path: str) -> MultiSoupState:

@@ -3,7 +3,10 @@
 Runs on the card; ``SRNN_SETUPS_PLATFORM=cpu`` runs on the CPU instead, and
 without either it exits 1 with a message (no fallback).  Where
 ``SRNN_LAUNCH_COUNTS`` names a file, the run's kernel launch counts are
-written there as one JSON object ({kernel name: launches}).
+written there as one JSON object ({kernel name: launches}), also when the
+run exits with a code.  The supervised mega runs speak the supervisor's
+exit codes (``resilience.supervisor``): 0 clean, 3 recovered; 75
+preempted-clean and 69 retries-exhausted leave through ``SystemExit``.
 """
 
 import json
@@ -11,6 +14,7 @@ import os
 import sys
 
 from ..ops.cuda_sgd_common import KERNELS
+from ..resilience import supervisor
 from . import REGISTRY
 from .common import NoDeviceError, device
 
@@ -27,14 +31,16 @@ def main(argv=None):
     except NoDeviceError as e:
         print(f"srnn_tpu_torch.setups {argv[0]}: {e}", file=sys.stderr)
         return 1
-    out = REGISTRY[argv[0]](argv[1:])
+    try:
+        out = REGISTRY[argv[0]](argv[1:])
+    finally:
+        path = os.environ.get("SRNN_LAUNCH_COUNTS")
+        if path:
+            with open(path, "w") as f:
+                json.dump({k.name: k.launches for k in KERNELS}, f)
     if isinstance(out, str):
         print(out)  # the run directory, scriptable like the run() API
-    path = os.environ.get("SRNN_LAUNCH_COUNTS")
-    if path:
-        with open(path, "w") as f:
-            json.dump({k.name: k.launches for k in KERNELS}, f)
-    return 0
+    return supervisor.exit_code_for_report(getattr(out, "report", None))
 
 
 if __name__ == "__main__":

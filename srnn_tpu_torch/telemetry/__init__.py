@@ -15,9 +15,14 @@ soup_metrics, flightrec and genealogy modules).
     (``flightrec``), and the ``lineage.jsonl`` stream with its offline
     genealogy (``dynamics.LineageWriter``, ``genealogy``).
 
-Spans, heartbeats, the exporter, alerts and the other host-only modules of
-the JAX package wait for ROADMAP.md A.4 / A.7; the sharded reductions for
-A.6.
+  * **Run plumbing** of the mega runs, host-only: heartbeat rows
+    (``heartbeat``), structured spans (``tracing``), the metric history
+    and alert rules (``timeseries``, ``alerts``), the HTTP exporter and
+    live plane (``exporter``), the host sampling profiler and anomaly
+    capture (``profiler``).
+
+The experiment service's rules and the other serve-tier modules wait for
+ROADMAP.md A.7; the sharded reductions and the fleet readers for A.6.
 """
 
 from .device import (N_ACTIONS, N_HEALTH_BUCKETS, HealthStats, SoupMetrics,
@@ -30,6 +35,14 @@ from .soup_metrics import (EVENT_COUNTERS, update_class_gauges,
 from .flightrec import (FlightRecorder, StallSentinel, Watchdog,
                         combined_health_summary, health_summary,
                         update_health_gauges, write_triage_bundle)
+from .heartbeat import Heartbeat, device_memory_stats, rss_bytes
+from .tracing import Span, SpanStream, annotate, span
+from .timeseries import MetricHistory, sparkline, summarize_history
+from .alerts import AlertEngine, Rule, default_run_rules
+from .exporter import LivePlane, MetricsExporter, healthz_metrics
+from .profiler import (AnomalyCapture, SamplingProfiler, capture_index,
+                       update_utilization_gauges, utilization_from_pipeline)
+from .flightrec import record_recovery
 from .dynamics import (BASIN_NAMES, EDGE_NAMES, FixpointStats, LineageState,
                        LineageWindow, LineageWriter, seed_lineage,
                        seed_lineage_blocks, update_dynamics_registry,
@@ -49,4 +62,12 @@ __all__ = [
     "BASIN_NAMES", "EDGE_NAMES", "FixpointStats", "LineageState",
     "LineageWindow", "LineageWriter", "seed_lineage", "seed_lineage_blocks",
     "update_dynamics_registry", "window_record",
+    "Heartbeat", "device_memory_stats", "rss_bytes",
+    "Span", "SpanStream", "annotate", "span",
+    "MetricHistory", "sparkline", "summarize_history",
+    "AlertEngine", "Rule", "default_run_rules",
+    "LivePlane", "MetricsExporter", "healthz_metrics",
+    "AnomalyCapture", "SamplingProfiler", "capture_index",
+    "update_utilization_gauges", "utilization_from_pipeline",
+    "record_recovery",
 ]

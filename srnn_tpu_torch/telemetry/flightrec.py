@@ -19,7 +19,8 @@ and triage bundles; port of ``srnn_tpu/telemetry/flightrec.py``.
 With the watchdog off nothing here runs; on, a chunk costs a dict append
 and a few float comparisons.  The device half is
 :mod:`srnn_tpu_torch.telemetry.device` (the ``health=True`` carry).
-``record_recovery`` waits for the resilience tier (ROADMAP.md, A.4 / A.7).
+:func:`record_recovery` folds a supervised run's restarts
+(``resilience.supervisor``) into the registry and the ring.
 """
 
 from __future__ import annotations
@@ -141,6 +142,37 @@ def update_health_gauges(registry, summary: Dict[str, Any],
         if isinstance(v, (int, float)) and math.isfinite(v):
             g(name, help="population weight-norm extremum "
               "(max-|w| per particle) over the flush window").set(v, **labels)
+
+
+def record_recovery(registry, recorder: "FlightRecorder", ctx) -> None:
+    """Fold a supervised attempt's recovery history into the run's
+    telemetry: the restart counter and the per-recovery seconds histogram
+    on ``registry``, and one ``kind="restart"`` row in the flight-recorder
+    ring, so that a later triage bundle shows when the run was patched
+    back together.
+
+    ``ctx`` is the supervisor's ``AttemptContext`` (``restarts``,
+    ``attempt``, ``recoveries``).  Each attempt builds
+    a fresh registry, so folding the cumulative history keeps the exported
+    counters monotone across restarts.  No-op on the first attempt and for
+    unsupervised runs.  (The re-ramp and host-loss counters of the JAX
+    package's sharded runs wait for multi-GPU runs, ROADMAP.md A.6: a
+    recovery here never re-ramps.)"""
+    if ctx is None or not getattr(ctx, "restarts", 0):
+        return
+    registry.counter("soup_restarts_total",
+                     help="supervised in-process restarts").inc(ctx.restarts)
+    hist = registry.histogram("soup_recovery_seconds",
+                              help="seconds from fault to restarted "
+                                   "attempt (incl. backoff)",
+                              unit="seconds")
+    for r in ctx.recoveries:
+        # "seconds" spans the catch to the restart and holds the backoff
+        hist.observe(float(r.get("seconds", 0.0)))
+    if recorder is not None:
+        recorder.record({"kind": "restart", "attempt": ctx.attempt,
+                         "restarts": ctx.restarts,
+                         "recoveries": list(ctx.recoveries)})
 
 
 # ---------------------------------------------------------------------------

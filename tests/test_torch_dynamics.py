@@ -67,6 +67,7 @@ from srnn_tpu_torch.ops.popmajor import apply_popmajor
 from srnn_tpu_torch.telemetry import dynamics as dyn
 from srnn_tpu_torch.telemetry import genealogy
 from srnn_tpu_torch.telemetry.metrics import MetricsRegistry
+from torch_lazy import Lazy
 
 G = 5
 CAP = 512
@@ -156,28 +157,33 @@ def _jax_state(jcfg, seed: int):
                            jax.numpy.int32(0), jax.random.key(seed))
 
 
+#: the JAX runs: name -> (config, seed)
+RUNS = {"soup": (SOUP, 3), "rowmajor": (ROWMAJOR, 4), "mixed": (MIXED, 5)}
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
     """Per soup: (config, initial state, its draws, the JAX package's
-    ``evolve`` with all three flags)."""
-    out = {}
-    for name, cfg, seed in (("soup", SOUP, 3), ("rowmajor", ROWMAJOR, 4)):
+    ``evolve`` with all three flags), made at the first read."""
+    def run(name):
+        cfg, seed = RUNS[name]
         s0 = _jax_state(cfg, seed)
+        if name == "mixed":
+            lins0 = jdyn.seed_lineage_blocks(MIXED.sizes)
+            res = jms.evolve_multi(MIXED, s0, generations=G, metrics=True,
+                                   health=True, lineage=True,
+                                   lineage_state=lins0,
+                                   lineage_capacity=CAP)
+            return (MIXED, s0, lins0,
+                    _draw_list(_jax_multi_draws, MIXED, s0.key), _host(res))
         lin0 = jdyn.seed_lineage(cfg.size)
         res = jsoup.evolve(cfg, s0, generations=G, metrics=True,
                            health=True, lineage=True, lineage_state=lin0,
                            lineage_capacity=CAP)
-        out[name] = (cfg, s0, lin0, _draw_list(_jax_draws, cfg, s0.key),
-                     _host(res))
-    s0 = _jax_state(MIXED, 5)
-    lins0 = jdyn.seed_lineage_blocks(MIXED.sizes)
-    res = jms.evolve_multi(MIXED, s0, generations=G, metrics=True,
-                           health=True, lineage=True, lineage_state=lins0,
-                           lineage_capacity=CAP)
-    out["mixed"] = (MIXED, s0, lins0,
-                    _draw_list(_jax_multi_draws, MIXED, s0.key),
-                    _host(res))
-    return out
+        return (cfg, s0, lin0, _draw_list(_jax_draws, cfg, s0.key),
+                _host(res))
+
+    return Lazy(run)
 
 
 def _tensors(x):
@@ -549,14 +555,13 @@ def test_sidecar_and_genealogy_across_packages(tmp_path):
         assert a.pid.dtype == torch.int32 and a.next_pid.shape == ()
 
 
-def test_refusals_with_jax_wording(jax_runs):
+def test_refusals_with_jax_wording():
     """Lineage in the sequential mode, and lineage without a carry, raise
     the JAX package's errors (both raise before anything compiles)."""
     # a config the sequential mode takes: the port checks it before the
     # flags
-    jcfg = jax_runs["soup"][0]._replace(layout="rowmajor",
-                                        respawn_draws="perparticle")
-    js0 = jax_runs["soup"][1]
+    jcfg = SOUP._replace(layout="rowmajor", respawn_draws="perparticle")
+    js0 = _jax_state(SOUP, 3)
     cfg = _port_config(jcfg)
     s0 = st.seed(cfg, 0, device="cpu")
     for mode, lin, jlin in (
@@ -570,7 +575,7 @@ def test_refusals_with_jax_wording(jax_runs):
             jsoup.evolve(jcfg._replace(mode=mode), js0, generations=1,
                          lineage=True, lineage_state=jlin)
         assert str(ours.value) == str(theirs.value)
-    jmcfg, jm0 = jax_runs["mixed"][:2]
+    jmcfg, jm0 = MIXED, _jax_state(MIXED, 5)
     mcfg = _port_multi_config(jmcfg)
     with pytest.raises(ValueError) as ours:
         ms.evolve_multi(mcfg, ms.seed_multi(mcfg, 0, device="cpu"), 1,

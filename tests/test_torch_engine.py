@@ -38,6 +38,7 @@ import srnn_tpu_torch as st
 from srnn_tpu_torch import engine, fixtures, netops, train
 from srnn_tpu_torch.ops.predicates import is_fixpoint
 from srnn_tpu_torch.nets.dispatch import apply_to_weights
+from torch_lazy import Lazy
 
 W_TOL = dict(rtol=1e-5, atol=1e-6)
 L_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -165,13 +166,14 @@ def _port_train(topo, name, w, o, x, y):
 
 @pytest.fixture(scope="module")
 def train_runs():
-    out = {}
-    for variant, topo in VARIANTS.items():
+    def run(variant):
+        topo = VARIANTS[variant]
         w, o = _pop(topo, N, 1, 0.5), _pop(topo, N, 2, 0.5)
         x, y = jax.vmap(lambda a: j_samples(_jt(topo), a))(jnp.asarray(o))
         x, y = np.asarray(x), np.asarray(y)
-        out[variant] = ((w, o, x, y), _jax_train(topo, w, o, x, y))
-    return out
+        return (w, o, x, y), _jax_train(topo, w, o, x, y)
+
+    return Lazy(run)
 
 
 TRAIN_FNS = ["predict", "fit_epoch", "fit_epoch_full", "fit_epochs_flat",
@@ -337,33 +339,35 @@ def _variation_pop(topo):
 
 @pytest.fixture(scope="module")
 def engine_runs():
-    out = {}
-    for variant, topo in VARIANTS.items():
+    """Per variant, per engine: (population, the JAX engine's result), each
+    made at its first read."""
+    def engine(variant, name):
+        topo = VARIANTS[variant]
         jt = _jt(topo)
-        pop = _engine_pop(topo)
-        var_pop = _variation_pop(topo)
+        pop = _variation_pop(topo) if name == "variation" \
+            else _engine_pop(topo)
         jp = jnp.asarray(pop)
-        runs = {
-            "fixpoint": (pop, jengine.run_fixpoint(jt, jp, step_limit=20,
-                                                   record=True)),
-            "training": (pop, jengine.run_training(jt, jp, epochs=10,
-                                                   record=True)),
-            "mixed": (pop, jengine.run_mixed_fixpoint(
-                jt, jp, trains_per_application=5, step_limit=4)),
-            "variation": (var_pop, jengine.run_known_fixpoint_variation(
-                jt, jnp.asarray(var_pop), max_steps=20)),
-            "density": (pop, jengine.fixpoint_density(jt, jp)),
-        }
-        if variant == "weightwise":
-            runs["training_full"] = (pop, jengine.run_training(
-                jt, jp, epochs=5, train_mode="full_batch"))
-            runs["mixed_full"] = (pop, jengine.run_mixed_fixpoint(
+        run = {
+            "fixpoint": lambda: jengine.run_fixpoint(jt, jp, step_limit=20,
+                                                     record=True),
+            "training": lambda: jengine.run_training(jt, jp, epochs=10,
+                                                     record=True),
+            "mixed": lambda: jengine.run_mixed_fixpoint(
+                jt, jp, trains_per_application=5, step_limit=4),
+            "variation": lambda: jengine.run_known_fixpoint_variation(
+                jt, jp, max_steps=20),
+            "density": lambda: jengine.fixpoint_density(jt, jp),
+            "training_full": lambda: jengine.run_training(
+                jt, jp, epochs=5, train_mode="full_batch"),
+            "mixed_full": lambda: jengine.run_mixed_fixpoint(
                 jt, jp, trains_per_application=3, step_limit=3,
-                train_mode="full_batch", record=True))
-        out[variant] = {k: (p, jax.tree.map(
-            lambda a: None if a is None else np.asarray(a), r))
-            for k, (p, r) in runs.items()}
-    return out
+                train_mode="full_batch", record=True),
+        }[name]()
+        return pop, jax.tree.map(
+            lambda a: None if a is None else np.asarray(a), run)
+
+    return Lazy(lambda variant: Lazy(
+        lambda name: engine(variant, name)))
 
 
 def _port_engine(topo, name, pop):
@@ -422,7 +426,7 @@ def test_engine_populations_exercise_the_classes(engine_runs):
     """The test populations reach every class the engines decide between,
     and the variation sweep counts steps as a fixpoint."""
     seen = set()
-    for runs in engine_runs.values():
+    for runs in (engine_runs[variant] for variant in VARIANTS):
         seen |= set(np.flatnonzero(runs["fixpoint"][1].counts))
         seen |= set(np.flatnonzero(runs["density"][1]))
     assert {0, 1, 2, 4} <= seen

@@ -46,7 +46,18 @@ for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
              "srnn_tpu_torch.telemetry.dynamics",
              "srnn_tpu_torch.telemetry.soup_metrics",
              "srnn_tpu_torch.telemetry.flightrec",
-             "srnn_tpu_torch.telemetry.genealogy"):
+             "srnn_tpu_torch.telemetry.genealogy",
+             "srnn_tpu_torch.telemetry.heartbeat",
+             "srnn_tpu_torch.telemetry.tracing",
+             "srnn_tpu_torch.telemetry.timeseries",
+             "srnn_tpu_torch.telemetry.alerts",
+             "srnn_tpu_torch.telemetry.exporter",
+             "srnn_tpu_torch.telemetry.profiler",
+             "srnn_tpu_torch.resilience",
+             "srnn_tpu_torch.resilience.supervisor",
+             "srnn_tpu_torch.resilience.chaos",
+             "srnn_tpu_torch.setups.mega_soup",
+             "srnn_tpu_torch.setups.mega_multisoup"):
     assert name in names, name
 """
 

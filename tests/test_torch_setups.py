@@ -79,7 +79,8 @@ def _run(name, root, flags=()):
 
 def test_registry():
     assert sorted(REGISTRY) == sorted(
-        NAMES + ["learn_from_soup", "mixed_soup", "soup_trajectorys"])
+        NAMES + ["learn_from_soup", "mixed_soup", "soup_trajectorys",
+                 "mega_soup", "mega_multisoup"])
 
 
 @pytest.mark.parametrize("name", NAMES)

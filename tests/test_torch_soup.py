@@ -27,6 +27,7 @@ from srnn_tpu import soup as jsoup
 from srnn_tpu.init import fresh_lanes as j_fresh_lanes
 import srnn_tpu_torch as st
 from srnn_tpu_torch import convert
+from torch_lazy import Lazy
 
 GENERATIONS = 3
 JCFG = jsoup.SoupConfig(
@@ -62,9 +63,8 @@ def _port_state(js):
 @pytest.fixture(scope="module")
 def jax_run():
     """Three JAX generations per spelling: [(state_before, state_after,
-    events)] per generation."""
-    runs = {}
-    for impl in ("phases", "fused"):
+    events)] per generation, made at the first read."""
+    def run(impl):
         cfg = JCFG._replace(generation_impl=impl)
         s = jsoup.seed(cfg, jax.random.key(3))
         steps = []
@@ -72,8 +72,9 @@ def jax_run():
             s2, ev = jsoup.evolve_step(cfg, s)
             steps.append((s, s2, ev))
             s = s2
-        runs[impl] = (cfg, steps)
-    return runs
+        return cfg, steps
+
+    return Lazy(run)
 
 
 #: the other variants' soups, each with JCFG's dynamics.  The recurrent
@@ -93,11 +94,10 @@ VARIANT_TOPOS = {
 
 @pytest.fixture(scope="module")
 def jax_variant_runs():
-    """Three JAX phase-chain generations per variant; the recurrent one
-    through its Pallas SGD kernel."""
-    runs = {}
-    for name, topo in VARIANT_TOPOS.items():
-        cfg = JCFG._replace(topo=topo)
+    """Three JAX phase-chain generations per variant, made at the first
+    read; the recurrent one through its Pallas SGD kernel."""
+    def run(name):
+        cfg = JCFG._replace(topo=VARIANT_TOPOS[name])
         if name == "recurrent":
             cfg = cfg._replace(train_impl="pallas")
         s = jsoup.seed(cfg, jax.random.key(4))
@@ -106,8 +106,9 @@ def jax_variant_runs():
             s2, ev = jsoup.evolve_step(cfg, s)
             steps.append((s, s2, ev))
             s = s2
-        runs[name] = (cfg, steps)
-    return runs
+        return cfg, steps
+
+    return Lazy(run)
 
 
 def _replay(jcfg, steps, cfg):

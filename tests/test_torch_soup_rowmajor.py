@@ -33,6 +33,7 @@ from srnn_tpu.init import fresh_lanes as j_fresh_lanes
 import srnn_tpu_torch as st
 from srnn_tpu_torch import convert
 from srnn_tpu_torch import soup as psoup
+from torch_lazy import Lazy
 
 GENERATIONS = 3
 N = 16
@@ -100,9 +101,10 @@ def _planted(s0):
 @pytest.fixture(scope="module")
 def jax_runs():
     """Per run: (config, initial state, the draws of each generation,
-    final state, (events, weights, uids) stacked over the generations)."""
-    out = {}
-    for name, (cfg, seed) in RUNS.items():
+    final state, (events, weights, uids) stacked over the generations),
+    made at the first read."""
+    def run(name):
+        cfg, seed = RUNS[name]
         s0 = _planted(jsoup.seed(cfg, jax.random.key(seed)))
         final, recs = jsoup.evolve(cfg, s0, generations=GENERATIONS,
                                    record=True)
@@ -110,8 +112,9 @@ def jax_runs():
         for _ in range(GENERATIONS):
             draws.append(_jax_draws(cfg, key))
             key = jax.random.split(key, 6)[0]
-        out[name] = (cfg, s0, draws, final, recs)
-    return out
+        return cfg, s0, draws, final, recs
+
+    return Lazy(run)
 
 
 def _check_weights(cfg, got, ref, msg):
