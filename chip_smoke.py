@@ -109,7 +109,15 @@ Phases, each fatal on failure:
    ``evolve(record=True)``, the walls beside the uncaptured run's, the K3
    launches exact, whether the native writer loaded; and
    ``evolve_multi_captured`` of a mixed soup at N = 30,000 against its
-   generations bitwise;
+   generations bitwise; then, after the mega runs, the analysis tier
+   (``analysis_path``): ``utils.divergence_onset`` of the N = 1M weightwise
+   fused soup, 20 generations (K3 once a generation, bitwise equal to a
+   recount over ``evolve_step`` calls, ms a generation beside a bare
+   ``evolve``), the hill climber at 65,536 shots x 100 rounds (no kernel,
+   rounds/s), ``utils.timed`` / ``utils.trace`` of a fused generation, and
+   the HTML view of a captured N = 1M store read at 2,048 columns; and
+   small runs of ``divergence_onset``, ``optimize.hillclimb`` and
+   ``proto.fit`` card against CPU, bitwise;
 5. the fixpoint engines and setups: at N = 1M, weightwise ``run_fixpoint``
    (100 steps: K1 once a step), ``run_training`` (100 epochs: K2 once an
    epoch), ``run_training`` with a shuffle generator (100 epochs: K2's
@@ -3593,7 +3601,7 @@ def mega_syncs(torch, root) -> dict:
             "bare": syncs_per_generation(torch, mega_bare(torch)[2])}
 
 
-def mega_path(torch, kernels, totals):
+def mega_path(torch, kernels, totals, keep_runs=None):
     """Phase "mega runs": the CLIs as subprocesses on the card.
 
     mega_soup at N = 1M, 20 generations, a checkpoint every 10, every
@@ -3611,11 +3619,14 @@ def mega_path(torch, kernels, totals):
     the planes on, off but pipelined, and off and blocking, with their
     pipeline attribution, the time of one checkpoint write, a bare evolve
     loop, and the host synchronisations a generation of the loop (no more
-    than the bare evolve's)."""
+    than the bare evolve's).  With ``keep_runs`` (a list) the run
+    directories are kept for a later phase: their root is appended to it
+    and the caller removes it."""
     import shutil
     import tempfile
 
     root = tempfile.mkdtemp(prefix="srnn_mega_")
+    kept = False
     try:
         runs = os.path.join(root, "runs")
         reset(kernels)
@@ -3745,8 +3756,276 @@ def mega_path(torch, kernels, totals):
         if syncs["loop"][0] > syncs["bare"][0]:
             raise AssertionError("mega loop: the run plumbing synchronises "
                                  "the host every generation")
+        if keep_runs is not None:
+            keep_runs.append(root)
+            kept = True
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------ analysis tier
+
+
+#: the analysis phase's sizes: the hill climber's shots and rounds at scale
+#: and card against CPU, the prototype fits' epochs
+CLIMB_SHOTS, CLIMB_ROUNDS = 65_536, 100
+SMALL_SHOTS, SMALL_ROUNDS = 64, 10
+PROTO_EPOCHS = 500
+
+
+def onset_recount(torch, st, cfg, state, generations):
+    """The onsets of ``generations`` steps recounted: ``soup.evolve_step``
+    of the probe config (removals off) one generation at a time, with
+    ``is_diverged`` read after each; returns (onsets, final state)."""
+    from srnn_tpu_torch.ops.predicates import is_diverged
+
+    probe = cfg._replace(remove_divergent=False, remove_zero=False)
+    onset = torch.where(is_diverged(state.weights), 0, -1).to(torch.int32)
+    for _ in range(generations):
+        state, _ = st.evolve_step(probe, state)
+        now = is_diverged(state.weights).cpu()
+        onset = torch.where((onset.cpu() < 0) & now, int(state.time),
+                            onset.cpu()).to(torch.int32)
+    return onset, state
+
+
+def analysis_path(torch, kernels, totals, mega_runs=()):
+    """Phase "analysis tier" (ROADMAP A.5): the analysis modules on the
+    card.  ``utils.divergence_onset`` of the N = 1M weightwise fused soup
+    (the README dynamics, removals off, one slot non-finite at the start),
+    20 generations: exactly 20 K3 and no other kernel, the onsets and the
+    final state bitwise equal to a recount over 20 ``soup.evolve_step``
+    calls, its ms a generation beside a bare ``evolve`` of the same config
+    in turns; the same at N = 64 over 5 generations card against CPU on
+    the same draws, bitwise.  ``optimize.hillclimb`` of a weightwise net,
+    65,536 shots x 100 rounds: no kernel, the trace monotone
+    non-increasing, rounds/s; 64 shots x 10 rounds card against CPU on the
+    same noise, bitwise.  ``proto.fit``, feed-forward and recurrent, 500
+    epochs card against CPU, bitwise.  ``utils.checked_apply_to_weights``
+    passes the identity fixpoint and raises on a pair that overflows.
+    ``utils.timed`` of one fused generation (its K3 launches exact) and a
+    ``utils.trace`` of one, a non-empty file.  The viz tier without
+    matplotlib: the soup captured through ``utils.evolve_captured`` (20
+    generations, a frame every 5) read at 2,048 strided columns and
+    written as the HTML view (wall and size); ``viz.search_and_apply`` of
+    that directory and of the mega phase's run directories where
+    matplotlib is installed (printed whether it ran).  The K3 launches of
+    the onset run, ``timed``, ``trace`` and the capture are the main
+    path's; the card-against-CPU runs count none."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import convert, optimize, proto, viz, viz_html
+    from srnn_tpu_torch.soup import draw
+    from srnn_tpu_torch.utils import (NonFiniteOutputError, TrajStore,
+                                      checked_apply_to_weights,
+                                      divergence_onset, evolve_captured,
+                                      read_store_artifact, timed, trace)
+    from srnn_tpu_torch.utils.trajstore import store_shape
+
+    def main_run(what, expect, fn):
+        reset(kernels)
+        out = fn()
+        torch.cuda.synchronize()
+        for name, n in check_launches(kernels, what, expect).items():
+            totals[name] += n
+        return out
+
+    g = GENERATIONS
+    topo = st.Topology("weightwise")
+    cfg = st.SoupConfig(topo=topo, size=N, attacking_rate=0.1,
+                        learn_from_rate=0.1, learn_from_severity=1,
+                        train=10, remove_divergent=True, remove_zero=True,
+                        respawn_draws="fused", layout="popmajor",
+                        generation_impl="fused")
+    probe = cfg._replace(remove_divergent=False, remove_zero=False)
+    s0 = st.seed(cfg, 11, device="cuda")
+    s0 = s0._replace(weights=s0.weights.clone())
+    s0.weights[0] = float("nan")
+    onset, final = main_run("divergence_onset", {"generation": g},
+                            lambda: divergence_onset(cfg, s0, g))
+    want, ref = onset_recount(torch, st, cfg, s0, g)
+    equal_ints(torch, "divergence_onset onsets against the recount",
+               onset, want)
+    compare(torch, "divergence_onset final weights against the recount",
+            final.weights, ref.weights, ulps=0)
+    for field in ("uids", "next_uid", "time"):
+        equal_ints(torch, f"divergence_onset final {field} against the "
+                   "recount", getattr(final, field), getattr(ref, field))
+    o = onset.cpu()
+    log(f"  divergence_onset N = {N}, {g} generations: launches exact "
+        "(K3 once a generation), onsets and final state bitwise equal to "
+        f"{g} evolve_step calls; slots dead at the start "
+        f"{int((o == 0).sum())}, diverged on the way "
+        f"{int((o > 0).sum())}, never {int((o < 0).sum())}")
+    walls = collections.defaultdict(list)
+    for run in ("onset", "bare", "onset", "bare"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "onset":
+            divergence_onset(cfg, s0, g)
+        else:
+            st.evolve(probe, s0, g)
+        torch.cuda.synchronize()
+        walls[run].append((time.perf_counter() - t0) * 1e3 / g)
+    log("  ms a generation in turns: divergence_onset "
+        + " / ".join(f"{t:.3f}" for t in walls["onset"])
+        + ", bare evolve of the same config "
+        + " / ".join(f"{t:.3f}" for t in walls["bare"]))
+
+    # card against CPU: N = 64, 5 generations, the same draws
+    small = cfg._replace(size=64, attacking_rate=0.3, learn_from_rate=0.3)
+    cpu0 = st.seed(small, 12, device="cpu")
+    cpu0 = cpu0._replace(weights=cpu0.weights.clone())
+    cpu0.weights[5] = float("inf")
+    gen = torch.Generator().manual_seed(13)
+    draws = [draw(small, gen, "cpu") for _ in range(5)]
+    got = divergence_onset(small, convert.soup_state_from_arrays(
+        cpu0.weights.numpy(), cpu0.uids.numpy(), int(cpu0.next_uid),
+        int(cpu0.time), device="cuda"), 5, draws)
+    want = divergence_onset(small, cpu0, 5, draws)
+    equal_ints(torch, "divergence_onset N = 64 onsets card against CPU",
+               got[0], want[0])
+    compare(torch, "divergence_onset N = 64 final weights card against CPU",
+            got[1].weights.cpu(), want[1].weights, ulps=0)
+    for field in ("uids", "next_uid", "time"):
+        equal_ints(torch, f"divergence_onset N = 64 final {field} card "
+                   "against CPU", getattr(got[1], field),
+                   getattr(want[1], field))
+    o = want[0]
+    log(f"  divergence_onset N = 64, 5 generations card against CPU: "
+        f"bitwise (slots dead at the start {int((o == 0).sum())}, diverged "
+        f"on the way {int((o > 0).sum())}, never {int((o < 0).sum())})")
+
+    # the hill climber
+    w0 = st.init_population(topo, 14, 1, device="cpu")[0]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    torch.cuda.synchronize()
+    reset(kernels)
+    t0 = time.perf_counter()
+    best, trace_ = optimize.hillclimb(topo, w0.cuda(), gen, CLIMB_SHOTS,
+                                      CLIMB_ROUNDS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_launches(kernels, "hillclimb", {})
+    if not bool((trace_.diff() <= 0).all()):
+        raise AssertionError("hillclimb: the trace rises")
+    log(f"  hillclimb weightwise, {CLIMB_SHOTS} shots x {CLIMB_ROUNDS} "
+        f"rounds: {CLIMB_ROUNDS / dt:.1f} rounds/s ({dt:.3f} s), loss "
+        f"{float(optimize.fixpoint_loss(topo, w0)):.6g} -> "
+        f"{float(trace_[-1]):.6g}, monotone non-increasing")
+    noise = torch.randn((SMALL_ROUNDS, SMALL_SHOTS, topo.num_weights),
+                        generator=torch.Generator().manual_seed(16))
+    got = optimize.hillclimb(topo, w0.cuda(), None, SMALL_SHOTS,
+                             SMALL_ROUNDS, noise=noise.numpy())
+    want = optimize.hillclimb(topo, w0, None, SMALL_SHOTS, SMALL_ROUNDS,
+                              noise=noise.numpy())
+    compare(torch, "hillclimb best card against CPU", got[0].cpu(), want[0],
+            ulps=0)
+    compare(torch, "hillclimb trace card against CPU", got[1].cpu(),
+            want[1], ulps=0)
+    log(f"  hillclimb {SMALL_SHOTS} shots x {SMALL_ROUNDS} rounds card "
+        "against CPU, the same noise: best weights and trace bitwise")
+
+    # the prototypes
+    for rec in (False, True):
+        pt = proto.ProtoTopology(recurrent=rec)
+        w = proto.init_proto(pt, 17, device="cpu") * 0.5
+        t0 = time.perf_counter()
+        got = proto.fit(pt, w.cuda(), PROTO_EPOCHS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = proto.fit(pt, w, PROTO_EPOCHS)
+        what = f"proto.fit {'recurrent' if rec else 'feed-forward'}"
+        compare(torch, f"{what} weights card against CPU", got[0].cpu(),
+                want[0], ulps=0)
+        compare(torch, f"{what} losses card against CPU", got[1].cpu(),
+                want[1], ulps=0)
+        log(f"  {what}, {PROTO_EPOCHS} epochs: card against CPU bitwise, "
+            f"{dt:.3f} s on the card, losses {float(want[1][0]):.6g} -> "
+            f"{float(want[1][-1]):.6g}")
+
+    # checked self-application
+    ident = torch.zeros(topo.num_weights, device="cuda")
+    for o in topo.offsets[:-1]:
+        ident[o] = 1.0
+    out = checked_apply_to_weights(topo, ident, ident)
+    compare(torch, "checked_apply_to_weights identity", out, ident, ulps=0)
+    big = torch.full((topo.num_weights,), 1e18, device="cuda")
+    try:
+        checked_apply_to_weights(topo, big, big)
+        raise AssertionError("checked_apply_to_weights did not raise on an "
+                             "overflowing pair")
+    except NonFiniteOutputError as e:
+        log(f"  checked_apply_to_weights: the identity fixpoint passes, an "
+            f"overflowing pair raises ({e})")
+
+    # timed and trace
+    res = main_run("timed", {"generation": 4},
+                   lambda: timed(st.evolve_step, cfg, s0, iters=3,
+                                 warmup=1))
+    tmp = tempfile.mkdtemp(prefix="srnn_analysis_")
+    try:
+        tdir = os.path.join(tmp, "trace")
+        with trace(tdir):
+            main_run("trace", {"generation": 1},
+                     lambda: st.evolve_step(cfg, s0))
+        files = [os.path.join(tdir, f) for f in os.listdir(tdir)]
+        sizes = [os.path.getsize(f) for f in files]
+        if not files or not all(sizes):
+            raise AssertionError(f"trace: files {files} sizes {sizes}")
+        log(f"  timed one fused generation: median "
+            f"{res['median_s'] * 1e3:.3f} ms of {res['iters']}; trace "
+            f"{len(files)} file(s), {sum(sizes)} bytes")
+
+        # the viz tier on the captured soup
+        cap = os.path.join(tmp, "capture")
+        os.makedirs(cap)
+        path = os.path.join(cap, "soup.traj")
+
+        def capture():
+            with TrajStore(path, N, topo.num_weights) as store:
+                evolve_captured(cfg, st.seed(cfg, 2, device="cuda"), g,
+                                store, every=5)
+
+        main_run("capture", {"generation": g}, capture)
+        t0 = time.perf_counter()
+        n_slots = store_shape(path)[0]
+        art = read_store_artifact(path,
+                                  columns=viz.render_columns(n_slots))
+        t1 = time.perf_counter()
+        out = viz_html.write_html_trajectories_3d(
+            art, os.path.join(cap, "soup_trajectories_3d.html"))
+        t2 = time.perf_counter()
+        size = os.path.getsize(out)
+        if size < 10_000 or art["weights"].shape[1] != min(
+                n_slots, viz.MAX_RENDER_PARTICLES):
+            raise AssertionError(f"html view: {size} bytes of "
+                                 f"{art['weights'].shape} columns")
+        log(f"  viz: the N = {n_slots} store read at "
+            f"{art['weights'].shape[1]} strided columns in "
+            f"{(t1 - t0) * 1e3:.1f} ms, {art['weights'].shape[0]} frames; "
+            f"HTML view {size} bytes in {(t2 - t1) * 1e3:.1f} ms")
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        if has_mpl:
+            outs = viz.search_and_apply(cap)
+            for root in mega_runs:
+                outs += viz.search_and_apply(os.path.join(root, "runs"))
+            log(f"  viz.search_and_apply ran (matplotlib found): "
+                f"{len(outs)} renders")
+        else:
+            log("  viz.search_and_apply did not run: matplotlib is not "
+                "installed (the PNG renderers need it; the HTML view "
+                "above does not)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for root in mega_runs:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def _free_port() -> int:
@@ -3830,7 +4109,10 @@ def main() -> int:
     phase("compact phases", compact_path, torch, kernels, launches)
     phase("trajectory capture", capture_path, torch, kernels, launches)
     phase("device telemetry", telemetry_path, torch, kernels, launches)
-    phase("mega runs", mega_path, torch, kernels, launches)
+    mega_runs = []
+    phase("mega runs", mega_path, torch, kernels, launches, mega_runs)
+    phase("analysis tier", analysis_path, torch, kernels, launches,
+          mega_runs)
     phase("fixpoint engines and setups", engines_and_setups, torch, kernels,
           launches)
     phase("small soups vs cpu", small_soup_vs_cpu, torch, kernels)

@@ -125,6 +125,15 @@ def _per_kernel_lanes(topo: Topology, gen: torch.Generator, n: int,
     return torch.cat(parts, dim=0)
 
 
+def glorot(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """One (a, b) kernel drawn glorot_uniform: U(-1, 1) times
+    sqrt(6 / (a + b)) in float32."""
+    a, b = shape
+    u = torch.empty((a, b), dtype=torch.float32, device=device)
+    u.uniform_(-1.0, 1.0, generator=gen)
+    return u * float(np.float32(np.sqrt(6.0 / (a + b))))
+
+
 def _glorot(topo: Topology, gen: torch.Generator, shape, device,
             lanes: bool) -> torch.Tensor:
     lim = torch.as_tensor(glorot_limit_rows(topo), device=device)

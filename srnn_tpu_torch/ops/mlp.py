@@ -42,11 +42,27 @@ def mlp_apply(topo, self_flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     act = resolve_activation(topo.activation)
     h = x
     for m in unflatten(topo, self_flat):
-        acc = h[..., 0:1] * m[..., 0:1, :]
-        for i in range(1, m.shape[-2]):
-            acc = acc + h[..., i:i + 1] * m[..., i:i + 1, :]
-        h = act(acc)
+        h = act(ordered_matmul(h, m))
     return h
+
+
+def ordered_matmul(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(..., a) times (..., a, b) -> (..., b), every entry summed in order
+    i = 0..a-1 with every product taken apart from its add (no FMA), so
+    the card rounds as the CPU does."""
+    acc = h[..., 0:1] * m[..., 0:1, :]
+    for i in range(1, m.shape[-2]):
+        acc = acc + h[..., i:i + 1] * m[..., i:i + 1, :]
+    return acc
+
+
+def ordered_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis: an ordered sum divided by a tensor (on the
+    card torch takes a Python divisor as a multiply by its reciprocal)."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc / torch.full_like(acc, x.shape[-1])
 
 
 def mlp_rows_plain(topo, rows: Sequence[torch.Tensor],

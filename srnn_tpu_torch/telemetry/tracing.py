@@ -16,8 +16,9 @@ a run; port of ``srnn_tpu/telemetry/tracing.py``.
     when one is attached.  The JAX package's ``telemetry.fleet`` merges
     them into the run's timeline (``perfetto_trace``).
 
-The JAX package's ``trace`` (a full device trace into a directory) has no
-caller in the port: the watchdog and the anomaly capture arm
+The JAX package's ``trace`` (a full device trace into a directory) is
+``utils.profiling.trace``, a ``torch.profiler`` window of the host and the
+card written into a directory; the watchdog and the anomaly capture arm
 ``torch.profiler`` themselves.
 """
 

@@ -57,7 +57,12 @@ for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
              "srnn_tpu_torch.resilience.supervisor",
              "srnn_tpu_torch.resilience.chaos",
              "srnn_tpu_torch.setups.mega_soup",
-             "srnn_tpu_torch.setups.mega_multisoup"):
+             "srnn_tpu_torch.setups.mega_multisoup",
+             "srnn_tpu_torch.viz", "srnn_tpu_torch.viz_html",
+             "srnn_tpu_torch.reference_artifacts", "srnn_tpu_torch.proto",
+             "srnn_tpu_torch.optimize", "srnn_tpu_torch.utils.debug",
+             "srnn_tpu_torch.utils.profiling",
+             "srnn_tpu_torch.utils.printing"):
     assert name in names, name
 """
 
