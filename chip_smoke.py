@@ -117,7 +117,20 @@ Phases, each fatal on failure:
    rounds/s), ``utils.timed`` / ``utils.trace`` of a fused generation, and
    the HTML view of a captured N = 1M store read at 2,048 columns; and
    small runs of ``divergence_onset``, ``optimize.hillclimb`` and
-   ``proto.fit`` card against CPU, bitwise;
+   ``proto.fit`` card against CPU, bitwise; then the experiment service
+   (``serve_path``): ``python -m srnn_tpu_torch.serve`` processes on the
+   card driven by ``ServiceClient`` with the paper's traffic (8 soup
+   tickets of soup_trajectorys' config, 2 fixpoint_density sweeps), a
+   wide stack of 8 weightwise, 4 aggregating and 4 recurrent row-major
+   tickets at N = 16,384 and one population-major fused ticket at
+   N = 1M, every result bitwise equal to a bare ``soup.evolve`` or sweep
+   in this process and the service's launch counts exactly its
+   dispatches' (the SGD kernel once a phase a generation whatever the
+   stack's width, K3 once a generation), ``run_fixpoint_stacked`` of 4
+   tenants (K1 once a step), the io-fault, poisoned-tenant, kill -9 and
+   restart and two-worker drills bitwise, the setups as clients equal to
+   their process-mode runs, and to inform tickets/s at max_stack 8
+   against 1, ticket latency and the device's busy share;
 5. the fixpoint engines and setups: at N = 1M, weightwise ``run_fixpoint``
    (100 steps: K1 once a step), ``run_training`` (100 epochs: K2 once an
    epoch), ``run_training`` with a shuffle generator (100 epochs: K2's
@@ -4028,6 +4041,516 @@ def analysis_path(torch, kernels, totals, mega_runs=()):
             shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------ experiment service
+
+#: the paper's traffic: soup_trajectorys' submit-mode soup (its defaults:
+#: N = 20, 100 generations, train 30, attack 0.1, no learn_from, both
+#: removals) and fixpoint_density's sweep (trials 100,000, batch 25,000)
+SERVE_PAPER = {"size": 20, "generations": 100, "train": 30,
+               "attacking_rate": 0.1, "learn_from_rate": -1.0,
+               "remove_divergent": True, "remove_zero": True,
+               "epsilon": 1e-4, "train_mode": "sequential"}
+SERVE_DENSITY = {"trials": 100_000, "batch": 25_000, "epsilon": 1e-4}
+#: the wide stack: the largest N whose state the service still returns
+#: for the weightwise particle (N * P <= 262,144, 16,384 * 14)
+SERVE_WIDE = {"size": 16_384, "generations": 10, "train": 10,
+              "learn_from_rate": 0.1, "remove_divergent": True,
+              "remove_zero": True}
+SERVE_VARIANTS = {"weightwise": {}, "aggregating": {"aggregates": 4},
+                  "recurrent": {}}
+#: one population-major fused weightwise ticket (solo, K3)
+SERVE_FUSED = dict(SERVE_WIDE, size=N, generations=5, layout="popmajor",
+                   generation_impl="fused")
+SERVE_SGD = {"weightwise": "ww_sgd", "aggregating": "kvec_sgd",
+             "recurrent": "rnn_sgd"}
+
+
+def serve_params(variant, **kw):
+    return dict(SERVE_WIDE, variant=variant, **SERVE_VARIANTS[variant], **kw)
+
+
+def serve_start(root, tag, *argv, counts=True):
+    """Start ``python -m srnn_tpu_torch.serve`` on the card with its root
+    ``root/tag`` and its output in ``root/tag.log``; with ``counts`` it
+    writes its launch counts to ``root/tag.launches.json`` at exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SRNN_SETUPS_PLATFORM", "SRNN_LAUNCH_COUNTS")}
+    if counts:
+        env["SRNN_LAUNCH_COUNTS"] = os.path.join(root, f"{tag}.launches.json")
+    with open(os.path.join(root, f"{tag}.log"), "a") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "srnn_tpu_torch.serve", "--root",
+             os.path.join(root, tag), *argv], cwd=here, env=env, stdout=out,
+            stderr=subprocess.STDOUT)
+
+
+def serve_client(root, tag, **kw):
+    from srnn_tpu_torch.serve import ServiceClient
+
+    return ServiceClient(os.path.join(root, tag, "serve.sock"), **kw)
+
+
+def serve_log(root, tag) -> str:
+    with open(os.path.join(root, f"{tag}.log")) as f:
+        return f.read()[-3000:]
+
+
+class ServeReference:
+    """The bare runs each service result is held against, in this process
+    on the card, made once per (kind, params, seed)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self._memo = {}
+
+    def soup(self, params, seed):
+        key = ("soup", json.dumps(params, sort_keys=True), seed)
+        if key not in self._memo:
+            from srnn_tpu_torch import soup as sp
+            from srnn_tpu_torch.serve.service import _soup_config_from_params
+            from srnn_tpu_torch.setups.common import generator
+
+            cfg = _soup_config_from_params(params)
+            final, m = sp.evolve(cfg, sp.seed(cfg, generator(seed), "cuda"),
+                                 int(params["generations"]), metrics=True)
+            self._memo[key] = (cfg, final, m, sp.count(cfg, final))
+        return self._memo[key]
+
+    def density(self, params, seed):
+        key = ("density", json.dumps(params, sort_keys=True), seed)
+        if key not in self._memo:
+            from srnn_tpu_torch.engine import fixpoint_density
+            from srnn_tpu_torch.setups.common import (STANDARD_VARIANTS,
+                                                      population)
+
+            out = []
+            for v, (_name, topo) in enumerate(STANDARD_VARIANTS[:2]):
+                total = self.torch.zeros(5, dtype=self.torch.int32,
+                                         device="cuda")
+                done = 0
+                while done < params["trials"]:
+                    n = min(params["batch"], params["trials"] - done)
+                    total = total + fixpoint_density(
+                        topo, population(topo, n, "cuda", seed, v, done),
+                        params["epsilon"])
+                    done += n
+                out.append(total.tolist())
+            self._memo[key] = out
+        return self._memo[key]
+
+    def check(self, what, kind, params, seed, result):
+        """``result`` (a service ticket's) against the bare run: integers
+        exact, weights and the loss sum at 0 ulps (raises otherwise)."""
+        torch = self.torch
+        if kind == "fixpoint_density":
+            if result["counters"] != self.density(params, seed):
+                raise AssertionError(f"{what}: counters {result['counters']}"
+                                     f" != {self.density(params, seed)}")
+            return
+        cfg, final, m, counts = self.soup(params, seed)
+        want = {"counters": counts.tolist(),
+                "final_time": int(final.time),
+                "next_uid": int(final.next_uid),
+                "metrics": {"generations": int(m.generations),
+                            "actions": m.actions.tolist()}}
+        got = {k: result[k] for k in ("counters", "final_time", "next_uid")}
+        got["metrics"] = {k: result["metrics"][k]
+                          for k in ("generations", "actions")}
+        if got != want:
+            raise AssertionError(f"{what}: {got} != {want}")
+        from srnn_tpu_torch.bench_kernels import check_exact
+
+        check_exact(f"{what} loss_sum",
+                    torch.tensor([result["metrics"]["loss_sum"]]),
+                    m.loss_sum.reshape(1).cpu())
+        if cfg.size * cfg.topo.num_weights <= 262_144:
+            if "weights" not in result:
+                raise AssertionError(f"{what}: the state was not returned")
+            check_exact(f"{what} weights",
+                        torch.tensor(result["weights"], dtype=torch.float32),
+                        final.weights.float().cpu())
+            if result["uids"] != final.uids.tolist():
+                raise AssertionError(f"{what}: uids differ")
+
+
+def serve_expected_launches(events_path, tenants) -> dict:
+    """The launches the dispatches of a service's events.jsonl must make:
+    per soup dispatch, K3 once a generation for a fused population-major
+    spelling, else the variant's SGD kernel once a generation per phase
+    on (learn_from, train), whatever the stack's width; ``tenants`` maps
+    each tenant to its (kind, params)."""
+    from srnn_tpu_torch.serve.service import _soup_config_from_params
+
+    expect = collections.Counter()
+    dispatches = []
+    with open(events_path) as f:
+        for line in f:
+            row = json.loads(line)
+            if row.get("kind") != "serve_dispatch" or row.get("error"):
+                continue
+            dispatches.append((row["mode"], len(row["tenants"])))
+            kind, params = tenants[row["tenants"][0]]
+            if kind != "soup":
+                continue
+            cfg = _soup_config_from_params(params)
+            gens = int(params["generations"])
+            if cfg.generation_impl == "fused":
+                expect["generation"] += gens
+                continue
+            per_gen = int(cfg.learn_from_rate > 0
+                          and cfg.learn_from_severity > 0) + int(cfg.train > 0)
+            expect[SERVE_SGD[cfg.topo.variant]] += per_gen * gens
+    return dict(expect), dispatches
+
+
+def serve_inprocess_drills(torch, kernels, totals, ref, root):
+    """The transient fault and the poisoned tenant, through an in-process
+    ``ExperimentService`` on the card (the service's own admission and
+    dispatch paths; launch counts exact, results bitwise)."""
+    from srnn_tpu_torch.resilience.chaos import ChaosMonkey, parse_schedule
+    from srnn_tpu_torch.serve import ExperimentService
+
+    ww, agg = serve_params("weightwise"), serve_params("aggregating")
+    reset(kernels)
+    svc = ExperimentService(os.path.join(root, "fault"), device="cuda",
+                            retry_backoff_s=0.01, chaos=ChaosMonkey(
+                                parse_schedule("serve_dispatch_fault@2:io")))
+    with svc:
+        t_ww = [(svc.submit("soup", dict(ww, seed=s)), s)
+                for s in (40, 41, 42, 43)]
+        t_agg = [(svc.submit("soup", dict(agg, seed=s)), s) for s in (44, 45)]
+        svc.run_pending()
+        # the service's launches, read before the bare runs launch theirs
+        got = check_launches(kernels, "serve fault drill (io fault at the "
+                             "2nd dispatch, retried)",
+                             {"ww_sgd": 20, "kvec_sgd": 20})
+        for group, params in ((t_ww, ww), (t_agg, agg)):
+            for t, s in group:
+                e = svc.poll(t)
+                if e["status"] != "done":
+                    raise AssertionError(f"serve fault drill: {e}")
+                ref.check(f"serve fault drill seed {s}", "soup", params, s,
+                          e["result"])
+        sh = svc.stats()["self_healing"]
+        if sh["dispatch_retries"] != 1 or sh["quarantined"]:
+            raise AssertionError(f"serve fault drill: {sh}")
+    for name, n in got.items():
+        totals[name] += n
+    reset(kernels)
+    svc = ExperimentService(os.path.join(root, "poison"), device="cuda",
+                            retry_backoff_s=0.01, chaos=ChaosMonkey(
+                                parse_schedule("serve_poison_tenant@2")))
+    with svc:
+        tickets = [(svc.submit("soup", dict(ww, seed=s)), s)
+                   for s in (40, 41, 42, 43)]
+        svc.run_pending()
+        # the stack of 4 and its half holding the poison raise before any
+        # launch; the innocent solo quarter and the last pair run
+        check_launches(kernels, "serve poison drill (2nd ticket poisoned, "
+                       "bisected)", {"ww_sgd": 2 * 20})
+        entries = [svc.poll(t) for t, _ in tickets]
+        if [e["status"] for e in entries] != ["done", "failed", "done",
+                                              "done"] \
+                or not entries[1].get("quarantined"):
+            raise AssertionError(f"serve poison drill: {entries}")
+        for (t, s), e in zip(tickets, entries):
+            if e["status"] == "done":
+                ref.check(f"serve poison drill seed {s}", "soup", ww, s,
+                          e["result"])
+    log("  serve drills in process: io fault retried once, the poisoned "
+        "ticket alone quarantined, every other result bitwise")
+
+
+def serve_throughput(torch, kernels, root):
+    """To inform: tickets/s of the eight wide weightwise tickets through an
+    in-process service at max_stack 8 against max_stack 1, in turns, and
+    the device's busy share of one stacked drain (torch.profiler)."""
+    from srnn_tpu_torch.profile_soup import _device_us
+    from srnn_tpu_torch.serve import ExperimentService
+
+    ww = serve_params("weightwise")
+
+    def drain(k, tag, seeds=range(8)):
+        svc = ExperimentService(os.path.join(root, tag), max_stack=k,
+                                device="cuda")
+        with svc:
+            for s in seeds:
+                svc.submit("soup", dict(ww, seed=s))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.run_pending()
+            dt = time.perf_counter() - t0
+        return len(seeds) / dt
+
+    drain(8, "warm")
+    rates = {8: [], 1: []}
+    for i, k in enumerate((8, 1, 1, 8)):
+        rates[k].append(drain(k, f"turn{i}"))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        drain(8, "traced")
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(_device_us(e) for e in prof.key_averages()) / wall_us
+    log(f"  serve wide stack (8 weightwise tickets, N = 16,384, 10 "
+        f"generations) tickets/s: max_stack 8 {rates[8]}, max_stack 1 "
+        f"{rates[1]} (turns 8, 1, 1, 8); device busy share of one stacked "
+        f"drain under torch.profiler {busy:.3f}")
+
+
+def serve_path(torch, kernels, totals):
+    """Phase "experiment service": ``python -m srnn_tpu_torch.serve`` on the
+    card as subprocesses, driven by ``ServiceClient``.
+
+    The main service (fixed 2 s window, max_stack 8) takes the paper's
+    traffic (8 soup tickets of soup_trajectorys' config, seeds 0-7; 2
+    fixpoint_density sweeps, seeds 0-1), the wide stack (8 weightwise, 4
+    aggregating and 4 recurrent row-major tickets at N = 16,384, train 10,
+    learn_from 0.1, both removals, 10 generations) and one
+    population-major fused weightwise ticket at N = 1M (5 generations),
+    and the setups ``soup_trajectorys`` and ``fixpoint_density`` as
+    clients (``--service``) beside their process-mode runs.  Every result
+    is held bitwise against a bare ``soup.evolve`` (``metrics=True``) or
+    fixpoint-density sweep in this process; the service's launch counts
+    (``SRNN_LAUNCH_COUNTS``) must be exactly its dispatches' (events.jsonl):
+    per soup dispatch the SGD kernel once a generation per phase on,
+    whatever the stack's width, K3 once a generation for the fused one.
+    In this process: ``engine.run_fixpoint_stacked`` of 4 tenants at
+    N = 65,536, 20 steps (K1 20 times, each tenant bitwise its solo run);
+    the io-fault and poisoned-tenant drills.  Drills in processes, every
+    result bitwise: ``--chaos serve_kill@3`` then a restart on the same
+    root that replays the journal; ``--workers 2`` with worker 0 killed
+    while its tickets are queued.  To inform: tickets/s of the wide stack
+    at max_stack 8 against 1 in turns, p50 / p95 ticket latency, the
+    device's busy share of a stacked drain."""
+    import shutil
+    import signal
+    import tempfile
+
+    from srnn_tpu_torch import engine
+    from srnn_tpu_torch.experiment import load_artifact
+    from srnn_tpu_torch.init import init_population, make_generator
+    from srnn_tpu_torch.serve import read_journal
+    from srnn_tpu_torch.topology import Topology
+
+    root = tempfile.mkdtemp(prefix="srnn_serve_")
+    procs = []
+    ref = ServeReference(torch)
+    try:
+        # three services start at once while this process works
+        procs.append(serve_start(root, "main", "--no-adaptive",
+                                 "--batch-window-s", "2"))
+        procs.append(serve_start(root, "kill", "--no-adaptive",
+                                 "--batch-window-s", "1", "--chaos",
+                                 "serve_kill@3", counts=False))
+        procs.append(serve_start(root, "fleet", "--workers", "2",
+                                 "--no-adaptive", "--batch-window-s", "2",
+                                 counts=False))
+        main, kill, fleet = procs
+
+        # the stacked fixpoint engine: one K1 launch a step for 4 tenants
+        ww = Topology("weightwise", width=2, depth=2)
+        pops = torch.stack([init_population(ww, make_generator(t, "cuda"),
+                                            65_536, "cuda")
+                            for t in range(4)])
+        eps = [1e-4, 1e-3, 1e-4, 1e-5]
+        reset(kernels)
+        run = engine.run_fixpoint_stacked(ww, pops, step_limit=20,
+                                          epsilons=eps)
+        torch.cuda.synchronize()
+        for name, n in check_launches(kernels, "serve run_fixpoint_stacked "
+                                      "(4 x 65,536, 20 steps)",
+                                      {"ww_apply": 20}).items():
+            totals[name] += n
+        for t in range(4):
+            solo = engine.run_fixpoint(ww, pops[t], step_limit=20,
+                                       epsilon=eps[t])
+            compare(torch, f"serve run_fixpoint_stacked tenant {t} weights",
+                    run.weights[t], solo.weights, ulps=0)
+            equal_ints(torch, f"serve run_fixpoint_stacked tenant {t} steps,"
+                       " classes, counts", torch.cat([
+                           run.steps[t], run.classes[t], run.counts[t]]),
+                       torch.cat([solo.steps, solo.classes, solo.counts]))
+        serve_inprocess_drills(torch, kernels, totals, ref, root)
+
+        # the main service: every ticket of the traffic in one window
+        tenants = {}
+        client = serve_client(root, "main")
+        client.wait_until_up(180)
+
+        def submit(tenant, kind, params, seed):
+            tenants[tenant] = (kind, params)
+            return (tenant, kind, params, seed,
+                    client.submit(kind, dict(params, seed=seed),
+                                  tenant=tenant))
+
+        t0 = time.perf_counter()
+        subs = [submit(f"paper-soup{s}", "soup", SERVE_PAPER, s)
+                for s in range(8)]
+        subs += [submit(f"paper-density{s}", "fixpoint_density",
+                        SERVE_DENSITY, s) for s in range(2)]
+        for variant, k in (("weightwise", 8), ("aggregating", 4),
+                           ("recurrent", 4)):
+            subs += [submit(f"wide-{variant}{s}", "soup",
+                            serve_params(variant), s) for s in range(k)]
+        subs.append(submit("fused", "soup", SERVE_FUSED, 0))
+        log(f"  serve main: {len(subs)} tickets admitted in "
+            f"{time.perf_counter() - t0:.3f} s")
+        # the setups as clients, beside their process-mode runs
+        sock = os.path.join(root, "main", "serve.sock")
+        tenants["soup-seed0"] = ("soup", SERVE_PAPER)
+        tenants["fixpoint_density-seed0"] = ("fixpoint_density",
+                                             SERVE_DENSITY)
+        setups = mega_wait(root, [
+            mega_start(root, f"{name}-{mode}", name,
+                       ["--root", os.path.join(root, f"runs-{mode}")]
+                       + (["--service", sock] if mode == "service" else []))
+            for name in ("soup_trajectorys", "fixpoint_density")
+            for mode in ("service", "process")],
+            {f"{name}-{mode}": 0 for name in ("soup_trajectorys",
+                                              "fixpoint_density")
+             for mode in ("service", "process")})
+        results = {tenant: client.wait(ticket, timeout_s=600)
+                   for tenant, _, _, _, ticket in subs}
+        for tenant, kind, params, seed, _ in subs:
+            ref.check(f"serve {tenant}", kind, params, seed, results[tenant])
+        log(f"  serve main: {len(subs)} tickets bitwise equal to their bare "
+            f"runs; paper soup seed 0 counters "
+            f"{results['paper-soup0']['counters']} (BASELINE.md: about 13 "
+            f"fix_other, 7 other), fused N = 1M counters "
+            f"{results['fused']['counters']}")
+        stats = client.stats()
+        client.shutdown()
+        if main.wait(timeout=120) != 0:
+            raise AssertionError("serve main: exit code "
+                                 f"{main.returncode}\n"
+                                 + serve_log(root, "main"))
+        for name in ("soup_trajectorys", "fixpoint_density"):
+            dirs = {mode: setups[f"{name}-{mode}"][0].strip().splitlines()[-1]
+                    for mode in ("service", "process")}
+            a = load_artifact(os.path.join(dirs["service"], "all_counters"))
+            b = load_artifact(os.path.join(dirs["process"], "all_counters"))
+            if not (np_equal(a, b)):
+                raise AssertionError(f"serve setup {name}: counters {a} "
+                                     f"!= {b}")
+            with open(os.path.join(dirs["service"], "config.json")) as f:
+                mode = json.load(f)["execution_mode"]
+            if mode != "service":
+                raise AssertionError(f"serve setup {name}: {mode}")
+            if name == "soup_trajectorys":
+                fin = load_artifact(os.path.join(dirs["service"],
+                                                 "soup_final"))
+                hist = load_artifact(os.path.join(dirs["process"], "soup"))
+                compare(torch, "serve setup soup_trajectorys final weights "
+                        "against the process run's last frame",
+                        torch.from_numpy(fin["weights"]),
+                        torch.from_numpy(hist["weights"][-1]), ulps=0)
+                if not np_equal(fin["uids"], hist["uids"][-1]):
+                    raise AssertionError("serve setup soup_trajectorys: "
+                                         "uids differ")
+        log("  serve setups: soup_trajectorys and fixpoint_density "
+            "--service artifacts equal to their process-mode runs, "
+            "execution_mode service")
+        expect, dispatches = serve_expected_launches(
+            os.path.join(root, "main", "events.jsonl"), tenants)
+        with open(os.path.join(root, "main.launches.json")) as f:
+            got = check_launches(kernels, "serve main service process",
+                                 expect, json.load(f))
+        for name, n in got.items():
+            totals[name] += n
+        log(f"  serve main dispatches (mode, K): {dispatches}")
+        lat = sorted(row["latency_s"] for row in map(json.loads, open(
+            os.path.join(root, "main", "events.jsonl")))
+            if row.get("kind") == "serve_tenant")
+        log(f"  serve main ticket latency p50 {lat[len(lat) // 2]:.4f} s, "
+            f"p95 {lat[int(0.95 * (len(lat) - 1))]:.4f} s over {len(lat)} "
+            f"tickets (a 2 s fixed window; to inform); "
+            f"slo {stats['slo']}")
+
+        # kill -9 at the 3rd dispatch attempt, then a restart that replays
+        kc = serve_client(root, "kill")
+        kc.wait_until_up(180)
+        small = dict(SERVE_DENSITY, trials=4096, batch=4096)
+        for s in (0, 1):   # dispatches 1 and 2
+            ref.check(f"serve kill drill density {s}", "fixpoint_density",
+                      small, s, kc.request("fixpoint_density",
+                                           dict(small, seed=s)))
+        wwp = serve_params("weightwise")
+        doomed = [(kc.submit("soup", dict(wwp, seed=s),
+                             idempotency_key=f"kill-{s}"), s)
+                  for s in (50, 51, 52, 53)]
+        if kill.wait(timeout=120) != -signal.SIGKILL:
+            raise AssertionError(f"serve kill drill: rc {kill.returncode}")
+        unfinished, _, _ = read_journal(os.path.join(root, "kill",
+                                                     "journal.jsonl"))
+        if [e.ticket for e in unfinished] != [t for t, _ in doomed]:
+            raise AssertionError(f"serve kill drill: journal {unfinished}")
+        procs.append(serve_start(root, "kill", "--no-adaptive",
+                                 "--batch-window-s", "0.05", counts=False))
+        kc = serve_client(root, "kill", retries=5, backoff_base_s=0.2)
+        kc.wait_until_up(180)
+        if kc.submit("soup", dict(wwp, seed=50),
+                     idempotency_key="kill-50") != doomed[0][0]:
+            raise AssertionError("serve kill drill: the resubmit did not "
+                                 "dedupe onto the journaled ticket")
+        for t, s in doomed:
+            ref.check(f"serve kill drill replayed seed {s}", "soup", wwp, s,
+                      kc.wait(t, timeout_s=600))
+        if kc.stats()["self_healing"]["replayed"] != 4:
+            raise AssertionError("serve kill drill: replay count")
+        kc.shutdown()
+        if procs[-1].wait(timeout=120) != 0:
+            raise AssertionError("serve kill drill: restart exit code")
+        log("  serve kill drill: SIGKILL at the 3rd dispatch, 4 journaled "
+            "tickets replayed after the restart, bitwise")
+
+        # the fleet: worker 0 killed while its tickets are queued
+        fc = serve_client(root, "fleet", retries=5, backoff_base_s=0.2)
+        fc.wait_until_up(240)
+        fleet_t = [(fc.submit("soup", dict(wwp, seed=s), tenant=tenant,
+                              idempotency_key=f"fleet-{s}"), s)
+                   for tenant, seeds in (("ta", (60, 61, 62, 63)),
+                                         ("tb", (64, 65, 66, 67)))
+                   for s in seeds]
+        st = fc.stats()
+        os.kill(st["fleet"]["w0"]["pid"], signal.SIGKILL)
+        for t, s in fleet_t:
+            ref.check(f"serve fleet seed {s}", "soup", wwp, s,
+                      fc.wait(t, timeout_s=600))
+        st = fc.stats()["front"]
+        if st["deaths"] != 1 or st["workers"] != 1 or st["replayed"] < 1:
+            raise AssertionError(f"serve fleet: {st}")
+        fc.shutdown()
+        if fleet.wait(timeout=120) != 0:
+            raise AssertionError("serve fleet: exit code "
+                                 f"{fleet.returncode}\n"
+                                 + serve_log(root, "fleet"))
+        log(f"  serve fleet: worker 0 killed with its tickets queued, "
+            f"{st['replayed']} replayed onto worker 1, all 8 bitwise")
+        serve_throughput(torch, kernels, root)
+    except BaseException:
+        for tag in ("main", "kill", "fleet"):
+            if os.path.exists(os.path.join(root, f"{tag}.log")):
+                log(f"--- serve {tag} log tail:\n{serve_log(root, tag)}")
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
 def _free_port() -> int:
     import socket
 
@@ -4113,6 +4636,7 @@ def main() -> int:
     phase("mega runs", mega_path, torch, kernels, launches, mega_runs)
     phase("analysis tier", analysis_path, torch, kernels, launches,
           mega_runs)
+    phase("experiment service", serve_path, torch, kernels, launches)
     phase("fixpoint engines and setups", engines_and_setups, torch, kernels,
           launches)
     phase("small soups vs cpu", small_soup_vs_cpu, torch, kernels)

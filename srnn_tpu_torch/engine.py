@@ -35,6 +35,13 @@ out to the layout its steps run in:
     shuffled instantiation, one launch an epoch.
   * classification (the final classes, ``fixpoint_density``): plain torch
     in the self-application's layout; it launches no kernel.
+  * the tenant-stacked twins (``fixpoint_density_stacked``,
+    ``run_fixpoint_stacked``; ``engine.py:261-306`` of the JAX package,
+    which the experiment service dispatches): K tenants' (K, N, P)
+    populations side by side as K * N lanes, so a step is one
+    self-application (one K1 launch) for all of them, and each tenant's
+    predicates read its own lanes with its own epsilon.  Every
+    application is lane by lane, so each tenant is bitwise its solo run.
 
 On either device every step and the classification run the same IEEE
 operations, so a run on the card equals the same run on the CPU (the
@@ -55,8 +62,8 @@ from .nets.dispatch import apply_to_weights
 from .ops.cuda_sgd_common import kernel_supported
 from .ops.cuda_ww import ww_apply_population
 from .ops.popmajor import apply_popmajor, check_train_mode, ww_forward_popmajor
-from .ops.predicates import (DEFAULT_EPSILON, classify, count_classes,
-                             is_close, is_diverged, is_zero)
+from .ops.predicates import (DEFAULT_EPSILON, classify, classify_applied,
+                             count_classes, is_close, is_diverged, is_zero)
 from .topology import Topology
 from .train import DEFAULT_LR, sample_order, shuffles, train_epochs
 
@@ -324,3 +331,115 @@ def fixpoint_density(topo: Topology, pop: torch.Tensor,
     (``fixpoint-density.py``).  Returns the (5,) int32 class histogram."""
     _check_keyless(topo)
     return count_classes(_classify(topo, pop, False, epsilon))
+
+
+# --------------------------------------------------------------- stacked
+
+
+def _tenant_lanes(x: torch.Tensor, t: int, n: int, lanes: bool):
+    """Tenant ``t``'s ``n`` trials of a side-by-side population."""
+    return x[:, t * n:(t + 1) * n] if lanes else x[t * n:(t + 1) * n]
+
+
+def _epsilons(epsilons, k: int) -> list:
+    """The (K,) per-tenant epsilons as Python floats (each tenant's
+    predicates then run as its solo run's do)."""
+    if epsilons is None:
+        raise TypeError(
+            "run_fixpoint_stacked needs epsilons= (a (K,) per-tenant "
+            "vector; vmap over None would fail deep inside jit)")
+    eps = [float(e) for e in (epsilons.tolist()
+                              if isinstance(epsilons, torch.Tensor)
+                              else epsilons)]
+    if len(eps) != k:
+        raise ValueError(f"epsilons must hold one value per tenant ({k}), "
+                         f"got {len(eps)}")
+    return eps
+
+
+def _side_by_side(pops: torch.Tensor, lanes: bool):
+    """(K, N, P) -> the K * N trials in the self-application layout."""
+    k, n, p = pops.shape
+    return _to(pops.reshape(k * n, p), False, lanes)
+
+
+def _classes_stacked(topo: Topology, w: torch.Tensor, lanes: bool,
+                     eps: list, n: int) -> torch.Tensor:
+    """(K, N) class ids: both self-applications once over every lane,
+    each tenant's predicates on its own lanes."""
+    if _applies_on_lanes(topo):
+        wT = w if lanes else w.t()
+        ax = 0
+
+        def apply(t):
+            return apply_popmajor(topo, wT, t)
+    else:
+        wT = w.t() if lanes else w
+        ax = -1
+
+        def apply(t):
+            return apply_to_weights(topo, wT, t)
+    new1 = apply(wT)
+    new2 = apply(new1)
+    on_lanes = ax == 0
+    return torch.stack([classify_applied(
+        _tenant_lanes(wT, t, n, on_lanes), _tenant_lanes(new1, t, n, on_lanes),
+        _tenant_lanes(new2, t, n, on_lanes), e, ax)
+        for t, e in enumerate(eps)])
+
+
+def fixpoint_density_stacked(topo: Topology, pops: torch.Tensor,
+                             epsilons) -> torch.Tensor:
+    """(K, N, P) populations + (K,) epsilons -> (K, 5) int32 class
+    histograms: K tenants' ``fixpoint_density`` sweeps as one batch of
+    K * N nets, each tenant's row bitwise its solo ``fixpoint_density``."""
+    _check_keyless(topo)
+    k, n, _ = pops.shape
+    eps = _epsilons(epsilons, k)
+    classes = _classes_stacked(topo, _side_by_side(pops, False), False, eps,
+                               n)
+    return torch.stack([count_classes(c) for c in classes])
+
+
+def run_fixpoint_stacked(topo: Topology, pops: torch.Tensor,
+                         step_limit: int = 100, epsilons=None,
+                         record: bool = False) -> FixpointRunResult:
+    """Tenant-stacked ``run_fixpoint``: (K, N, P) populations and
+    per-tenant epsilons (a (K,) vector, required), one self-application a
+    step over all K * N lanes (one K1 launch for the weightwise variant on
+    the card); every field of the ``FixpointRunResult`` carries a leading
+    K axis (``trajectory`` (K, steps+1, N, P)), tenant t's bitwise its
+    solo ``run_fixpoint(..., epsilon=epsilons[t])``."""
+    _check_keyless(topo)
+    k, n, p = pops.shape
+    eps = _epsilons(epsilons, k)
+    lanes = _applies_on_lanes(topo)
+    ax = _axis(lanes)
+    w = _side_by_side(pops, lanes)
+    steps = torch.zeros(k * n, dtype=torch.int32, device=pops.device)
+    traj = [w] if record else None
+    for _ in range(step_limit):
+        new = _self_apply(topo, w)
+        active = torch.cat([
+            ~is_diverged(_tenant_lanes(w, t, n, lanes), ax)
+            & ~is_close(_tenant_lanes(new, t, n, lanes),
+                        _tenant_lanes(w, t, n, lanes), e, ax)
+            for t, e in enumerate(eps)])
+        w = torch.where(_per_trial(active, lanes), new, w)
+        steps = steps + active.to(torch.int32)
+        if record:
+            traj.append(w)
+    classes = _classes_stacked(topo, w, lanes, eps, n)
+    rows = _to(w, lanes, False).reshape(k, n, p)
+    return FixpointRunResult(
+        rows, steps.reshape(k, n), classes,
+        torch.stack([count_classes(c) for c in classes]),
+        None if traj is None else
+        _history(traj, lanes).reshape(-1, k, n, p).transpose(0, 1))
+
+
+#: the JAX package's buffer-donating twins (``engine.py:300-306``) let XLA
+#: reuse the input population's buffer; the port's stacked run already
+#: allocates its own lanes, so donation buys nothing here and the names
+#: are the same functions
+run_fixpoint_stacked_donated = run_fixpoint_stacked

@@ -34,6 +34,7 @@ from .init import resolve_device
 from .ops.predicates import CLASS_NAMES
 from .multisoup import MultiSoupState
 from .soup import SoupState
+from .utils.atomicio import atomic_write_text, fsync_dir
 
 _SEP = "/"  # path separator for flattened keys inside npz files
 _VALUE_KEY = "__value__"  # reserved npz key for a bare (non-nested) array
@@ -303,15 +304,9 @@ class Experiment:
 # ---------------------------------------------------------------------------
 
 
-def atomic_write_text(path: str, text: str) -> str:
-    """Publish ``text`` at ``path`` atomically: write a tmp file beside it,
-    fsync, rename over the target, fsync the directory (where the
-    filesystem allows); a run killed mid-write never leaves a torn file
-    (``srnn_tpu/utils/atomicio.py``)."""
-    return _atomic_write(path, lambda f: f.write(text.encode("utf-8")))
-
-
 def _atomic_write(path: str, write) -> str:
+    """``utils.atomicio.atomic_write_bytes`` with the bytes streamed by
+    ``write(file)`` (a ``torch.save``) rather than held in memory."""
     path = os.path.abspath(path)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
@@ -319,17 +314,7 @@ def _atomic_write(path: str, write) -> str:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
-    try:
-        fd = os.open(os.path.dirname(path),
-                     os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
-    except OSError:
-        return path
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
+    fsync_dir(os.path.dirname(path))
     return path
 
 

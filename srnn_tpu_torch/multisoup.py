@@ -289,10 +289,10 @@ def draw_multi(config: MultiSoupConfig, gen: torch.Generator,
                           u_lrn < config.learn_from_rate, t_lrn, fresh)
 
 
-def _resolve_draws(config: MultiSoupConfig, state: MultiSoupState, device,
+def _resolve_draws(config: MultiSoupConfig, gen: torch.Generator, device,
                    draws: Optional[MultiSoupDraws]) -> MultiSoupDraws:
     if draws is None:
-        return draw_multi(config, state.key, device)
+        return draw_multi(config, gen, device)
     n, types = config.total, len(config.topos)
     if len(draws.learn_tgt) != types or len(draws.fresh) != types:
         raise ValueError(f"draws.learn_tgt and draws.fresh need one entry "
@@ -396,68 +396,128 @@ def _record_multi_lineage(lins, win, gen, lin_info, lincfg):
     return tuple(lin._replace(next_pid=running) for lin in new_lins), win
 
 
+def _tenant(x, b: int, stacked: bool):
+    """Trial ``b``'s slice of a stacked field, or the field of a lone
+    soup."""
+    return x[b] if stacked else x
+
+
+def _lanes(parts):
+    """Per-tenant lane blocks side by side (a lone block as it is)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+
+
 def _evolve_multi_generation(config: MultiSoupConfig, state: MultiSoupState,
                              ws, draws: Optional[MultiSoupDraws] = None,
                              lineage=None):
     """One mixed generation on the stored populations ``ws`` in the
     config's layout, (N_t, P_t) row-major or (P_t, N_t) population-major
     (``state.weights`` is carried only for metadata); the JAX package's
-    ``_evolve_multi_step`` and ``_evolve_multi_popmajor``.  Returns
-    (new_state, events, new stored ws in the same layout), and with a
-    ``lineage`` carry (per-type lins, win, (per-type caps, capacity)) the
-    advanced (lins, win) after them."""
+    ``_evolve_multi_step`` and ``_evolve_multi_popmajor``.
+
+    A stacked state (row-major; ``key`` the tuple of the K trials'
+    generators, every other field with a leading trial axis, ``ws`` per
+    type (K, N_t, P_t)) runs its K trials side by side: each trial draws
+    from its own generator and attacks within itself, then each type's
+    learn, train and respawn run on the K * N_t lanes of all trials at
+    once (one launch per type and phase), each trial's learn targets
+    offset into its own lanes, and uids, events and lineage are read per
+    trial.  ``draws`` (one ``MultiSoupDraws``; a stacked state: one per
+    trial) replaces the generators' draws.
+
+    Returns (new_state, events, new stored ws in the same layout), and
+    with ``lineage`` (one (lins, win, (per-type caps, capacity)) carry
+    per trial) the list of each trial's advanced (lins, win) after
+    them."""
     offs = config.offsets
     rowmajor = config.layout == "rowmajor"
     paxis = 0 if rowmajor else -1
     dev = ws[0].device
-    d = _resolve_draws(config, state, dev, draws)
-    ws = [_upcast(config, w, None if state.scales is None
-                  else state.scales[t], paxis=paxis)
-          for t, w in enumerate(ws)]
-    ws, attack_gate, attack_tgt, att_idx = _attack(config, ws, d, dev)
-    lin_info = []
+    stacked = isinstance(state.key, tuple)
+    keys = state.key if stacked else (state.key,)
+    k = len(keys)
 
-    all_uids = torch.cat(state.uids)
-    attack_cp = all_uids[attack_tgt]
+    def scales(t, b):
+        return None if state.scales is None \
+            else _tenant(state.scales[t], b, stacked)
+
+    # per trial: (draws, attacked ws, gate, tgt, att_idx, attack_cp)
+    trials = []
+    for b, key in enumerate(keys):
+        d = _resolve_draws(config, key, dev,
+                           draws[b] if stacked and draws is not None
+                           else draws)
+        w_b = [_upcast(config, _tenant(w, b, stacked), scales(t, b),
+                       paxis=paxis) for t, w in enumerate(ws)]
+        w_b, gate, tgt, att_idx = _attack(config, w_b, d, dev)
+        all_uids = torch.cat([_tenant(u, b, stacked) for u in state.uids])
+        trials.append((d, w_b, gate, tgt, att_idx, all_uids[tgt]))
+
+    zero_deaths = torch.zeros((), dtype=torch.int32, device=dev)
+    total_deaths = [zero_deaths] * k
+    lin_info = [[] for _ in range(k)]
     out_ws, out_scales, new_uids = [], [], []
     actions, counterparts, losses = [], [], []
-    total_deaths = torch.zeros((), dtype=torch.int32, device=dev)
     for t, topo in enumerate(config.topos):
         n_t, sl = config.sizes[t], slice(offs[t], offs[t + 1])
-        if config.learn_from_rate > 0:
-            learn_gate, learn_tgt = d.learn_gate[sl], d.learn_tgt[t]
-        else:
-            learn_gate = torch.zeros(n_t, dtype=torch.bool, device=dev)
-            learn_tgt = torch.zeros(n_t, dtype=torch.int64, device=dev)
-        # learn, train and respawn on the lanes: a row-major type goes
-        # there and back, bitwise as a transpose around each SGD call
-        wT = ws[t].t().contiguous() if rowmajor else ws[t]
+        gates, tgts = [], []
+        for d, *_ in trials:
+            if config.learn_from_rate > 0:
+                gates.append(d.learn_gate[sl])
+                tgts.append(d.learn_tgt[t])
+            else:
+                gates.append(torch.zeros(n_t, dtype=torch.bool, device=dev))
+                tgts.append(torch.zeros(n_t, dtype=torch.int64, device=dev))
+        # learn, train and respawn on the lanes of every trial at once: a
+        # row-major type goes there and back, bitwise as a transpose
+        # around each SGD call
+        wT = _lanes([w_b[t].t().contiguous() if rowmajor else w_b[t]
+                     for _, w_b, *_ in trials])
         wT, loss, dead_div, dead_zero = _type_generation(
-            config, topo, wT, d.fresh[t], learn_gate, learn_tgt)
+            config, topo, wT, _lanes([d.fresh[t] for d, *_ in trials]),
+            _lanes(gates), _lanes([tg + b * n_t for b, tg in enumerate(tgts)]))
 
-        # uid blocks type by type: base = next_uid + earlier types' deaths
-        uids, deaths, death, death_cp = _respawn_uids(
-            state.uids[t], state.next_uid + total_deaths, dead_div,
-            dead_zero)
-        total_deaths = total_deaths + deaths
-        if lineage is not None:
-            lin_info.append((att_idx[sl], learn_gate, learn_tgt,
-                             dead_div | dead_zero))
-        action, counterpart = _event_record(
-            n_t, attack_gate[sl], attack_cp[sl], learn_gate,
-            state.uids[t][learn_tgt], config.train > 0, death, death_cp)
+        type_ws, type_scales, type_uids = [], [], []
+        type_act, type_cp, type_loss = [], [], []
+        for b, (d, _, attack_gate, _, att_idx, attack_cp) in \
+                enumerate(trials):
+            lanes = slice(b * n_t, (b + 1) * n_t)
+            uids0 = _tenant(state.uids[t], b, stacked)
+            # uid blocks type by type: base = next_uid + earlier types'
+            # deaths, per trial
+            uids, deaths, death, death_cp = _respawn_uids(
+                uids0, _tenant(state.next_uid, b, stacked) + total_deaths[b],
+                dead_div[lanes], dead_zero[lanes])
+            total_deaths[b] = total_deaths[b] + deaths
+            if lineage is not None:
+                lin_info[b].append((att_idx[sl], gates[b], tgts[b],
+                                    dead_div[lanes] | dead_zero[lanes]))
+            action, counterpart = _event_record(
+                n_t, attack_gate[sl], attack_cp[sl], gates[b],
+                uids0[tgts[b]], config.train > 0, death, death_cp)
+            stored, sc = _downcast(config, wT[:, lanes], paxis=-1)
+            type_ws.append(stored.t().contiguous() if rowmajor else stored)
+            type_scales.append(sc)
+            type_uids.append(uids)
+            type_act.append(action)
+            type_cp.append(counterpart)
+            type_loss.append(loss[lanes])
 
-        stored, scales = _downcast(config, wT, paxis=-1)
-        out_ws.append(stored.t().contiguous() if rowmajor else stored)
-        out_scales.append(scales)
-        new_uids.append(uids)
-        actions.append(action)
-        counterparts.append(counterpart)
-        losses.append(loss)
+        def join(parts):
+            return torch.stack(parts) if stacked else parts[0]
 
+        out_ws.append(join(type_ws))
+        out_scales.append(None if type_scales[0] is None
+                          else join(type_scales))
+        new_uids.append(join(type_uids))
+        actions.append(join(type_act))
+        counterparts.append(join(type_cp))
+        losses.append(join(type_loss))
+
+    deaths = torch.stack(total_deaths) if stacked else total_deaths[0]
     new_state = MultiSoupState(
         weights=state.weights, uids=tuple(new_uids),
-        next_uid=state.next_uid + total_deaths, time=state.time + 1,
+        next_uid=state.next_uid + deaths, time=state.time + 1,
         key=state.key,
         scales=tuple(out_scales) if config.population_dtype == "int8"
         else None)
@@ -465,21 +525,34 @@ def _evolve_multi_generation(config: MultiSoupConfig, state: MultiSoupState,
                              tuple(losses))
     if lineage is None:
         return new_state, events, out_ws
-    lins, win, lincfg = lineage
-    return (new_state, events, out_ws) + _record_multi_lineage(
-        lins, win, state.time, lin_info, lincfg)
+    lin_wins = []
+    for b, (lins, win, lincfg) in enumerate(lineage):
+        lin_wins.append(_record_multi_lineage(
+            lins, win, _tenant(state.time, b, stacked), lin_info[b], lincfg))
+    return new_state, events, out_ws, lin_wins
 
 
 def _stored_multi(config: MultiSoupConfig, state: MultiSoupState) -> list:
     """The state's per-type populations, checked, in the config's layout
-    (a population-major config transposes each)."""
+    (a population-major config transposes each); a stacked state's keep
+    their leading trial axis (row-major only)."""
     dtype = _pop_dtype(config)
+    stacked = isinstance(state.key, tuple)
+    if stacked:
+        check_tenant_stackable_multi(config)
+    lead = (len(state.key),) if stacked else ()
     for t, (w, topo, n_t) in enumerate(zip(state.weights, config.topos,
                                            config.sizes)):
-        shape = (n_t, topo.num_weights)
+        shape = (*lead, n_t, topo.num_weights)
         if tuple(w.shape) != shape or w.dtype != dtype:
             raise ValueError(f"state.weights[{t}] must be {dtype} {shape}, "
                              f"got {w.dtype} {tuple(w.shape)}")
+        if tuple(state.uids[t].shape) != shape[:-1]:
+            raise ValueError(f"state.uids[{t}] must be {shape[:-1]}, got "
+                             f"{tuple(state.uids[t].shape)}")
+    if tuple(state.next_uid.shape) != lead:
+        raise ValueError(f"state.next_uid must be {lead}, got "
+                         f"{tuple(state.next_uid.shape)}")
     if (state.scales is None) != (config.population_dtype != "int8"):
         raise ValueError("state.scales must hold one (N_t,) float32 vector "
                          "per type for an int8 population, None otherwise")
@@ -495,11 +568,32 @@ def _with_weights(config: MultiSoupConfig, state: MultiSoupState,
     return state._replace(weights=tuple(ws))
 
 
+def check_tenant_stackable_multi(config: MultiSoupConfig) -> None:
+    """Validate that ``config`` may ride the serve tenant axis (see
+    ``soup.check_tenant_stackable``; ``multisoup.py:233`` of the JAX
+    package): parallel row-major only, bitwise-equal per tenant to the
+    solo run."""
+    if config.layout != "rowmajor":
+        raise ValueError(
+            "tenant stacking requires layout='rowmajor': the popmajor "
+            "lane layout's reductions reassociate under the tenant vmap "
+            "axis, breaking the bitwise-equal-to-solo contract")
+
+
+def tenant_stackable_multi(config: MultiSoupConfig) -> bool:
+    """Would this mixed config's evolve ride the serve tenant axis?"""
+    try:
+        check_tenant_stackable_multi(config)
+    except ValueError:
+        return False
+    return True
+
+
 def evolve_multi_step(config: MultiSoupConfig, state: MultiSoupState,
                       draws: Optional[MultiSoupDraws] = None):
     """One mixed generation.  Returns (new_state, events); ``state`` is
     left as it was.  ``draws`` replaces the generator's draws for this
-    generation."""
+    generation (a stacked state: one ``MultiSoupDraws`` per trial)."""
     _check_multi(config)
     new_state, events, ws = _evolve_multi_generation(
         config, _forked(state), _stored_multi(config, state), draws)
@@ -524,9 +618,16 @@ def evolve_multi(config: MultiSoupConfig, state: MultiSoupState,
     (the advanced per-type carries, one shared ``LineageWindow``, per-type
     ``FixpointStats``), each type's window closed on its own
     self-application as the layout computes it.  Returns ``final``, then
-    those asked for in that order (``final`` alone if none is)."""
+    those asked for in that order (``final`` alone if none is).
+
+    A stacked row-major state (``soup.stack_carries`` of K states: the
+    generators' tuple in ``key``, a leading trial axis on every other
+    field) evolves its K trials as one (``_evolve_multi_generation``) and
+    returns every carry with a leading trial axis, trial b's slice
+    bitwise its solo run's; its ``lineage_state`` is stacked the same
+    way."""
     from .soup import (_Meters, _check_lineage_state, _close_window,
-                       _lineage_caps)
+                       _lineage_caps, stack_carries, trial_carry)
     from .telemetry.dynamics import zero_window
 
     _check_multi(config)
@@ -537,43 +638,63 @@ def evolve_multi(config: MultiSoupConfig, state: MultiSoupState,
             "telemetry.dynamics.LineageState per type — seed with "
             "seed_lineage over each type's uid block)")
     ws = _stored_multi(config, state)
+    stacked = isinstance(state.key, tuple)
+    k = len(state.key) if stacked else 1
+    lead = (k,) if stacked else ()
     dev = ws[0].device
-    meters = [_Meters(config, topo, dev, metrics, health)
-              for topo in config.topos]
-    carry = None
+    meters = [[_Meters(config, topo, dev, metrics, health)
+               for topo in config.topos] for _ in range(k)]
+    carries = None
     if lineage:
         for lin, n_t in zip(lineage_state, config.sizes):
-            _check_lineage_state(lin, n_t, dev)
-        carry = (tuple(lineage_state), zero_window(lineage_capacity, dev),
-                 (tuple(_lineage_caps(n_t, config, lineage_capacity)
-                        for n_t in config.sizes), lineage_capacity))
+            _check_lineage_state(lin, n_t, dev, lead)
+        lincfg = (tuple(_lineage_caps(n_t, config, lineage_capacity)
+                        for n_t in config.sizes), lineage_capacity)
+        carries = [(trial_carry(tuple(lineage_state), b) if stacked
+                    else tuple(lineage_state),
+                    zero_window(lineage_capacity, dev), lincfg)
+                   for b in range(k)]
     rowmajor = config.layout == "rowmajor"
     paxis, axis = (0, -1) if rowmajor else (-1, 0)
     state = _forked(state)
 
-    def scales(t):
-        return None if state.scales is None else state.scales[t]
+    def scales(t, b):
+        return None if state.scales is None \
+            else _tenant(state.scales[t], b, stacked)
 
     for _ in range(generations):
-        out = _evolve_multi_generation(config, state, ws, lineage=carry)
+        out = _evolve_multi_generation(config, state, ws, lineage=carries)
         state, events, ws = out[:3]
         if lineage:
-            carry = out[3:] + carry[2:]
-        for t, m in enumerate(meters):
-            m.fold(events.action[t], events.loss[t],
-                   _stored_view(config, ws[t], scales(t), paxis=paxis)
-                   if health else None, axis)
+            carries = [tuple(lw) + c[2:] for lw, c in zip(out[3], carries)]
+        for b, row in enumerate(meters):
+            for t, m in enumerate(row):
+                w_bt = _tenant(ws[t], b, stacked)
+                # the trial's losses copied out of the (K, N_t) record:
+                # the sum reads the same buffer layout as the solo run's
+                m.fold(_tenant(events.action[t], b, stacked),
+                       _tenant(events.loss[t], b, stacked).clone(),
+                       _stored_view(config, w_bt, scales(t, b), paxis=paxis)
+                       if health else None, axis)
     final = _with_weights(config, state, ws)
-    per_type = [m.outputs(w, scales(t), axis)
-                for t, (m, w) in enumerate(zip(meters, ws))]
-    out = (final,) + tuple(zip(*per_type))
-    if lineage:
-        lins, win = carry[:2]
-        closed = [_close_window(config, topo, lin_t, w, scales(t), axis)
-                  for t, (topo, lin_t, w) in enumerate(zip(config.topos,
-                                                           lins, ws))]
-        out += ((tuple(c[0] for c in closed), win,
-                 tuple(c[1] for c in closed)),)
+    outs = []
+    for b, row in enumerate(meters):
+        per_type = [m.outputs(_tenant(w, b, stacked), scales(t, b), axis)
+                    for t, (m, w) in enumerate(zip(row, ws))]
+        out_b = tuple(zip(*per_type))
+        if lineage:
+            lins, win = carries[b][:2]
+            closed = [_close_window(config, topo, lin_t,
+                                    _tenant(w, b, stacked), scales(t, b),
+                                    axis)
+                      for t, (topo, lin_t, w) in enumerate(zip(
+                          config.topos, lins, ws))]
+            out_b += ((tuple(c[0] for c in closed), win,
+                       tuple(c[1] for c in closed)),)
+        outs.append(out_b)
+    carried = (stack_carries(outs) if stacked else outs[0]) if outs[0] \
+        else ()
+    out = (final,) + tuple(carried)
     return out if len(out) > 1 else final
 
 

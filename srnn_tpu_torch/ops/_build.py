@@ -95,6 +95,12 @@ def log_path(name: str, b: Build = DEFAULT) -> Path:
     return library_path(name, b).with_suffix(".log")
 
 
+def _own_file(path: Path) -> Path:
+    """This process's private twin of ``path``, renamed over it when
+    complete."""
+    return path.with_name(f"{path.name}.tmp{os.getpid()}")
+
+
 def _job(job: Job) -> Tuple[str, Build]:
     name, b = (job, DEFAULT) if isinstance(job, str) else job
     if name not in SOURCES:
@@ -105,7 +111,13 @@ def _job(job: Job) -> Tuple[str, Build]:
 def build(jobs: Iterable[Job] = SOURCES) -> Dict[Tuple[str, str], Path]:
     """Compile every library of ``jobs`` that is not built yet, all
     ``nvcc`` processes started together.  Raises with the compiler's output
-    if any fails.  Returns (source, build tag) -> library path."""
+    if any fails.  Returns (source, build tag) -> library path.
+
+    Several processes may build the same library at once (the workers of
+    a serve fleet, a restarted service): each compiles into files of its
+    own (``.tmp<pid>``) and publishes the library, its log and its
+    generated headers by an atomic rename, so no process reads a
+    half-written one."""
     jobs = [_job(j) for j in jobs]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
@@ -114,13 +126,15 @@ def build(jobs: Iterable[Job] = SOURCES) -> Dict[Tuple[str, str], Path]:
         if lib.exists() or (name, b) in running:
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        log = open(log_path(name, b), "w")
+        log = open(_own_file(log_path(name, b)), "w")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR)]
         if b.headers:
             inc = lib.with_suffix(".include")
             inc.mkdir(exist_ok=True)
             for fname, text in b.headers:
-                (inc / fname).write_text(text)
+                own = _own_file(inc / fname)
+                own.write_text(text)
+                os.replace(own, inc / fname)
             cmd += ["-I", str(inc)]
         cmd += [f"-D{k}={v}" for k, v in b.defines]
         cmd += ["-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
@@ -131,6 +145,7 @@ def build(jobs: Iterable[Job] = SOURCES) -> Dict[Tuple[str, str], Path]:
     for (name, b), (proc, log, tmp) in running.items():
         rc = proc.wait()
         log.close()
+        os.replace(log.name, log_path(name, b))
         if rc != 0:
             failed.append(f"{name}.cu {b.tag or 'default'} (nvcc rc {rc}):\n"
                           + log_path(name, b).read_text()[-4000:])

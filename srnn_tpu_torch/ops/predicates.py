@@ -67,7 +67,14 @@ def classify(apply_self: Callable[[torch.Tensor], torch.Tensor],
     """5-way class id per particle (int32), the reference's elif chain as
     nested ``where``."""
     new1 = apply_self(flat)
-    new2 = apply_self(new1)
+    return classify_applied(flat, new1, apply_self(new1), epsilon, axis)
+
+
+def classify_applied(flat: torch.Tensor, new1: torch.Tensor,
+                     new2: torch.Tensor, epsilon: float = DEFAULT_EPSILON,
+                     axis: int = -1) -> torch.Tensor:
+    """``classify`` on the two self-applications already made (``new1`` =
+    f(flat), ``new2`` = f(new1))."""
     div = is_diverged(flat, axis)
     fix1 = is_close(new1, flat, epsilon, axis)
     fix2 = is_close(new2, flat, epsilon, axis)

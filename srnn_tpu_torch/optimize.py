@@ -12,7 +12,8 @@ here scores in the variant's own sample space via ``compute_samples``.
 All shots of a round score as ONE batch of nets, ``(shots + 1, P)`` with
 the incumbent first (the JAX package's ``vmap``); rounds are a host loop
 that reads nothing back.  The forward and the mean are elementwise chains
-in a fixed order, so a net's loss is the same bits wherever it sits in the
+in a fixed order (the MLP products fused into their sums, as XLA's dot
+contracts them), so a net's loss is the same bits wherever it sits in the
 batch and on the card as on the CPU.
 """
 
@@ -22,19 +23,40 @@ import torch
 
 from .init import on_device
 from .nets.dispatch import compute_samples
-from .ops.mlp import mlp_apply, ordered_mean
+from .ops.activations import resolve_activation
+from .ops.flatten import unflatten
+from .ops.mlp import ordered_mean
 from .topology import Topology
 from .train import predict
 
 
+def _fma_matmul(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(..., a) times (..., a, b) -> (..., b) as the chain of fused
+    multiply-adds that XLA's dot runs: the first product rounded, then each
+    further product and its sum taken in float64 (the product of two
+    float32 values is exact there) and rounded once to float32.  The same
+    IEEE operations on either device, so the card equals the CPU."""
+    acc = h[..., 0:1] * m[..., 0:1, :]
+    for i in range(1, m.shape[-2]):
+        acc = (acc.double() + h[..., i:i + 1].double()
+               * m[..., i:i + 1, :].double()).to(acc.dtype)
+    return acc
+
+
 def _predict(topo: Topology, flat: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
-    """``train.predict`` with the MLP variants' forward as explicit
-    multiply-add chains (``mlp_apply``, bit for bit ``mlp_forward`` on the
-    CPU); the recurrent forward is such a chain already."""
+    """``train.predict`` with the MLP variants' forward as chains of fused
+    multiply-adds (:func:`_fma_matmul`), as the JAX package's dot
+    contracts them: a product past float32's range then sums to inf as
+    there, not to NaN.  The recurrent forward is ``train.predict``'s
+    chain."""
     if topo.variant == "recurrent":
         return predict(topo, flat, x)
-    return mlp_apply(topo, flat, x)
+    act = resolve_activation(topo.activation)
+    h = x
+    for m in unflatten(topo, flat):
+        h = act(_fma_matmul(h, m))
+    return h
 
 
 def fixpoint_loss(topo: Topology, flat: torch.Tensor) -> torch.Tensor:

@@ -21,13 +21,30 @@ reproducible points of a mega run:
     real signal, handler and graceful drain.
   * ``sigkill@G`` -- ``kill(self, SIGKILL)``: no cleanup of any kind.
 
+The experiment service's events (``serve``; the service arms them with
+its ``--chaos`` flag and calls :meth:`ChaosMonkey.note_submit` /
+:meth:`ChaosMonkey.serve_dispatch` from its admission and dispatch
+paths):
+
+  * ``serve_kill@N`` -- ``kill(self, SIGKILL)`` at the top of the
+    ``N``-th dispatch attempt (1-based): the admitted tickets are
+    journaled but unfinished, the drill a restart replays.
+  * ``serve_dispatch_fault@N:kind`` -- raise the classified fault
+    ``kind`` (one of :data:`SERVE_FAULT_KINDS`: ``device_loss`` as a CUDA
+    runtime error, ``io`` as an ``EIO`` ``OSError``, ``stall`` as a
+    ``StallError``) at the ``N``-th dispatch attempt, which the service
+    retries.
+  * ``serve_poison_tenant@N`` -- the ``N``-th admitted ticket (1-based;
+    journal replays are admitted first) is poisoned: every dispatch
+    attempt that holds it raises a deterministic (fatal) error, so the
+    service's bisection must isolate it.
+
 Every event fires once per process; an in-process restart keeps the
 consumed schedule.  The schedule is not saved into ``config.json``.
 :func:`parse_schedule` reads the JAX package's grammar (``kind@N[:arg]``,
-comma-separated) and refuses what waits for other tiers, naming the
+comma-separated) and refuses what waits for multi-GPU runs, naming the
 ROADMAP.md item: the survivor count ``device_loss@G:S`` and the slice
-events ``host_loss`` / ``coordinator_timeout`` (multi-GPU runs, A.6), and
-the experiment service's ``serve_*`` events (A.7).
+events ``host_loss`` / ``coordinator_timeout`` (A.6).
 """
 
 from __future__ import annotations
@@ -38,20 +55,23 @@ import signal
 import threading
 from typing import Callable, List, Optional
 
-KINDS = ("device_loss", "stall", "writer", "sigterm", "sigkill")
+KINDS = ("device_loss", "stall", "writer", "sigterm", "sigkill",
+         "serve_kill", "serve_dispatch_fault", "serve_poison_tenant")
+
+#: the ``serve_dispatch_fault`` menu: retryable kinds by the supervisor's
+#: taxonomy
+SERVE_FAULT_KINDS = ("device_loss", "io", "stall")
 
 #: the JAX package's kinds that wait for other tiers, with the ROADMAP.md
 #: item that brings them
 WAITING = {
     "host_loss": "A.6 (multi-GPU runs: slice groups)",
     "coordinator_timeout": "A.6 (multi-GPU runs: the coordinator)",
-    "serve_kill": "A.7 (the experiment service)",
-    "serve_dispatch_fault": "A.7 (the experiment service)",
-    "serve_poison_tenant": "A.7 (the experiment service)",
 }
 
 #: events whose ordinal ``N`` is 1-based
-_ONE_BASED = ("writer",)
+_ONE_BASED = ("writer", "serve_kill", "serve_dispatch_fault",
+              "serve_poison_tenant")
 
 #: how long a condemned finisher holds before giving up on an abort
 DEFAULT_STALL_HOLD_S = 3600.0
@@ -62,12 +82,17 @@ class ChaosEvent:
 
     def __init__(self, kind: str, at: int, arg=None):
         self.kind = kind
-        self.at = int(at)   # generation (writer: 1-based job ordinal)
-        self.arg = arg      # float or None
+        self.at = int(at)   # generation (writer / serve_*: 1-based ordinal)
+        self.arg = arg      # float, a serve fault kind, or None
         self.fired = False
 
     def __repr__(self):
-        suffix = f":{self.arg:g}" if isinstance(self.arg, float) else ""
+        if isinstance(self.arg, float):
+            suffix = f":{self.arg:g}"
+        elif self.arg is not None:
+            suffix = f":{self.arg}"
+        else:
+            suffix = ""
         return (f"ChaosEvent({self.kind}@{self.at}{suffix}"
                 + (" fired" if self.fired else "") + ")")
 
@@ -91,7 +116,12 @@ def parse_schedule(spec: str) -> List[ChaosEvent]:
             arg = None
             if ":" in rest:
                 rest, args_ = rest.split(":", 1)
-                arg = float(args_)
+                try:
+                    arg = float(args_)
+                except ValueError:
+                    # string args are the serve fault menu's spelling
+                    # (serve_dispatch_fault@N:io); validated below
+                    arg = args_
             at = int(rest)
         except ValueError:
             raise ValueError(
@@ -99,7 +129,17 @@ def parse_schedule(spec: str) -> List[ChaosEvent]:
         if kind not in KINDS:
             raise ValueError(
                 f"unknown chaos kind {kind!r} (one of {', '.join(KINDS)})")
-        if at < 0 or (arg is not None and arg < 0):
+        if isinstance(arg, str) and kind != "serve_dispatch_fault":
+            raise ValueError(
+                f"non-numeric argument in chaos entry {entry!r} (string "
+                "args belong to serve_dispatch_fault@N:kind only)")
+        if kind == "serve_dispatch_fault":
+            arg = "io" if arg is None else arg
+            if not isinstance(arg, str) or arg not in SERVE_FAULT_KINDS:
+                raise ValueError(
+                    f"serve_dispatch_fault kind must be one of "
+                    f"{', '.join(SERVE_FAULT_KINDS)}: {entry!r}")
+        if at < 0 or (isinstance(arg, float) and arg < 0):
             raise ValueError(f"negative value in chaos entry {entry!r}")
         if kind in _ONE_BASED and at < 1:
             raise ValueError(
@@ -110,11 +150,28 @@ def parse_schedule(spec: str) -> List[ChaosEvent]:
                 f"{entry!r}: the surviving-device count of device_loss@G:S "
                 "re-ramps a sharded run, which waits for ROADMAP.md A.6 "
                 "(multi-GPU runs); use device_loss@G")
-        if kind in ("writer", "sigterm", "sigkill") and arg is not None:
+        if kind in ("writer", "sigterm", "sigkill", "serve_kill",
+                    "serve_poison_tenant") and arg is not None:
             raise ValueError(f"{kind} takes no argument: {entry!r}")
         events.append(ChaosEvent(kind, at, arg))
     events.sort(key=lambda e: e.at)
     return events
+
+
+def _raise_serve_fault(kind: str, attempt: int) -> None:
+    """Raise the classified fault ``kind`` as production raises it, so the
+    service's supervised dispatch routes it through the supervisor's own
+    ``classify_fault``."""
+    if kind == "io":
+        raise OSError(errno.EIO,
+                      f"chaos: injected io fault in serve dispatch "
+                      f"attempt {attempt}")
+    if kind == "stall":
+        from ..utils.pipeline import StallError
+
+        raise StallError(f"chaos: injected dispatch stall in serve "
+                         f"dispatch attempt {attempt}")
+    _raise_device_loss(attempt)
 
 
 def _raise_device_loss(gen: int) -> None:
@@ -140,6 +197,11 @@ class ChaosMonkey:
         # event after a recovery still holds
         self._holds: List[threading.Event] = []
         self._holds_lock = threading.Lock()
+        #: tickets poisoned by serve_poison_tenant@N: the poison outlives
+        #: its arming event (every attempt holding the ticket raises)
+        self.poisoned_tickets = set()
+        self._serve_submits = 0    # admitted tickets seen (1-based)
+        self._serve_attempts = 0   # dispatch attempts (1-based)
 
     @classmethod
     def from_args(cls, args) -> Optional["ChaosMonkey"]:
@@ -167,7 +229,9 @@ class ChaosMonkey:
         """Fire every due generation-keyed event; called at the top of each
         chunk, before its launches."""
         for ev in self.events:
-            if ev.fired or gen < ev.at or ev.kind in ("writer", "stall"):
+            if ev.fired or gen < ev.at or ev.kind in (
+                    "writer", "stall", "serve_kill", "serve_dispatch_fault",
+                    "serve_poison_tenant"):
                 continue
             ev.fired = True
             if ev.kind == "device_loss":
@@ -226,6 +290,41 @@ class ChaosMonkey:
             return orig(fn, *a, **k)
 
         writer.submit = submit
+
+    def note_submit(self, ticket: str) -> None:
+        """Serve admission hook: count the admitted tickets (journal
+        replays are admitted first, in journal order) and poison the
+        ``N``-th one for any due ``serve_poison_tenant@N``."""
+        self._serve_submits += 1
+        for ev in self.events:
+            if ev.kind == "serve_poison_tenant" and not ev.fired \
+                    and self._serve_submits >= ev.at:
+                ev.fired = True
+                self.poisoned_tickets.add(ticket)
+
+    def serve_dispatch(self, requests) -> None:
+        """Serve dispatch hook, called at the top of every dispatch
+        attempt (retries and bisection halves included).  An attempt that
+        holds a poisoned ticket raises a deterministic error first; then
+        the attempt counter advances and a due ``serve_kill`` /
+        ``serve_dispatch_fault`` fires once."""
+        bad = sorted(r.ticket for r in requests
+                     if r.ticket in self.poisoned_tickets)
+        if bad:
+            raise RuntimeError(
+                "chaos: poisoned tenant config for ticket(s) "
+                + ",".join(bad) + " (deterministic; survives retries)")
+        self._serve_attempts += 1
+        for ev in self.events:
+            if ev.fired or ev.kind not in ("serve_kill",
+                                           "serve_dispatch_fault") \
+                    or self._serve_attempts < ev.at:
+                continue
+            ev.fired = True
+            if ev.kind == "serve_kill":  # pragma: no cover - kills us
+                os.kill(os.getpid(), signal.SIGKILL)
+            else:
+                _raise_serve_fault(str(ev.arg), self._serve_attempts)
 
     def abort_pending(self) -> None:
         """Release the condemned finisher threads (the supervisor calls

@@ -17,8 +17,13 @@ the device, so a seed gives the same populations on either device; they
 cannot reproduce the JAX package's threefry streams.  The soup setups'
 soups carry such CPU generators too and draw there (``evolve_trials``), so
 a seed gives one soup on either device wherever their arithmetic agrees.
-``--service`` (the experiment service, not ported yet: ROADMAP.md, A.7) is
-refused.  The mega runs' chunk loop is :func:`run_mega`.
+``--service SOCKET`` makes ``fixpoint_density`` and ``soup_trajectorys``
+clients of a running experiment service (``python -m
+srnn_tpu_torch.serve``): the service runs the same compute, seeded the
+same way, and the setup writes the same artifacts
+(:func:`submit_to_service`, ``execution_mode`` "service" in
+``config.json``); the other setups accept and ignore the flag, as the
+JAX package's do.  The mega runs' chunk loop is :func:`run_mega`.
 """
 
 import argparse
@@ -66,17 +71,13 @@ STANDARD_VARIANTS: Tuple[Tuple[str, Topology], ...] = (
 
 
 class _Parser(argparse.ArgumentParser):
-    """Refuses the flags whose tier is not ported (``--service`` on every
-    setup; the mega runs' sharding and distributed flags, :func:`refuse`):
-    a run never silently ignores one."""
+    """Refuses the flags whose tier is not ported (the mega runs' sharding
+    and distributed flags, :func:`refuse`): a run never silently ignores
+    one."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
-        self.refusals = [
-            (dest, lambda v: v is not None,
-             f"--{dest.replace('_', '-')}: the experiment service is not "
-             "ported to srnn_tpu_torch (ROADMAP.md, A.7); run without it")
-            for dest in ("service", "service_timeout_s")]
+        self.refusals = []
 
     def parse_args(self, args=None, namespace=None):
         ns = super().parse_args(args, namespace)
@@ -103,12 +104,34 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--smoke", action="store_true",
                    help="shrink all knobs to a seconds-scale sanity run")
     p.add_argument("--service", default=None, metavar="SOCKET",
-                   help="not ported: the experiment service; refused")
-    p.add_argument("--service-timeout-s", type=float, default=None,
-                   metavar="S",
-                   help="not ported: the experiment service's wait; "
-                        "refused")
+                   help="submit this experiment to a running experiment "
+                        "service (python -m srnn_tpu_torch.serve) on the "
+                        "given Unix socket instead of dispatching locally "
+                        "-- the service may stack it with other tenants' "
+                        "requests (bitwise-equal results either way); "
+                        "setups that do not support submit mode ignore "
+                        "this")
+    p.add_argument("--service-timeout-s", type=float, default=600.0,
+                   metavar="S", help="client-side wait budget in submit mode")
     return p
+
+
+def execution_mode(args) -> str:
+    """How this run's compute was dispatched, recorded in config.json so
+    that artifact readers can tell service-stacked runs from solo-process
+    runs."""
+    return "service" if getattr(args, "service", None) else "process"
+
+
+def submit_to_service(args, kind: str, params: dict, tenant: str = None):
+    """Submit one experiment request to the service named by
+    ``args.service`` and block for its result (the setups' submit
+    mode)."""
+    from ..serve.client import ServiceClient
+
+    timeout = getattr(args, "service_timeout_s", 600.0)
+    client = ServiceClient(args.service, timeout_s=timeout)
+    return client.request(kind, params, tenant=tenant, timeout_s=timeout)
 
 
 def device() -> torch.device:
@@ -213,11 +236,11 @@ def log_counters(exp: Experiment, name: str, counts) -> None:
 def save_run_config(run_dir: str, args, fields, extra=None) -> None:
     """Persist the run's knobs (and optional ``extra`` metadata) as
     config.json, atomically, with the JAX package's ``execution_mode``
-    field: always ``"process"``, since ``--service`` is refused."""
+    field ("process" | "service", :func:`execution_mode`)."""
     import json
 
     doc = {k: getattr(args, k) for k in fields}
-    doc.setdefault("execution_mode", "process")
+    doc.setdefault("execution_mode", execution_mode(args))
     doc.update(extra or {})
     atomic_write_text(os.path.join(run_dir, "config.json"),
                       json.dumps(doc, indent=1))
@@ -230,9 +253,8 @@ def save_run_config(run_dir: str, args, fields, extra=None) -> None:
 # fetch_for_checkpoint, update_fleet_gauges) wait for multi-GPU runs
 # (ROADMAP.md, A.6); probe_run_costs (the cost plane) for A.7.
 
-#: the ROADMAP.md items named by the refusals of the mega runs' flags
+#: the ROADMAP.md item named by the refusals of the mega runs' flags
 MULTI_GPU = "ROADMAP.md, A.6 (multi-GPU runs)"
-SERVICE_TIER = "ROADMAP.md, A.7"
 
 
 def load_run_config(run_dir: str, args, fields, legacy_defaults=None) -> None:

@@ -6,7 +6,10 @@ classified immediately with no dynamics (``:54``).  Statistics are a direct
 function of the init law, which matches keras defaults (``init.py``).
 Port of ``srnn_tpu/setups/fixpoint_density.py``; each batch is drawn from a
 generator seeded from (seed, variant index, batch offset), not the JAX
-package's streams.
+package's streams.  ``--service SOCKET`` submits the sweep to a running
+experiment service, which draws the same batches (stacked with other
+tenants of the same shapes, bitwise equal), and writes the same
+artifacts.
 """
 
 import torch
@@ -14,7 +17,8 @@ import torch
 from ..engine import fixpoint_density
 from ..experiment import Experiment
 from .common import (STANDARD_VARIANTS, base_parser, device, log_counters,
-                     population, register, save_run_config)
+                     population, register, save_run_config,
+                     submit_to_service)
 
 
 def build_parser():
@@ -28,12 +32,29 @@ def build_parser():
 def run(args):
     if args.smoke:
         args.trials, args.batch = 64, 32
-    dev = device()
     variants = STANDARD_VARIANTS[:2]  # WW + Agg, like the reference (:42-43)
+    dev = None if args.service else device()
     with Experiment("fixpoint_density", root=args.root, seed=args.seed) as exp:
         # the draws are seeded per batch on the cumulative sample count, so
         # reproducing a run needs trials AND batch: record the invocation
+        # (execution_mode says whether a service computed it)
         save_run_config(exp.dir, args, ("trials", "batch", "epsilon"))
+        if args.service:
+            # submit mode: the service runs the same sweep and this
+            # process only logs and saves the artifacts
+            result = submit_to_service(
+                args, "fixpoint_density",
+                {"seed": args.seed, "trials": args.trials,
+                 "batch": args.batch, "epsilon": args.epsilon},
+                tenant=f"fixpoint_density-seed{args.seed}")
+            all_names = result["variant_names"]
+            all_counters = [torch.tensor(c, dtype=torch.int32)
+                            for c in result["counters"]]
+            for name, total in zip(all_names, all_counters):
+                log_counters(exp, name, total)
+            exp.save(all_counters=torch.stack(all_counters),
+                     all_names=all_names)
+            return exp.dir
         all_counters, all_names = [], []
         for i, (name, topo) in enumerate(variants):
             total = torch.zeros(5, dtype=torch.int32, device=dev)

@@ -11,14 +11,21 @@ writes ``checkpoint/`` (``experiment.save_checkpoint``).  ``--store``
 streams every ``--capture-every``-th generation to ``soup.traj`` in the run
 directory (``utils.evolve_captured``; the file format of the JAX package's
 ``read_store``) instead of keeping the history on the device -- the
-mega-soup path.
+mega-soup path.  ``--service SOCKET`` (without ``--store``) submits the
+soup to a running experiment service, which evolves it seeded the same
+way (stacked with matching tenants, bitwise equal) and returns the
+counters and the final state; the per-generation history is not
+batched, so a run that needs it dispatches locally.
 """
+
+import numpy as np
 
 from ..experiment import Experiment, format_counters, save_checkpoint
 from ..soup import ACTION_NAMES, SoupConfig, count, evolve, seed
 from ..topology import Topology
 from ..utils import TrajStore, evolve_captured
-from .common import base_parser, device, generator, register
+from .common import (base_parser, device, generator, register,
+                     save_run_config, submit_to_service)
 
 
 def build_parser():
@@ -44,7 +51,8 @@ def build_parser():
 def run(args):
     if args.smoke:
         args.soup_size, args.generations, args.train = 6, 5, 2
-    dev = device()
+    submit = args.service and not args.store
+    dev = None if submit else device()
     topo = Topology("weightwise", width=2, depth=2)
     cfg = SoupConfig(
         topo=topo, size=args.soup_size, attacking_rate=args.attacking_rate,
@@ -52,6 +60,30 @@ def run(args):
         remove_divergent=True, remove_zero=True,
         epsilon=args.epsilon, train_mode=args.train_mode)
     with Experiment("soup", root=args.root, seed=args.seed) as exp:
+        if submit:
+            save_run_config(exp.dir, args,
+                            ("soup_size", "generations", "train",
+                             "attacking_rate", "epsilon", "train_mode"))
+            result = submit_to_service(
+                args, "soup",
+                {"seed": args.seed, "size": args.soup_size,
+                 "generations": args.generations, "train": args.train,
+                 "attacking_rate": args.attacking_rate,
+                 "learn_from_rate": -1.0, "remove_divergent": True,
+                 "remove_zero": True, "epsilon": args.epsilon,
+                 "train_mode": args.train_mode},
+                tenant=f"soup-seed{args.seed}")
+            counts = np.asarray(result["counters"], np.int32)
+            exp.log(format_counters(counts), counts=counts)
+            exp.save(action_names=list(ACTION_NAMES), all_counters=counts)
+            # the final state under its own artifact name: "soup" is the
+            # (G, N, P) history, which readers take as the time axis.  The
+            # service omits the state above a size ceiling.
+            if "weights" in result:
+                exp.save(soup_final={
+                    "weights": np.asarray(result["weights"], np.float32),
+                    "uids": np.asarray(result["uids"], np.int32)})
+            return exp.dir
         state = seed(cfg, generator(args.seed), dev)
         if args.store:
             with TrajStore(f"{exp.dir}/soup.traj", cfg.size,

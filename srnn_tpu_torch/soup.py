@@ -368,6 +368,42 @@ def _check_config(config: SoupConfig) -> None:
                         config.layout)
 
 
+def check_tenant_stackable(config: SoupConfig) -> None:
+    """Validate that ``config`` may ride the serve tenant axis
+    (``serve.tenant``; ``check_tenant_stackable``, ``soup.py:832`` of the
+    JAX package): K soups of this config with different seeds stacked
+    into one (K, N, P) state (``stack``), each trial's slice of the
+    stacked run bitwise its solo run.
+
+    Only the parallel row-major path qualifies, as in the JAX package:
+    there one launch per phase serves the K * N rows, each row its own
+    lane.  The population-major layout stays solo (the JAX package's
+    lane reductions reassociate under its tenant vmap; this port's
+    per-lane kernels would not, but the port adds no stacking the JAX
+    package lacks), and the sequential strict-parity mode is a
+    per-particle validation mode with nothing to amortize.  The serve
+    scheduler falls back to solo dispatch for configs that fail this
+    check."""
+    if config.mode != "parallel":
+        raise ValueError(
+            "tenant stacking rides the parallel step; "
+            f"mode={config.mode!r} is unsupported (solo dispatch only)")
+    if config.layout != "rowmajor":
+        raise ValueError(
+            "tenant stacking requires layout='rowmajor': the popmajor "
+            "lane layout's reductions reassociate under the tenant vmap "
+            "axis, breaking the bitwise-equal-to-solo contract")
+
+
+def tenant_stackable(config: SoupConfig) -> bool:
+    """Would this config's evolve ride the serve tenant axis?"""
+    try:
+        check_tenant_stackable(config)
+    except ValueError:
+        return False
+    return True
+
+
 def draw(config: SoupConfig, gen: torch.Generator,
          device) -> SoupDraws:
     """One generation's draws from ``gen``, in a fixed order, made on the
@@ -690,8 +726,10 @@ def _rowmajor_generation(config: SoupConfig, state: SoupState,
     ``SoupDraws`` each).  Each trial's attack and learn targets index
     within its own trial (a ``b * N`` offset on the flattened rows), and
     every phase runs on all B * N rows: one kernel launch per phase.
-    Returns (new stacked state, events (B, N)), and with a ``lineage``
-    carry (one soup, B = 1) the advanced (lin, win) after them."""
+    Returns (new stacked state, events (B, N)), and with ``lineage`` (one
+    (lin, win, (caps, capacity)) carry per trial) the list of each
+    trial's advanced (lin, win) after them: every trial's gates are read
+    in its own indices, so its carry is the one its solo run advances."""
     b, n, p = state.weights.shape
     topo = config.topo
     dev = state.weights.device
@@ -762,9 +800,15 @@ def _rowmajor_generation(config: SoupConfig, state: SoupState,
                         train_loss.reshape(b, n))
     if lineage is None:
         return new_state, events
-    return (new_state, events) + _record_lineage(
-        lineage, state.time[0], att_idx, learn_gate, learn_tgt,
-        dead_div | dead_zero)
+    dead = dead_div | dead_zero
+    lin_wins = []
+    for t, carry in enumerate(lineage):
+        rows_t = slice(t * n, (t + 1) * n)
+        att_t = att_idx[rows_t]
+        lin_wins.append(_record_lineage(
+            carry, state.time[t], torch.where(att_t >= 0, att_t - t * n, -1),
+            learn_gate[rows_t], learn_tgt[rows_t], dead[rows_t]))
+    return new_state, events, lin_wins
 
 
 def _evolve_sequential(config: SoupConfig, state: SoupState,
@@ -849,14 +893,7 @@ def stack(states: Sequence[SoupState]) -> SoupState:
     """B soups of one config as one stacked state (a leading trial axis on
     every field, ``key`` the tuple of their generators), which the
     row-major ``evolve_step`` / ``evolve`` / ``count`` take."""
-    scales = [s.scales for s in states]
-    return SoupState(
-        torch.stack([s.weights for s in states]),
-        torch.stack([s.uids for s in states]),
-        torch.stack([s.next_uid for s in states]),
-        torch.stack([s.time for s in states]),
-        tuple(s.key for s in states),
-        None if scales[0] is None else torch.stack(scales))
+    return stack_carries(list(states))
 
 
 def _stacked(config: SoupConfig, state: SoupState) -> Tuple[SoupState, bool]:
@@ -1067,11 +1104,41 @@ def _close_window(config, topo: Topology, lin, w: torch.Tensor, scales,
     return close_window(lin, wc, fw, axis, config.epsilon)
 
 
-def _check_lineage_state(lin, n: int, device) -> None:
-    if tuple(lin.pid.shape) != (n,) or lin.pid.device != device:
-        raise ValueError(f"lineage_state must hold ({n},) tensors on "
+def _check_lineage_state(lin, n: int, device, lead: tuple = ()) -> None:
+    shape = (*lead, n)
+    if tuple(lin.pid.shape) != shape or lin.pid.device != device:
+        raise ValueError(f"lineage_state must hold {shape} tensors on "
                          f"{device}, got {tuple(lin.pid.shape)} on "
                          f"{lin.pid.device}")
+
+
+def stack_carries(items: Sequence):
+    """K same-shaped carries or states (tensors, or named tuples and
+    tuples of them, nested) as one, each tensor stacked on a new leading
+    trial axis; the generators of K states become the stacked state's
+    tuple ``key`` and a ``None`` field stays ``None``."""
+    first = items[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Generator):   # a stacked state's key
+        return tuple(items)
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(items))
+    parts = [stack_carries(xs) for xs in zip(*items)]
+    return type(first)(*parts) if hasattr(first, "_fields") \
+        else type(first)(parts)
+
+
+def trial_carry(tree, t: int):
+    """Trial ``t``'s slice of a stacked carry (``stack_carries``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor) or (
+            tree and isinstance(tree[0], torch.Generator)):
+        return tree[t]
+    parts = [trial_carry(x, t) for x in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") \
+        else type(tree)(parts)
 
 
 def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
@@ -1089,9 +1156,13 @@ def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
     and (G, B, N, P)), preallocated on the population's device; an int8
     population records its dequantized float32 view.
 
-    The device telemetry carries (``telemetry``; one soup, not a stacked
-    state), folded once a generation on the population's device with no
-    read on the host, the evolved state bit for bit the unmetered run's:
+    The device telemetry carries (``telemetry``), folded once a
+    generation on the population's device with no read on the host, the
+    evolved state bit for bit the unmetered run's.  A stacked (row-major)
+    state folds one carry per trial from the trial's own slice and
+    returns each with a leading trial axis (``stack_carries``), trial b's
+    slice bitwise its solo run's carry; its ``lineage_state`` is stacked
+    the same way (pids minted per trial):
 
       * ``metrics=True``: a ``telemetry.device.SoupMetrics`` (the action
         histogram and summed train loss of the event record);
@@ -1121,21 +1192,21 @@ def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
             raise ValueError("lineage=True needs lineage_state= (seed one "
                              "with telemetry.dynamics.seed_lineage)")
     metered = metrics or health or lineage
-    if metered and isinstance(state.key, tuple):
-        raise ValueError(
-            "metrics=, health= and lineage= carry one population's "
-            "telemetry; evolve the trials of a stacked state one by one")
-    meters = None
-    if metered:
+
+    def lone_meters():
+        """The carries of a lone (unstacked) soup, or None."""
+        if not metered:
+            return None
         dev = state.weights.device
         if lineage:
             _check_lineage_state(lineage_state, config.size, dev)
-        meters = _Meters(config, config.topo, dev, metrics, health,
-                         lineage_state if lineage else None,
-                         lineage_capacity)
+        return _Meters(config, config.topo, dev, metrics, health,
+                       lineage_state if lineage else None, lineage_capacity)
+
     rec = None
     if config.mode == "sequential":
         state = _sequential(config, state)
+        meters = lone_meters()
         if record:
             rec = _Record(config, generations, (), state.weights.device)
         for g in range(generations):
@@ -1149,6 +1220,7 @@ def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
                                                            None, -1)
     elif config.layout == "popmajor":
         wT = _popmajor(config, state)
+        meters = lone_meters()
         state = _forked(state)
         if record:
             rec = _Record(config, generations, (), wT.device)
@@ -1170,26 +1242,44 @@ def evolve(config: SoupConfig, state: SoupState, generations: int = 1,
                                                            0)
     else:
         trials, is_stacked = _stacked(config, _forked(state))
+        b = len(trials.key)
+        dev = trials.weights.device
         if record:
-            lead = (len(trials.key),) if is_stacked else ()
-            rec = _Record(config, generations, lead, trials.weights.device)
+            lead = (b,) if is_stacked else ()
+            rec = _Record(config, generations, lead, dev)
+        per_trial = []   # one _Meters per trial, each folding its slice
+        if metered:
+            lins = [None] * b
+            if lineage:
+                _check_lineage_state(lineage_state, config.size, dev,
+                                     (b,) if is_stacked else ())
+                lins = [trial_carry(lineage_state, t) for t in range(b)] \
+                    if is_stacked else [lineage_state]
+            per_trial = [_Meters(config, config.topo, dev, metrics, health,
+                                 lins[t], lineage_capacity)
+                         for t in range(b)]
         for g in range(generations):
             out = _rowmajor_generation(
                 config, trials,
-                lineage=None if meters is None else meters.lineage)
+                lineage=[m.lineage for m in per_trial] if lineage else None)
             trials, events = out[:2]
             view = _rows_view(config, trials) if (health or record) else None
             if record:
                 rec.put(g, events, view, trials.uids)
-            if meters is not None:
-                meters.fold(events.action, events.loss,
-                            view.reshape(config.size, -1) if health
-                            else None, -1)
+            for t, m in enumerate(per_trial):
+                # the trial's losses copied out of the (B, N) record: the
+                # sum reads the same buffer layout as the solo run's
+                m.fold(events.action[t], events.loss[t].clone(),
+                       view[t] if health else None, -1)
                 if lineage:
-                    meters.advance(out[2:])
+                    m.advance(out[2][t])
         final = _unstacked(trials, is_stacked)
-        carries = () if meters is None else meters.outputs(
-            final.weights, final.scales, -1)
+        outs = [m.outputs(trials.weights[t],
+                          None if trials.scales is None else trials.scales[t],
+                          -1)
+                for t, m in enumerate(per_trial)]
+        carries = () if not outs else (
+            stack_carries(outs) if is_stacked else outs[0])
     out = (final,) + ((rec.result(),) if record else ()) + carries
     return out if len(out) > 1 else final
 

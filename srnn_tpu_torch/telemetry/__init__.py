@@ -21,8 +21,10 @@ soup_metrics, flightrec and genealogy modules).
     live plane (``exporter``), the host sampling profiler and anomaly
     capture (``profiler``).
 
-The experiment service's rules and the other serve-tier modules wait for
-ROADMAP.md A.7; the sharded reductions and the fleet readers for A.6.
+  * **The experiment service's** tail-kept trace exemplars
+    (``exemplars``) and its alert rule tables (``alerts``).
+
+The sharded reductions and the fleet readers wait for ROADMAP.md A.6.
 """
 
 from .device import (N_ACTIONS, N_HEALTH_BUCKETS, HealthStats, SoupMetrics,
@@ -38,7 +40,8 @@ from .flightrec import (FlightRecorder, StallSentinel, Watchdog,
 from .heartbeat import Heartbeat, device_memory_stats, rss_bytes
 from .tracing import Span, SpanStream, annotate, span
 from .timeseries import MetricHistory, sparkline, summarize_history
-from .alerts import AlertEngine, Rule, default_run_rules
+from .alerts import (AlertEngine, Rule, default_pool_rules,
+                     default_run_rules, default_serve_rules)
 from .exporter import LivePlane, MetricsExporter, healthz_metrics
 from .profiler import (AnomalyCapture, SamplingProfiler, capture_index,
                        update_utilization_gauges, utilization_from_pipeline)
@@ -65,7 +68,8 @@ __all__ = [
     "Heartbeat", "device_memory_stats", "rss_bytes",
     "Span", "SpanStream", "annotate", "span",
     "MetricHistory", "sparkline", "summarize_history",
-    "AlertEngine", "Rule", "default_run_rules",
+    "AlertEngine", "Rule", "default_pool_rules", "default_run_rules",
+    "default_serve_rules",
     "LivePlane", "MetricsExporter", "healthz_metrics",
     "AnomalyCapture", "SamplingProfiler", "capture_index",
     "update_utilization_gauges", "utilization_from_pipeline",

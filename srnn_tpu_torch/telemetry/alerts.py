@@ -1,5 +1,6 @@
 """Declarative alert engine over the registry and its history rings; port
-of ``srnn_tpu/telemetry/alerts.py`` (its run rules).
+of ``srnn_tpu/telemetry/alerts.py`` (the run, serve and pool rule
+tables).
 
 An :class:`AlertEngine` evaluates a small :class:`Rule` table at every
 history sample (once a chunk):
@@ -15,8 +16,8 @@ Rules latch per name: the ``firing`` and ``cleared`` edges are reported
 once each.  Every firing increments ``soup_alerts_total{rule=}``, the
 active count rides the ``soup_alerts_active`` gauge, and the caller emits
 each transition as a ``{"kind": "alert"}`` events row
-(``exporter.LivePlane``).  The experiment service's and the serve fleet's
-rule tables wait for the service (ROADMAP.md, A.7).
+(``exporter.LivePlane``; the experiment service and its fleet front
+emit their own).
 """
 
 import threading
@@ -82,6 +83,41 @@ def default_run_rules(*, nan_frac: float = 0.02, zero_frac: float = 0.9,
         Rule(name="soup_watchdog_burn", metric="soup_watchdog_trips_total",
              kind="rate", op=">", value=0.0, window_s=600.0,
              help="watchdog trips arriving (anomalous chunks)"),
+    ]
+
+
+def default_serve_rules(*, max_queue: int = 0,
+                        window_s: float = 60.0) -> List[Rule]:
+    """The experiment service's rule table.  The queue-depth bound is
+    ``--max-queue`` when admission control is armed (depth AT the bound
+    means submits are being rejected) and a generous default otherwise."""
+    depth = float(max_queue) if max_queue else 512.0
+    return [
+        Rule(name="serve_queue_full", metric="serve_queue_depth",
+             kind="threshold", op=">=", value=depth,
+             help="dispatch queue at the admission bound"),
+        Rule(name="serve_slo_burn", metric="serve_slo_violations_total",
+             kind="rate", op=">", value=0.0, window_s=window_s,
+             help="requests exceeding the --slo-p95-ms target"),
+        Rule(name="serve_overload", metric="serve_overload_rejections_total",
+             kind="rate", op=">", value=0.0, window_s=window_s,
+             help="submits rejected at admission"),
+    ]
+
+
+def default_pool_rules(*, workers: int,
+                       window_s: float = 60.0) -> List[Rule]:
+    """The serve fleet's rule table (the front process's engine, layered
+    on ``default_serve_rules``): a fleet running below its configured
+    worker count, and worker deaths arriving at all, both page -- the
+    replay ladder heals the work, the alert names the capacity loss."""
+    return [
+        Rule(name="serve_worker_down", metric="serve_workers",
+             kind="threshold", op="<", value=float(workers),
+             help="live workers below the configured --workers count"),
+        Rule(name="serve_worker_churn", metric="serve_worker_deaths_total",
+             kind="rate", op=">", value=0.0, window_s=window_s,
+             help="worker processes dying (replay ladder active)"),
     ]
 
 

@@ -107,9 +107,11 @@ def _multi_frame(config: MultiSoupConfig, state: MultiSoupState, events):
 
 
 def _append(stores, t, ws, uids, action, counterpart, loss) -> None:
+    """Store i takes entry i of every field (type i of a mixed soup, or
+    trial i of a stacked one, whose ``t`` holds one time per trial)."""
     for i, store in enumerate(stores):
-        store.append(int(t), ws[i], uids[i], action[i], counterpart[i],
-                     loss[i])
+        store.append(int(t[i] if t.ndim else t), ws[i], uids[i], action[i],
+                     counterpart[i], loss[i])
 
 
 def _append_snapshot(stores, snap) -> None:

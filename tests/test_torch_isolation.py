@@ -62,7 +62,15 @@ for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
              "srnn_tpu_torch.reference_artifacts", "srnn_tpu_torch.proto",
              "srnn_tpu_torch.optimize", "srnn_tpu_torch.utils.debug",
              "srnn_tpu_torch.utils.profiling",
-             "srnn_tpu_torch.utils.printing"):
+             "srnn_tpu_torch.utils.printing",
+             "srnn_tpu_torch.utils.atomicio",
+             "srnn_tpu_torch.telemetry.exemplars", "srnn_tpu_torch.serve",
+             "srnn_tpu_torch.serve.__main__", "srnn_tpu_torch.serve.client",
+             "srnn_tpu_torch.serve.controller",
+             "srnn_tpu_torch.serve.journal", "srnn_tpu_torch.serve.pool",
+             "srnn_tpu_torch.serve.scheduler",
+             "srnn_tpu_torch.serve.server", "srnn_tpu_torch.serve.service",
+             "srnn_tpu_torch.serve.tenant"):
     assert name in names, name
 """
 

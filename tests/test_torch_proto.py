@@ -19,11 +19,12 @@ Tolerances:
     The diverging net is one whose every product overflows on its own:
     between about 3e9 and 1e20 an XLA dot, which contracts its
     multiply-adds into FMAs, sums an overflowed product and a finite one
-    to inf where the port's separate multiply and add (the card's and the
-    CPU's alike) sum two overflowed products to NaN, so the classes of
-    non-finite loss differ there, and with them the shot chosen
-    (ROADMAP.md, C).  ``test_hillclimb_overflow_band_differs_from_jax``
-    pins that difference at std 1e12: a change to it fails the test.
+    to inf, where separate multiplies and adds would sum two overflowed
+    products to NaN.  The port's climber scores with the same fused
+    chains (``optimize._fma_matmul``: the product and the sum in float64,
+    rounded once), so ``test_hillclimb_overflow_band_differs_from_jax``
+    holds the two to the same shots at std 1e10 and 1e12 (ROADMAP.md, C,
+    fixed).
 """
 
 import jax
@@ -211,32 +212,31 @@ def test_hillclimb_matches_jax(jax_climbs, variant, scale, std):
 
 
 def test_hillclimb_overflow_band_differs_from_jax(jax_climbs):
-    """The known gap (ROADMAP.md, C): shots of weights about 1e12 score inf
-    in JAX (its dot contracts into FMAs) and partly NaN in the port.  JAX
-    keeps the finite incumbent every round; the port takes the first NaN
-    shot of round 0 (``jnp.argmin``'s rule) and keeps it, its trace NaN."""
-    std = 1e12
-    w0, noise, jbest, jtrace = jax_climbs["weightwise", 0.5, std]
-    jtopo = JTopology(**TOPOS["weightwise"])
-    topo = convert.topology_from_fields(TOPOS["weightwise"])
-    w = torch.from_numpy(w0)
-    cands = torch.cat([w[None], w[None] + torch.tensor(noise[0]) * std])
-    jloss = np.asarray(jax.vmap(lambda x: joptimize.fixpoint_loss(
-        jtopo, x))(jnp.asarray(cands.numpy())))
-    loss = optimize.fixpoint_loss(topo, cands).numpy()
-    # the same finite pattern: the incumbent alone is finite
-    assert np.isfinite(jloss[0]) and not np.isfinite(jloss[1:]).any()
-    np.testing.assert_array_equal(np.isfinite(loss), np.isfinite(jloss))
-    # the class of the non-finite losses: all inf in JAX, some NaN here
-    assert np.isposinf(jloss[1:]).all()
-    nan = np.flatnonzero(np.isnan(loss))
-    assert nan.size > 0
-    best, trace = optimize.hillclimb(topo, w, None, SHOTS, ROUNDS, std,
-                                     noise=noise)
-    np.testing.assert_array_equal(jbest, w0)
-    np.testing.assert_array_equal(jtrace, np.full(ROUNDS, jloss[0]))
-    assert torch.equal(best, cands[nan[0]])
-    assert torch.isnan(trace).all()
+    """The band where the two once differed (ROADMAP.md, C, fixed): shots
+    of weights about 1e10 and 1e12 overflow every product on its own.
+    JAX's dot contracts its multiply-adds into FMAs, which sum an
+    overflowed product to inf; the port's climber scores with the same
+    fused chains (``optimize._fma_matmul``), so its losses are the same
+    classes of non-finite (all inf), JAX keeps the finite incumbent every
+    round, and so does the port."""
+    for std in (1e10, 1e12):
+        w0, noise, jbest, jtrace = jax_climbs["weightwise", 0.5, std]
+        jtopo = JTopology(**TOPOS["weightwise"])
+        topo = convert.topology_from_fields(TOPOS["weightwise"])
+        w = torch.from_numpy(w0)
+        cands = torch.cat([w[None], w[None] + torch.tensor(noise[0]) * std])
+        jloss = np.asarray(jax.vmap(lambda x: joptimize.fixpoint_loss(
+            jtopo, x))(jnp.asarray(cands.numpy())))
+        loss = optimize.fixpoint_loss(topo, cands).numpy()
+        # the incumbent alone is finite, every shot inf, on both sides
+        assert np.isfinite(jloss[0]) and np.isposinf(jloss[1:]).all()
+        np.testing.assert_array_equal(np.isposinf(loss), np.isposinf(jloss))
+        assert not np.isnan(loss).any()
+        best, trace = optimize.hillclimb(topo, w, None, SHOTS, ROUNDS, std,
+                                         noise=noise)
+        np.testing.assert_array_equal(jbest, w0)
+        np.testing.assert_array_equal(best.numpy(), jbest)
+        _close(trace.numpy(), jtrace, 5e-6)
 
 
 def test_hillclimb_own_draws():

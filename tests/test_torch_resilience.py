@@ -127,8 +127,7 @@ def test_parse_schedule_matches_jax(spec):
 
 @pytest.mark.parametrize("spec, item", [
     ("device_loss@4:2", "A.6"), ("host_loss@3", "A.6"),
-    ("coordinator_timeout@2", "A.6"), ("serve_kill@1", "A.7"),
-    ("serve_dispatch_fault@1:io", "A.7")])
+    ("coordinator_timeout@2", "A.6")])
 def test_parse_schedule_refuses_what_waits(spec, item):
     jres.parse_schedule(spec)  # the JAX package takes it
     with pytest.raises(ValueError, match=item):
@@ -139,6 +138,25 @@ def test_parse_schedule_refuses_what_waits(spec, item):
 
     with pytest.raises(SystemExit, match=item):
         res.ChaosMonkey.from_args(A())
+
+
+@pytest.mark.parametrize("spec", [
+    "serve_kill@1", "serve_dispatch_fault@1:io",
+    "serve_dispatch_fault@2:stall,serve_poison_tenant@3"])
+def test_parse_schedule_takes_the_serve_events(spec):
+    """The experiment service's events parse as the JAX package's do (they
+    were refused, naming A.7, before the service was ported), and a mega
+    run's chunk hook never fires them."""
+    got = [(e.kind, e.at, e.arg) for e in res.parse_schedule(spec)]
+    assert got == [(e.kind, e.at, e.arg) for e in jres.parse_schedule(spec)]
+
+    class A:
+        chaos = spec
+        stall_timeout_s = 0.0
+
+    monkey = res.ChaosMonkey.from_args(A())
+    monkey.chunk_start(100)
+    assert len(monkey.pending) == len(got)
 
 
 def test_chaos_from_args_validates_stall_needs_timeout():

@@ -256,14 +256,18 @@ def test_rowmajor_refusals_and_default():
         with pytest.raises(ValueError, match=match):
             st.evolve(cfg._replace(**bad), s0, 1)
     assert int(st.evolve(cfg._replace(mode="sequential"), s0, 1).time) == 1
-    # the telemetry carries (tests/test_torch_telemetry.py) take one soup:
-    # a stacked state with a flag raises, a lone one evolves as unmetered
+    # the telemetry carries (tests/test_torch_telemetry.py) of a stacked
+    # state come one per trial on a leading trial axis, each the lone
+    # soup's; a lone one evolves as unmetered
     stacked = psoup.stack([s0, s0])
-    with pytest.raises(ValueError, match="stacked state"):
-        st.evolve(cfg, stacked, 1, metrics=True)
+    _, ms = st.evolve(cfg, stacked, 1, metrics=True)
     metered, m = st.evolve(cfg, s0, 1, metrics=True)
     assert torch.equal(metered.weights, st.evolve(cfg, s0, 1).weights)
     assert int(m.generations) == 1 and int(m.actions.sum()) == N
+    assert tuple(ms.actions.shape) == (2, 7)
+    for t in range(2):
+        assert torch.equal(ms.actions[t], m.actions)
+        assert torch.equal(ms.loss_sum[t], m.loss_sum)
     # the popmajor layout takes no trial axis
     with pytest.raises(ValueError, match="rowmajor"):
         st.evolve(cfg._replace(layout="popmajor"), stacked, 1)
