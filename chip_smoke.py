@@ -177,6 +177,19 @@ Phases, each fatal on failure:
    then, to inform, the sequential weightwise soup at soup_trajectorys'
    size (exactly one K2 launch per particle a generation), its ms per
    generation and final classes beside BASELINE.md's;
+6b. the multi-GPU soups, last (``multigpu_path``,
+   ``srnn_tpu_torch.parallel`` over ``torch.distributed``): a world of
+   one rank over NCCL and of two over gloo on the one card
+   (``torch.multiprocessing.spawn``), the N = 1M fused weightwise soup
+   and, in the world of two, the compact phase chain, the int8 population
+   and the N = 30,000 mixed soup in both layouts, each bitwise equal to
+   its solo run in this process with every rank's launches exact (K3 over
+   500,000 lanes a rank); the launcher (``python -m
+   srnn_tpu_torch.distributed.launch --processes 2 -- mega_soup --sharded
+   --dist-backend gloo``) and its ``host_loss@10`` drill (exit 3), each
+   final checkpoint bitwise the solo run's; with two cards or more the
+   world of two over NCCL, one card a rank; and, to inform, ms a
+   generation solo, world 1 and world 2 and the gathers' share;
 7. one JSON line listing every kernel (K3 once per variant body and
    population dtype, K6 once per victim length, K2's shuffled
    instantiation on its own row; then a row per build off the default one,
@@ -4545,6 +4558,418 @@ def serve_path(torch, kernels, totals):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------- multi-GPU
+
+#: the sharded soups' jobs of phase "multi-GPU": name -> (kind, config
+#: fields, generations); the weightwise fused soup at N = 1M is the
+#: phase's main run (timed, gather share)
+MULTI_GPU_N_MIXED = 30_000
+MULTI_GPU_GENERATIONS = 20
+
+
+def multigpu_configs():
+    """The phase's configurations by name: (kind, config)."""
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+
+    ww = st.SoupConfig(
+        topo=st.Topology("weightwise", width=2, depth=2), size=N,
+        attacking_rate=0.1, learn_from_rate=0.1, learn_from_severity=1,
+        train=10, remove_divergent=True, remove_zero=True,
+        respawn_draws="fused", layout="popmajor", generation_impl="fused")
+    third = MULTI_GPU_N_MIXED // 3
+    mixed = ms.MultiSoupConfig(
+        topos=(st.Topology("weightwise", width=2, depth=2),
+               st.Topology("aggregating", width=2, depth=2, aggregates=4),
+               st.Topology("recurrent", width=2, depth=2)),
+        sizes=(MULTI_GPU_N_MIXED - 2 * third, third, third),
+        attacking_rate=0.1, learn_from_rate=0.1, learn_from_severity=1,
+        train=10, remove_divergent=True, remove_zero=True,
+        respawn_draws="fused")
+    return {
+        "ww_fused": ("soup", ww),
+        "ww_phases_compact": ("soup", ww._replace(
+            generation_impl="phases", attack_impl="compact",
+            learn_from_impl="compact")),
+        "ww_fused_int8": ("soup", ww._replace(population_dtype="int8")),
+        "mixed_popmajor_fused": ("multi", mixed._replace(
+            layout="popmajor", generation_impl="fused")),
+        "mixed_rowmajor": ("multi", mixed),
+    }
+
+
+#: each job's launches a generation (the recurrent attacker hits each
+#: victim type once a generation with K6 in the population-major mixed
+#: soup; the row-major mixed soup's cross attack is plain torch)
+MULTI_GPU_PER_GENERATION = {
+    "ww_fused": {"generation": 1},
+    "ww_phases_compact": {"ww_sgd": 2},
+    "ww_fused_int8": {"generation": 1},
+    "mixed_popmajor_fused": {"generation": 1, "generation_kvec": 1,
+                             "generation_rnn": 1, "rnn_apply_t14": 1,
+                             "rnn_apply_t20": 1, "rnn_apply": 1},
+    "mixed_rowmajor": {"ww_sgd": 2, "kvec_sgd": 2, "rnn_sgd": 2},
+}
+
+
+def chip_kernels():
+    """The kernels whose launches the script counts (their LaneKernel
+    objects), in the kernels line's order."""
+    from srnn_tpu_torch.ops.cuda_generation import (
+        GENERATION, GENERATION_BF16, GENERATION_KVEC, GENERATION_KVEC_BF16,
+        GENERATION_RNN, GENERATION_RNN_BF16)
+    from srnn_tpu_torch.ops.cuda_kvec_train import KVEC_SGD
+    from srnn_tpu_torch.ops.cuda_rnn_apply import (RNN_APPLY_BY_T,
+                                                   rnn_apply_kernel)
+    from srnn_tpu_torch.ops.cuda_rnn_train import RNN_SGD
+    from srnn_tpu_torch.ops.cuda_ww import WW_APPLY
+    from srnn_tpu_torch.ops.cuda_ww_train import WW_SGD, WW_SGD_SHUFFLED
+
+    return (WW_APPLY, WW_SGD, GENERATION, KVEC_SGD, RNN_SGD,
+            RNN_APPLY_BY_T[17], GENERATION_KVEC, GENERATION_RNN,
+            RNN_APPLY_BY_T[14], RNN_APPLY_BY_T[20], GENERATION_BF16,
+            GENERATION_KVEC_BF16, GENERATION_RNN_BF16, WW_SGD_SHUFFLED,
+            *(rnn_apply_kernel(t) for t in WIDE_T))
+
+
+def state_tree(torch, state) -> dict:
+    """A soup's or a mixed soup's whole state on the host, as plain
+    tensors (the generator as its state)."""
+    def host(x):
+        if isinstance(x, tuple):
+            return [t.cpu() for t in x]
+        return None if x is None else x.cpu()
+
+    return {"weights": host(state.weights), "uids": host(state.uids),
+            "next_uid": state.next_uid.cpu(), "time": state.time.cpu(),
+            "scales": host(state.scales), "key_state": state.key.get_state()}
+
+
+def trees_equal(torch, what, a, b) -> None:
+    """Two state trees bitwise (a float population by its bits)."""
+    for key in ("weights", "uids", "next_uid", "time", "scales",
+                "key_state"):
+        x, y = a[key], b[key]
+        xs, ys = (x, y) if isinstance(x, list) else ([x], [y])
+        for u, v in zip(xs, ys):
+            if (u is None) != (v is None) or (u is not None and not (
+                    u.dtype == v.dtype and u.shape == v.shape and torch.equal(
+                        u.view(torch.uint8) if u.is_floating_point() else u,
+                        v.view(torch.uint8) if v.is_floating_point() else v))):
+                raise AssertionError(f"{what}: {key} differs")
+
+
+def multigpu_worker(rank, world, backend, port, out_dir, jobs, spread):
+    """A rank of the phase's worlds (``torch.multiprocessing.spawn``): on
+    card ``rank % device_count`` (``spread``) or card 0, in a process
+    group of ``world`` ranks on
+    ``backend``, run each job's sharded soup from seed 0 and write, from
+    rank 0, its gathered final state; every rank writes its launch counts
+    by job, K3's lanes a launch, and its ms a generation; the main job runs
+    once more with its gathers timed."""
+    import torch
+    import torch.distributed as dist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    dev = torch.device("cuda", rank % torch.cuda.device_count()
+                       if spread else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    from srnn_tpu_torch import parallel as par
+    from srnn_tpu_torch.distributed.hostio import fetch_tree
+    from srnn_tpu_torch.ops.cuda_generation import GENERATION
+
+    kernels = chip_kernels()
+    lanes = []
+    launch = GENERATION.launch
+
+    def counted_lanes(build, *args):
+        lanes.append(int(args[9]))  # the lane count of K3's entry point
+        return launch(build, *args)
+
+    GENERATION.launch = counted_lanes
+    mesh = par.soup_mesh(device=dev)
+    configs = multigpu_configs()
+    report = {"mesh": repr(mesh), "jobs": {}}
+    for name in jobs:
+        kind, cfg = configs[name]
+        multi = kind == "multi"
+        make = par.make_sharded_multi_state if multi \
+            else par.make_sharded_state
+        run = par.sharded_evolve_multi if multi else par.sharded_evolve
+        state = make(cfg, mesh, 0)
+        run(cfg, mesh, state, 1)  # warm-up generation, not counted
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset(kernels)
+        lanes.clear()
+        t0 = time.perf_counter()
+        final = run(cfg, mesh, state, MULTI_GPU_GENERATIONS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        row = {"ms": dt * 1e3 / MULTI_GPU_GENERATIONS,
+               "launches": row_counts(kernels),
+               "k3_lanes": sorted(set(lanes))}
+        full = fetch_tree(final, mesh)
+        if rank == 0:
+            torch.save(state_tree(torch, full),
+                       os.path.join(out_dir, f"{name}.pt"))
+        if name == "ww_fused":
+            # the gathers' share: the same run with each gather timed,
+            # synchronised on both sides
+            gather, spent = par.SoupMesh.gather, [0.0]
+
+            def timed_gather(self, x, dim=0):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = gather(self, x, dim)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t
+                return out
+
+            par.SoupMesh.gather = timed_gather
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(cfg, mesh, state, MULTI_GPU_GENERATIONS)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            par.SoupMesh.gather = gather
+            row["gather_share"] = spent[0] / total
+            row["timed_ms"] = total * 1e3 / MULTI_GPU_GENERATIONS
+        report["jobs"][name] = row
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def multigpu_world(torch, world, backend, jobs, out_dir, spread=False):
+    """Spawn a world of ``world`` ranks on ``backend`` running ``jobs``,
+    every rank on card 0 or (``spread``) one card a rank; returns (each
+    rank's report, wall seconds)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.spawn(multigpu_worker, args=(world, backend, _free_port(), out_dir,
+                                    list(jobs), spread),
+             nprocs=world, join=True)
+    reports = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports, time.perf_counter() - t0
+
+
+def multigpu_path(torch, kernels, totals):
+    """Phase "multi-GPU": the sharded soups (``srnn_tpu_torch.parallel``)
+    over ``torch.distributed`` on the card, against the solo soups in this
+    process, bitwise.
+
+    (a) a world of 1 over NCCL (a spawned process): the N = 1M fused
+    weightwise soup (attack 0.1, learn_from 0.1, train 10, both removals),
+    20 generations, equal to the solo ``evolve`` of seed 0, K3 exactly 20
+    launches; (b) a world of 2 over gloo on the one card: the same soup,
+    each rank's K3 exactly 20 launches over 500,000 lanes, and the phase
+    chain with the compact phases (K2 twice a generation a rank), the int8
+    population, and the N = 30,000 mixed soup in both layouts, each equal
+    to its solo run bitwise with every rank's launches exact (every run
+    after a warm-up generation, its counts from 0 after it); (c) the
+    launcher: ``python -m srnn_tpu_torch.distributed.launch --processes 2
+    -- mega_soup --sharded --dist-backend gloo`` at N = 1M, 20
+    generations, its final checkpoint equal to the solo ``evolve``'s, K3
+    20 launches a rank, and the ``host_loss@10`` drill (exit 3 after one
+    re-ramp) with the same checkpoint; (d) with two cards or more, (b)'s
+    main run over NCCL, one card a rank (skipped on one card); then one
+    ``torch.profiler`` trace of a solo K3 generation in this process,
+    which fails the phase if no session records the kernel.  To inform:
+    ms a generation solo, world 1 and world 2, and the gathers' share of
+    a generation."""
+    import shutil
+    import tempfile
+
+    import srnn_tpu_torch as st
+    from srnn_tpu_torch import multisoup as ms
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    configs = multigpu_configs()
+    root = tempfile.mkdtemp(prefix="srnn_multigpu_")
+    try:
+        # the solo runs, in this process: the references
+        solo, solo_ms = {}, None
+        for name, (kind, cfg) in configs.items():
+            state = (ms.seed_multi if kind == "multi" else st.seed)(
+                cfg, 0, device="cuda")
+            run = ms.evolve_multi if kind == "multi" else st.evolve
+            run(cfg, state, 1)  # warm-up generation, not counted
+            torch.cuda.synchronize()
+            reset(kernels)
+            t0 = time.perf_counter()
+            final = run(cfg, state, MULTI_GPU_GENERATIONS)
+            torch.cuda.synchronize()
+            if name == "ww_fused":
+                solo_ms = (time.perf_counter() - t0) * 1e3 \
+                    / MULTI_GPU_GENERATIONS
+            expect = {k: n * MULTI_GPU_GENERATIONS for k, n in
+                      MULTI_GPU_PER_GENERATION[name].items()}
+            for k, n in check_launches(kernels, f"solo {name}",
+                                       expect).items():
+                totals[k] += n
+            solo[name] = state_tree(torch, final)
+
+        def check_world(tag, reports, names):
+            for name in names:
+                got = torch.load(os.path.join(root, tag, f"{name}.pt"),
+                                 weights_only=True)
+                trees_equal(torch, f"{tag} {name}", got, solo[name])
+                expect = {k: n * MULTI_GPU_GENERATIONS for k, n in
+                          MULTI_GPU_PER_GENERATION[name].items()}
+                for r, rep in enumerate(reports):
+                    row = rep["jobs"][name]
+                    for k, n in check_launches(
+                            kernels, f"{tag} rank {r} {name}", expect,
+                            got=row["launches"]).items():
+                        totals[k] += n
+                log(f"  {tag} {name}: bitwise equal to the solo run, "
+                    f"{MULTI_GPU_GENERATIONS} generations")
+
+        # (a) one rank over NCCL
+        os.makedirs(os.path.join(root, "w1"))
+        w1, wall1 = multigpu_world(torch, 1, "nccl", ["ww_fused"],
+                                   os.path.join(root, "w1"))
+        log(f"  world 1 (nccl): {w1[0]['mesh']}, spawn and run "
+            f"{wall1:.1f} s")
+        check_world("w1", w1, ["ww_fused"])
+        # (b) two ranks over gloo on the one card
+        os.makedirs(os.path.join(root, "w2"))
+        w2, wall2 = multigpu_world(torch, 2, "gloo", list(configs),
+                                   os.path.join(root, "w2"))
+        log(f"  world 2 (gloo): {w2[0]['mesh']}, spawn and run "
+            f"{wall2:.1f} s")
+        check_world("w2", w2, list(configs))
+        half = N // 2
+        for r, rep in enumerate(w2):
+            if rep["jobs"]["ww_fused"]["k3_lanes"] != [half]:
+                raise AssertionError(
+                    f"world 2 rank {r}: K3 launched over "
+                    f"{rep['jobs']['ww_fused']['k3_lanes']} lanes, "
+                    f"expected {half}")
+        if w1[0]["jobs"]["ww_fused"]["k3_lanes"] != [N]:
+            raise AssertionError("world 1: K3 not over N lanes")
+        log(f"  world 2: each rank's K3 launches over {half} lanes")
+        m1, m2 = w1[0]["jobs"]["ww_fused"], w2[0]["jobs"]["ww_fused"]
+        log(f"multi-GPU times on {smi}: the N = 1M fused weightwise soup, "
+            f"ms a generation: solo {solo_ms:.3f}, world 1 (nccl) "
+            f"{m1['ms']:.3f}, world 2 (gloo, two ranks on one card) "
+            f"{m2['ms']:.3f}; the gathers' share of a generation (a run "
+            f"with each gather synchronised and timed: {m1['timed_ms']:.3f}"
+            f" / {m2['timed_ms']:.3f} ms a generation): world 1 "
+            f"{m1['gather_share']:.3f}, world 2 {m2['gather_share']:.3f}.  "
+            f"Two ranks on one card share its SMs and stage each gather "
+            f"through host memory: their times say nothing of scaling")
+        # (c) the launcher, gloo on the card
+        multigpu_launcher(torch, kernels, totals, root, solo["ww_fused"])
+        # (d) one card a rank over NCCL
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            os.makedirs(os.path.join(root, "w2nccl"))
+            w2n, wall2n = multigpu_world(torch, 2, "nccl", list(configs),
+                                         os.path.join(root, "w2nccl"),
+                                         spread=True)
+            log(f"  world 2 (nccl): {w2n[0]['mesh']}, spawn and run "
+                f"{wall2n:.1f} s")
+            check_world("w2nccl", w2n, list(configs))
+            m2n = w2n[0]["jobs"]["ww_fused"]
+            log(f"  world 2 (nccl, one card a rank) on {smi}: ms a "
+                f"generation {m2n['ms']:.3f}, the gathers' share "
+                f"{m2n['gather_share']:.3f} (timed run "
+                f"{m2n['timed_ms']:.3f} ms a generation)")
+        else:
+            log(f"  (d) skipped: the machine has {cards} card; NCCL takes "
+                "one card a rank")
+        # torch.profiler still records this process's kernels after the
+        # spawned worlds and launchers (raises if no session holds one)
+        cfg = configs["ww_fused"][1]
+        state = st.seed(cfg, 0, device="cuda")
+        traced = device_ms(lambda: st.evolve(cfg, state, 1), 20)
+        log(f"  torch.profiler after the worlds and launchers: K3 "
+            f"{traced:.4f} ms a launch, device events recorded")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+#: mega_soup as phase "multi-GPU" launches it: the main run's soup
+MULTI_GPU_MEGA = ["--size", str(N), "--generations",
+                  str(MULTI_GPU_GENERATIONS), "--checkpoint-every", "5",
+                  "--train", "10", "--learn-from-rate", "0.1",
+                  "--generation-impl", "fused", "--sharded",
+                  "--dist-backend", "gloo"] + MEGA_PIPE_PLANES_OFF
+
+
+def multigpu_launcher(torch, kernels, totals, root, ref):
+    """Part (c) of phase "multi-GPU": the launcher, two workers with gloo
+    on the card, and its ``host_loss@10`` drill, both at once; each final
+    checkpoint against the solo run's state ``ref``, each worker's
+    launches exact."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"launch": ([], 0), "host_loss": (
+        ["--chaos", "host_loss@10"] + MEGA_FAST_BACKOFF, 3)}
+    procs = {}
+    for tag, (extra, _) in runs.items():
+        env = {k: v for k, v in os.environ.items()
+               if k != "SRNN_SETUPS_PLATFORM"}
+        env["SRNN_LAUNCH_COUNTS"] = os.path.join(root, f"{tag}.launches.json")
+        out = open(os.path.join(root, f"{tag}.out"), "w")
+        procs[tag] = (subprocess.Popen(
+            [sys.executable, "-m", "srnn_tpu_torch.distributed.launch",
+             "--processes", "2", "--grace-s", "30", "--", "mega_soup",
+             *MULTI_GPU_MEGA, *extra, "--root", os.path.join(root, tag)],
+            cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT),
+            out, time.perf_counter())
+    try:
+        for tag, (proc, out, t0) in procs.items():
+            rc = proc.wait(timeout=600)
+            wall = time.perf_counter() - t0
+            out.close()
+            with open(os.path.join(root, f"{tag}.out")) as f:
+                text = f.read()
+            if rc != runs[tag][1]:
+                raise AssertionError(f"launcher {tag}: rc {rc}, expected "
+                                     f"{runs[tag][1]}\n{text[-4000:]}")
+            (run_dir,) = [os.path.join(root, tag, d)
+                          for d in os.listdir(os.path.join(root, tag))]
+            got = mega_checkpoint(torch, run_dir, MULTI_GPU_GENERATIONS)
+            trees_equal(torch, f"launcher {tag}", {**got, "scales": None},
+                        {**ref, "scales": None})
+            if tag == "launch":
+                for r in range(2):
+                    with open(os.path.join(
+                            root, f"{tag}.launches.json.p{r}")) as f:
+                        counts = json.load(f)
+                    for k, m in check_launches(
+                            kernels, f"launcher rank {r}",
+                            {"generation": MULTI_GPU_GENERATIONS},
+                            got=counts).items():
+                        totals[k] += m
+            elif "re-ramp 1/" not in text \
+                    or "exiting 71 (host-lost)" not in text:
+                raise AssertionError(f"launcher {tag}: no re-ramp after "
+                                     f"exit 71\n{text[-4000:]}")
+            log(f"  launcher {tag}: exit {rc} in {wall:.1f} s (the two "
+                f"launches side by side), final checkpoint bitwise equal "
+                f"to the solo run")
+    finally:
+        for proc, out, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+
+
 def np_equal(a, b) -> bool:
     import numpy as np
 
@@ -4581,21 +5006,7 @@ def main() -> int:
         f"{sys.version.split()[0]}")
     t_start = time.perf_counter()
 
-    from srnn_tpu_torch.ops.cuda_generation import (
-        GENERATION, GENERATION_BF16, GENERATION_KVEC, GENERATION_KVEC_BF16,
-        GENERATION_RNN, GENERATION_RNN_BF16)
-    from srnn_tpu_torch.ops.cuda_kvec_train import KVEC_SGD
-    from srnn_tpu_torch.ops.cuda_rnn_apply import (RNN_APPLY_BY_T,
-                                                   rnn_apply_kernel)
-    from srnn_tpu_torch.ops.cuda_rnn_train import RNN_SGD
-    from srnn_tpu_torch.ops.cuda_ww import WW_APPLY
-    from srnn_tpu_torch.ops.cuda_ww_train import WW_SGD, WW_SGD_SHUFFLED
-
-    kernels = (WW_APPLY, WW_SGD, GENERATION, KVEC_SGD, RNN_SGD,
-               RNN_APPLY_BY_T[17], GENERATION_KVEC, GENERATION_RNN,
-               RNN_APPLY_BY_T[14], RNN_APPLY_BY_T[20], GENERATION_BF16,
-               GENERATION_KVEC_BF16, GENERATION_RNN_BF16, WW_SGD_SHUFFLED,
-               *(rnn_apply_kernel(t) for t in WIDE_T))
+    kernels = chip_kernels()
     # a row per kernel's default build, then per build off it (PR 11)
     row_kernels = [(k.name, k) for k in kernels[:14]]
     row_kernels += [(wide_row(k, topo, t_len), k)
@@ -4642,6 +5053,9 @@ def main() -> int:
     phase("small soups vs cpu", small_soup_vs_cpu, torch, kernels)
     phase("sequential soup (to inform)", sequential_trajectory, torch,
           kernels)
+    # the phase ends with a torch.profiler trace of its own that fails it
+    # if no session records K3
+    phase("multi-GPU", multigpu_path, torch, kernels, launches)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     for name in rows:

@@ -618,7 +618,8 @@ def streamed_ms(fn, reps: int) -> float:
 
 
 #: profiler sessions ``device_ms`` opens before it gives up on a trace
-#: that holds no device event at all
+#: that holds no device event at all, each four times the runs of the one
+#: before
 TRACE_ATTEMPTS = 3
 
 
@@ -626,19 +627,24 @@ def device_ms(fn, reps: int = TRACED) -> float:
     """Mean duration of the port's kernel launches in ``reps`` runs of
     ``fn`` under ``torch.profiler``, after a warm-up run: the device's time
     in the kernels alone, whatever the host spends around them.  A session
-    whose trace holds no device event at all (the profiler lost its CUDA
-    activity records, which happens now and then on one card) is traced
-    again, up to ``TRACE_ATTEMPTS`` sessions; a trace with device events
-    but none of the port's kernels raises at once."""
+    whose trace holds no device event at all is traced again with four
+    times the runs, up to ``TRACE_ATTEMPTS`` sessions: in a process that
+    has traced for a while the profiler drops CUDA activity records now
+    and then, up to a few dozen a session, so a session of a few launches
+    can lose them all while a longer one keeps most
+    (``scripts/profiler_probe.py`` shows it).
+    A trace with device events but none of the port's kernels raises at
+    once."""
     from .profile_soup import _device_us
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    runs = reps
     for _ in range(TRACE_ATTEMPTS):
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
+            for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
         traced = [(e.key, e.count, _device_us(e))
@@ -650,8 +656,9 @@ def device_ms(fn, reps: int = TRACED) -> float:
         seen = sorted(k[:60] for k, _, us in traced if us > 0)
         if seen:
             break
+        runs *= 4
     raise RuntimeError(f"the profiler recorded no kernel of the port in "
-                       f"{reps} runs; device events: {seen[:12]}")
+                       f"{runs} runs; device events: {seen[:12]}")
 
 
 def generation_inputs(topo, wT, gen, rate=0.1):

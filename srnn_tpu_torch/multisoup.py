@@ -353,17 +353,20 @@ def _attack(config: MultiSoupConfig, ws, d: MultiSoupDraws, dev):
 
 
 def _type_generation(config: MultiSoupConfig, topo: Topology, wT, fresh,
-                     learn_gate, learn_tgt):
+                     learn_gate, learn_tgt, source=None):
     """Learn, train and respawn one type on its (P_t, N_t) lanes: (wT,
     loss, dead_div, dead_zero).  The fused route's generation kernel gets
     no attack operand, and its imitation columns are gathered
-    post-attack."""
+    post-attack: from ``wT``, or from ``source(wT)`` (a sharded soup's
+    gathered post-attack lanes of the type, ``learn_tgt`` indices into
+    them)."""
     if resolved_generation_impl(config, topo) == "phases":
         return _learn_train_respawn(config, topo, wT, fresh, learn_gate,
-                                    learn_tgt)
+                                    learn_tgt, source=source)
     sgd_learn = config.learn_from_rate > 0 and config.learn_from_severity > 0
+    src = (wT if source is None else source(wT)) if sgd_learn else None
     return generation_popmajor(
-        topo, wT, fresh, otherT=wT[:, learn_tgt] if sgd_learn else None,
+        topo, wT, fresh, otherT=src[:, learn_tgt] if sgd_learn else None,
         learn_gate=learn_gate if sgd_learn else None,
         severity=config.learn_from_severity if sgd_learn else 0,
         train=config.train, lr=config.lr,
@@ -371,18 +374,20 @@ def _type_generation(config: MultiSoupConfig, topo: Topology, wT, fresh,
         remove_zero=config.remove_zero, epsilon=config.epsilon)
 
 
-def _record_multi_lineage(lins, win, gen, lin_info, lincfg):
+def _record_multi_lineage(lins, win, gen, lin_info, lincfg, mesh=None):
     """One mixed generation's lineage bookkeeping (``_record_multi_lineage``,
     ``multisoup.py:176-205`` of the JAX package), run after the whole
     weights loop: per type ``dynamics.record_step`` with mint bases chained
     type-major through one shared counter (the respawn uid blocks' order).
     ``lin_info`` holds per type (att_idx slice, learn_gate, learn_tgt,
     dead); the attacker pids are the start-of-generation ones of every
-    type.  Returns (the per-type carries, all on the shared counter, the
-    window)."""
+    type.  Under sharding (``mesh``) the lanes are a rank's and the pid
+    tables gathered.  Returns (the per-type carries, all on the shared
+    counter, the window)."""
     from .telemetry.dynamics import record_step
 
-    all_pid0 = torch.cat([lin.pid for lin in lins])
+    all_pid0 = torch.cat([lin.pid if mesh is None else mesh.gather(lin.pid)
+                          for lin in lins])
     running = lins[0].next_pid
     new_lins = []
     for t, (att_b, learn_gate, learn_tgt, dead) in enumerate(lin_info):
@@ -390,7 +395,7 @@ def _record_multi_lineage(lins, win, gen, lin_info, lincfg):
             lins[t]._replace(next_pid=running), win, gen=gen,
             attacked=att_b >= 0, attacker_pid=all_pid0[att_b.clamp(min=0)],
             learn_gate=learn_gate, learn_tgt=learn_tgt, dead=dead,
-            caps=lincfg[0][t], capacity=lincfg[1])
+            caps=lincfg[0][t], capacity=lincfg[1], mesh=mesh)
         running = lin_t.next_pid
         new_lins.append(lin_t)
     return tuple(lin._replace(next_pid=running) for lin in new_lins), win

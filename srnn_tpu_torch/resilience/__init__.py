@@ -1,13 +1,14 @@
 """Run supervision for the mega runs: fault classification, retry with
 backoff, SIGTERM preemption and the deterministic chaos drills; port of
 ``srnn_tpu/resilience`` (see the ``supervisor`` and ``chaos`` docstrings).
-The topology re-ramp and the multi-process host loss wait for multi-GPU
-runs (ROADMAP.md, A.6)."""
+A lost host of a multi-process run exits ``EXIT_HOST_LOST`` for the
+launcher's re-ramp (``distributed.launch``); the in-process topology
+re-ramp onto surviving cards waits for ROADMAP.md A.6."""
 
 from .chaos import ChaosEvent, ChaosMonkey, parse_schedule
-from .supervisor import (DEVICE_LOSS, EXIT_CODE_NAMES,
+from .supervisor import (DEVICE_LOSS, EXIT_CODE_NAMES, EXIT_HOST_LOST,
                          EXIT_PREEMPTED_CLEAN, EXIT_RECOVERED,
-                         EXIT_RETRIES_EXHAUSTED, FATAL, IO, PREEMPT,
+                         EXIT_RETRIES_EXHAUSTED, FATAL, HOST_LOSS, IO, PREEMPT,
                          RETRYABLE, STALL, AttemptContext, BackoffPolicy,
                          Preempted, Supervisor, classify_fault,
                          exit_code_for_report, preempt_requested,
@@ -20,10 +21,12 @@ __all__ = [
     "ChaosMonkey",
     "DEVICE_LOSS",
     "EXIT_CODE_NAMES",
+    "EXIT_HOST_LOST",
     "EXIT_PREEMPTED_CLEAN",
     "EXIT_RECOVERED",
     "EXIT_RETRIES_EXHAUSTED",
     "FATAL",
+    "HOST_LOSS",
     "IO",
     "PREEMPT",
     "Preempted",

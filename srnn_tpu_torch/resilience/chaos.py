@@ -1,5 +1,5 @@
 """Deterministic, schedule-driven fault injection for the run supervisor;
-port of ``srnn_tpu/resilience/chaos.py`` for one process on one card.
+port of ``srnn_tpu/resilience/chaos.py``.
 
 ``ChaosMonkey`` arms a fixed schedule of faults that fire at exact,
 reproducible points of a mega run:
@@ -17,6 +17,16 @@ reproducible points of a mega run:
     real ``StallError``.  The condemned finisher never runs.
   * ``writer@N`` -- poison the ``N``-th job submitted to the background
     writer (1-based, counted per attempt) with a permanent ``EIO``.
+  * ``host_loss@G[:H]`` -- raise ``distributed.HostLost`` at the top of
+    the chunk starting at generation ``G``, on every process of a
+    multi-process run (``H``, 0-based, names the slice group -- the
+    process -- that died; default the last): the supervisor exits
+    ``EXIT_HOST_LOST`` and the launcher re-ramps on fewer processes.  A
+    single-process run has no slice to lose: the event fails loudly when
+    it fires (the JAX package's in-process re-ramp onto the surviving
+    slices waits for ROADMAP.md A.6).
+  * ``coordinator_timeout@G`` -- raise ``distributed.CoordinatorTimeout``
+    at the chunk boundary: the same ``host_loss`` kind, without a group.
   * ``sigterm@G`` -- ``kill(self, SIGTERM)`` at the chunk boundary: the
     real signal, handler and graceful drain.
   * ``sigkill@G`` -- ``kill(self, SIGKILL)``: no cleanup of any kind.
@@ -42,9 +52,8 @@ paths):
 Every event fires once per process; an in-process restart keeps the
 consumed schedule.  The schedule is not saved into ``config.json``.
 :func:`parse_schedule` reads the JAX package's grammar (``kind@N[:arg]``,
-comma-separated) and refuses what waits for multi-GPU runs, naming the
-ROADMAP.md item: the survivor count ``device_loss@G:S`` and the slice
-events ``host_loss`` / ``coordinator_timeout`` (A.6).
+comma-separated) and refuses the survivor count ``device_loss@G:S``,
+which waits for the in-process re-ramp (ROADMAP.md, A.6).
 """
 
 from __future__ import annotations
@@ -55,19 +64,13 @@ import signal
 import threading
 from typing import Callable, List, Optional
 
-KINDS = ("device_loss", "stall", "writer", "sigterm", "sigkill",
-         "serve_kill", "serve_dispatch_fault", "serve_poison_tenant")
+KINDS = ("device_loss", "host_loss", "coordinator_timeout", "stall",
+         "writer", "sigterm", "sigkill", "serve_kill",
+         "serve_dispatch_fault", "serve_poison_tenant")
 
 #: the ``serve_dispatch_fault`` menu: retryable kinds by the supervisor's
 #: taxonomy
 SERVE_FAULT_KINDS = ("device_loss", "io", "stall")
-
-#: the JAX package's kinds that wait for other tiers, with the ROADMAP.md
-#: item that brings them
-WAITING = {
-    "host_loss": "A.6 (multi-GPU runs: slice groups)",
-    "coordinator_timeout": "A.6 (multi-GPU runs: the coordinator)",
-}
 
 #: events whose ordinal ``N`` is 1-based
 _ONE_BASED = ("writer", "serve_kill", "serve_dispatch_fault",
@@ -106,11 +109,6 @@ def parse_schedule(spec: str) -> List[ChaosEvent]:
         entry = raw.strip()
         if not entry:
             continue
-        kind = entry.split("@", 1)[0]
-        if kind in WAITING:
-            raise ValueError(
-                f"chaos kind {kind!r} is not ported yet: it waits for "
-                f"ROADMAP.md {WAITING[kind]}")
         try:
             kind, rest = entry.split("@", 1)
             arg = None
@@ -153,6 +151,14 @@ def parse_schedule(spec: str) -> List[ChaosEvent]:
         if kind in ("writer", "sigterm", "sigkill", "serve_kill",
                     "serve_poison_tenant") and arg is not None:
             raise ValueError(f"{kind} takes no argument: {entry!r}")
+        if kind == "host_loss" and arg is not None and arg != int(arg):
+            raise ValueError(
+                f"host_loss slice-group ordinal must be an integer: "
+                f"{entry!r}")
+        if kind == "coordinator_timeout" and arg is not None:
+            raise ValueError(
+                f"coordinator_timeout takes no argument: {entry!r} (there "
+                "is no group to name)")
         events.append(ChaosEvent(kind, at, arg))
     events.sort(key=lambda e: e.at)
     return events
@@ -172,6 +178,45 @@ def _raise_serve_fault(kind: str, attempt: int) -> None:
         raise StallError(f"chaos: injected dispatch stall in serve "
                          f"dispatch attempt {attempt}")
     _raise_device_loss(attempt)
+
+
+def _lost_group(group: Optional[int]) -> int:
+    """The slice group ``host_loss`` names in the live run (a process of
+    it: the launcher's processes are its slices), checked at fire time,
+    when the group count is known.  A spec that cannot fire as written
+    fails loudly instead of drilling something else."""
+    from ..distributed import context
+
+    ctx = context()
+    groups = ctx.num_processes if ctx.active else 1
+    if groups <= 1:
+        raise ValueError(
+            "--chaos host_loss would leave no surviving slice (the run is "
+            "one process); use device_loss@G, or launch several processes "
+            "(python -m srnn_tpu_torch.distributed.launch)")
+    g = groups - 1 if group is None else int(group)
+    if g >= groups:
+        raise ValueError(
+            f"--chaos host_loss slice-group ordinal {g} is out of range: "
+            f"the live run has {groups} slice group(s)")
+    return g
+
+
+def _raise_host_loss(gen: int, group: int) -> None:
+    """Raise the typed fault the distributed runtime raises for a lost
+    peer, so that the supervisor's production ``host_loss`` path routes
+    it."""
+    from ..distributed import HostLost
+
+    raise HostLost(f"chaos: simulated host/slice loss at generation {gen} "
+                   f"(slice group {group} lost)")
+
+
+def _raise_coordinator_timeout(gen: int) -> None:
+    from ..distributed import CoordinatorTimeout
+
+    raise CoordinatorTimeout(
+        f"chaos: simulated coordinator timeout at generation {gen}")
 
 
 def _raise_device_loss(gen: int) -> None:
@@ -236,6 +281,11 @@ class ChaosMonkey:
             ev.fired = True
             if ev.kind == "device_loss":
                 _raise_device_loss(gen)
+            elif ev.kind == "host_loss":
+                _raise_host_loss(gen, _lost_group(
+                    None if ev.arg is None else int(ev.arg)))
+            elif ev.kind == "coordinator_timeout":
+                _raise_coordinator_timeout(gen)
             elif ev.kind == "sigterm":
                 os.kill(os.getpid(), signal.SIGTERM)
             elif ev.kind == "sigkill":  # pragma: no cover - kills the proc

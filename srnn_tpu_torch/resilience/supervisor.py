@@ -1,5 +1,5 @@
 """The run supervisor: preemption-tolerant mega runs; port of
-``srnn_tpu/resilience/supervisor.py`` for one process on one card.
+``srnn_tpu/resilience/supervisor.py``.
 
 The supervisor wraps one attempt of a mega loop (``mega_soup`` /
 ``mega_multisoup``) and turns a classified fault into a restart from the
@@ -23,6 +23,14 @@ Fault taxonomy (:func:`classify_fault`), remapped from XLA to CUDA:
     :data:`EXIT_RETRIES_EXHAUSTED`, so that a fresh process can
     ``--resume`` (the JAX package's rule that a backend cannot be
     re-initialised in-process).
+  * ``host_loss`` -- ``distributed.HostLost`` (a peer process is gone:
+    the chaos drill, or a gloo collective whose connection a peer
+    closed or reset, ``parallel.mesh``) and ``distributed.
+    CoordinatorTimeout`` (the rendezvous never formed), and the
+    ``torch.distributed`` errors that say a peer failed
+    (:data:`PEER_LOSS_PATTERNS`: gloo's closed or reset connections,
+    NCCL's aborted communicator, a collective's timeout, a lost store).
+    NCCL's own usage errors (two ranks on one card) stay fatal.
   * ``stall`` -- ``utils.pipeline.StallError`` from the ``ChunkDriver``
     finisher deadline.
   * ``io`` -- ``utils.pipeline.WriterError`` (as retryable as what it
@@ -38,14 +46,18 @@ Fault taxonomy (:func:`classify_fault`), remapped from XLA to CUDA:
 Recovery is resume: the next attempt is pointed at the faulted run
 directory whenever it holds a finalized checkpoint, so the restore path is
 the one ``--resume`` tests bitwise, and a recovered run ends bitwise equal
-to an uninterrupted one.  The topology re-ramp and the loss of a host of a
-multi-process run wait for multi-GPU runs (ROADMAP.md, A.6).
+to an uninterrupted one.  In a multi-process run no retryable fault
+restarts in-process: a one-sided restart would replay collectives from
+the checkpoint while the peers wait mid-schedule, so the process exits
+:data:`EXIT_HOST_LOST` and the launcher (``distributed.launch``) relaunches
+the survivors from the last durable checkpoint.  The in-process topology
+re-ramp onto surviving cards waits for ROADMAP.md A.6.
 
 Exit codes (``setups/__main__``): 0 clean; :data:`EXIT_RECOVERED` (3)
 success after at least one restart; :data:`EXIT_RETRIES_EXHAUSTED` (69)
-the budget is spent or the card is unusable; :data:`EXIT_PREEMPTED_CLEAN`
-(75) SIGTERM honoured, resumable.  The JAX package's 71 (a lost host of a
-multi-process run) waits for A.6.
+the budget is spent or the card is unusable; :data:`EXIT_HOST_LOST` (71)
+a retryable fault in a multi-process run, for the launcher to re-ramp;
+:data:`EXIT_PREEMPTED_CLEAN` (75) SIGTERM honoured, resumable.
 """
 
 from __future__ import annotations
@@ -62,25 +74,39 @@ from typing import Any, Callable, List, Optional
 # -- fault taxonomy ---------------------------------------------------------
 
 DEVICE_LOSS = "device_loss"
+HOST_LOSS = "host_loss"
 STALL = "stall"
 IO = "io"
 PREEMPT = "preempt"
 FATAL = "fatal"
 
-#: retryable faults (the JAX package's ``host_loss`` of multi-process runs
-#: waits for ROADMAP.md A.6)
-RETRYABLE = (DEVICE_LOSS, STALL, IO)
+#: retryable faults (in a multi-process run each exits EXIT_HOST_LOST)
+RETRYABLE = (DEVICE_LOSS, HOST_LOSS, STALL, IO)
 
 # CLI exit codes (sysexits.h where one fits)
 EXIT_RECOVERED = 3
 EXIT_RETRIES_EXHAUSTED = 69   # EX_UNAVAILABLE
+EXIT_HOST_LOST = 71           # EX_OSERR: a peer process is gone
 EXIT_PREEMPTED_CLEAN = 75     # EX_TEMPFAIL
 
 EXIT_CODE_NAMES = {
     EXIT_RECOVERED: "recovered",
     EXIT_RETRIES_EXHAUSTED: "retries-exhausted",
+    EXIT_HOST_LOST: "host-lost",
     EXIT_PREEMPTED_CLEAN: "preempted-clean",
 }
+
+#: the text of a ``torch.distributed`` failure caused by a peer: gloo's
+#: closed or reset connections, NCCL's aborted communicator or remote
+#: error, a collective's watchdog timeout, a lost rendezvous store
+PEER_LOSS_PATTERNS = (
+    r"gloo.*(connection (closed|reset)|connect failure|timed out)",
+    r"connection (closed|reset) by peer",
+    r"communicator (was )?abort|ncclRemoteError|remote process exited",
+    r"watchdog caught collective operation timeout",
+    r"(store|socket).*(timed out|timeout|connection refused|closed)",
+)
+_PEER_LOSS_RE = re.compile("|".join(PEER_LOSS_PATTERNS), re.IGNORECASE)
 
 class Preempted(Exception):
     """SIGTERM was honoured: the mega loop stopped at a chunk boundary,
@@ -147,12 +173,18 @@ def classify_fault(exc: BaseException) -> str:
     """Map an exception to the fault taxonomy (module docstring)."""
     import torch
 
+    from ..distributed import CoordinatorTimeout, HostLost
     from ..utils.pipeline import StallError, WriterError
 
     if isinstance(exc, Preempted):
         return PREEMPT
     if isinstance(exc, (KeyboardInterrupt, SystemExit, GeneratorExit)):
         return FATAL
+    if isinstance(exc, (HostLost, CoordinatorTimeout)):
+        return HOST_LOSS
+    if isinstance(exc, RuntimeError) and _PEER_LOSS_RE.search(str(exc)):
+        # checked before the CUDA patterns: a lost peer is not a lost card
+        return HOST_LOSS
     if isinstance(exc, StallError):
         return STALL
     if isinstance(exc, WriterError):
@@ -192,6 +224,15 @@ def probe_card() -> Optional[BaseException]:
     except BaseException as e:  # the probe reports, never raises
         return e
     return None
+
+
+def _in_multiprocess_run() -> bool:
+    """Is this process one of several of a distributed run?  Reads the
+    bring-up context (never the card: the caller may be handling the very
+    fault that makes the card hang)."""
+    from ..distributed import context
+
+    return context().active
 
 
 # -- SIGTERM / preemption ---------------------------------------------------
@@ -356,6 +397,21 @@ class Supervisor:
                         self._log(f"{e} — exiting "
                                   f"{EXIT_PREEMPTED_CLEAN} (preempted-clean)")
                         raise SystemExit(EXIT_PREEMPTED_CLEAN) from e
+                    if kind in RETRYABLE and _in_multiprocess_run():
+                        # no in-process restart in a multi-process run: a
+                        # one-sided restart replays collectives while the
+                        # peers wait mid-schedule.  The process leaves the
+                        # group (its peers' collectives then fail over to
+                        # host_loss) and the launcher relaunches the
+                        # survivors from the last durable checkpoint.
+                        self.last_report = self.report("host-lost")
+                        self._log(
+                            f"{kind} fault in a multi-process run "
+                            f"({type(e).__name__}: {e}) — in-process "
+                            "restart would desync the mesh; exiting "
+                            f"{EXIT_HOST_LOST} (host-lost) for the "
+                            "launcher tier to relaunch")
+                        raise SystemExit(EXIT_HOST_LOST) from e
                     if kind == FATAL or self.policy.max_restarts <= 0:
                         # unsupervised or unclassifiable failures keep their
                         # type

@@ -23,7 +23,9 @@ srnn_tpu_torch.serve``): the service runs the same compute, seeded the
 same way, and the setup writes the same artifacts
 (:func:`submit_to_service`, ``execution_mode`` "service" in
 ``config.json``); the other setups accept and ignore the flag, as the
-JAX package's do.  The mega runs' chunk loop is :func:`run_mega`.
+JAX package's do.  The mega runs' chunk loop is :func:`run_mega`; with
+``--sharded`` it runs the sharded soups (``parallel``) over the ranks of a
+multi-process run (``distributed``).
 """
 
 import argparse
@@ -248,13 +250,9 @@ def save_run_config(run_dir: str, args, fields, extra=None) -> None:
 
 # ---- shared mega-run plumbing (mega_soup / mega_multisoup) ----------------
 #
-# One process on one card.  The JAX package's distributed helpers
-# (init_distributed, build_soup_mesh, set_distributed_gauges,
-# fetch_for_checkpoint, update_fleet_gauges) wait for multi-GPU runs
-# (ROADMAP.md, A.6); probe_run_costs (the cost plane) for A.7.
-
-#: the ROADMAP.md item named by the refusals of the mega runs' flags
-MULTI_GPU = "ROADMAP.md, A.6 (multi-GPU runs)"
+# One process per card.  The JAX package's fleet readers
+# (update_fleet_gauges) wait for ROADMAP.md A.6; probe_run_costs (the cost
+# plane) for A.7.
 
 
 def load_run_config(run_dir: str, args, fields, legacy_defaults=None) -> None:
@@ -342,51 +340,163 @@ def make_pipeline(args, registry, stage: str):
     return pipelined, writer, meter, driver
 
 
-def add_mega_refusals(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The JAX package's sharding and distributed flags, parsed so that a
-    run is refused with the ROADMAP.md item rather than ignored:
-    ``--sharded``, ``--max-devices`` > 0 and the ``--dist-*`` flags
-    (``srnn_tpu/distributed/bootstrap.py:187-192``) wait for multi-GPU
-    runs."""
+def add_sharding_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--sharded`` and the distributed bring-up flags
+    (``distributed.bootstrap.add_distributed_args``) of the mega runs."""
+    from ..distributed import add_distributed_args
+
     p.add_argument("--sharded", action="store_true",
-                   help=f"refused: sharding waits for {MULTI_GPU}")
-    p.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT",
-                   help=f"refused: distributed runs wait for {MULTI_GPU}")
-    p.add_argument("--dist-processes", type=int, default=None, metavar="N",
-                   help=f"refused: distributed runs wait for {MULTI_GPU}")
-    p.add_argument("--dist-process-id", type=int, default=None,
-                   metavar="I",
-                   help=f"refused: distributed runs wait for {MULTI_GPU}")
-    refuse(p, "sharded", f"--sharded: sharding the population over several "
-           f"cards waits for {MULTI_GPU}; run without --sharded")
-    refuse(p, "max_devices", f"--max-devices: a device budget shards the "
-           f"population, which waits for {MULTI_GPU}",
-           given=lambda v: bool(v and v > 0))
-    for flag in ("dist_coordinator", "dist_processes", "dist_process_id"):
-        refuse(p, flag, f"--{flag.replace('_', '-')}: distributed runs wait "
-               f"for {MULTI_GPU}", given=lambda v: v is not None)
+                   help="shard the particle axis over the ranks of the run "
+                        "(one per card: python -m "
+                        "srnn_tpu_torch.distributed.launch --processes N "
+                        "-- ...; alone, one shard); the population is "
+                        "bitwise the unsharded run's in the popmajor "
+                        "layout")
+    add_distributed_args(p)
     return p
 
 
-def open_run(args, name: str, resume: Optional[str] = None) -> Experiment:
-    """This run's Experiment: attached to ``resume`` or a fresh one under
-    ``--root`` (one process; the JAX package's worker logs of distributed
-    runs wait for A.6)."""
-    if resume:
-        return Experiment.attach(resume)
-    return Experiment(name, root=args.root, seed=args.seed).__enter__()
+#: the ROADMAP.md item named by the refusal of a sharded capture
+SHARDED_CAPTURE = ("ROADMAP.md, A.6 (the sharded capture: "
+                   "utils/capture.sharded_evolve_captured with per-process "
+                   ".traj shards)")
 
 
-def make_spans(args, exp, registry, writer, stage: str):
+def validate_sharded(args) -> None:
+    """The sharding flags' check before any run directory exists: the
+    trajectory capture of a sharded run waits for its item."""
+    if args.sharded and args.capture_every:
+        raise SystemExit(f"--capture-every with --sharded: the sharded "
+                         f"capture waits for {SHARDED_CAPTURE}; drop one")
+
+
+# ---- distributed-tier plumbing (mega_soup / mega_multisoup) ----------------
+
+
+def init_distributed(args):
+    """Multi-process bring-up for a mega loop (``distributed.bootstrap``):
+    idempotent, inactive for plain runs.  A multi-process run without
+    ``--sharded`` would leave every other process outside the population
+    mesh, so it is refused up front."""
+    from ..distributed import ensure_initialized
+
+    dist = ensure_initialized(args)
+    if dist.active and not getattr(args, "sharded", False):
+        raise SystemExit("distributed runs need --sharded (the population "
+                         "mesh must span every process's devices)")
+    return dist
+
+
+def build_soup_mesh(args, dist, dev, shard_sizes):
+    """The mega loops' one mesh builder (``build_soup_mesh``,
+    ``setups/common.py:281`` of the JAX package): every rank of the run
+    (``--max-devices`` may not ask for fewer or more); a topology split
+    into slice groups (``SRNN_FORCE_SLICES``) takes the ``(slices,
+    soup)`` grid of ``parallel.reramp_soup_mesh``, whose size must divide
+    every published shard."""
+    from ..parallel import reramp_soup_mesh, slice_groups, soup_mesh
+    from ..parallel.multihost import _Rank
+
+    budget = getattr(args, "max_devices", 0) or None
+    world = dist.num_processes if dist.active else 1
+    budget = None if budget is None or budget >= world else budget
+    try:
+        if len(slice_groups([_Rank(r) for r in range(world)])) >= 2:
+            if budget is not None:
+                raise ValueError(f"requested {budget} devices of a run of "
+                                 f"{world} processes")
+            return reramp_soup_mesh(shard_sizes=shard_sizes, device=dev)
+        return soup_mesh(budget, device=dev)
+    except ValueError as e:
+        raise SystemExit(f"--sharded: {e}")
+
+
+def stage_label(stage: str, dist=None) -> str:
+    """Heartbeat stage label: per process in distributed runs
+    (``mega_soup@p1/2``), so that the heartbeat file that went quiet names
+    the wedged worker."""
+    if dist is None or not dist.active:
+        return stage
+    return f"{stage}@p{dist.process_id}/{dist.num_processes}"
+
+
+def set_distributed_gauges(registry, dist, mesh) -> None:
+    """The ``soup_distributed_*`` shape-of-the-run gauges."""
+    registry.gauge("soup_distributed_processes",
+                   help="process count of this run").set(
+        dist.num_processes if (dist is not None and dist.active) else 1)
+    if mesh is not None:
+        registry.gauge("soup_distributed_slices",
+                       help="slice groups of the population mesh").set(
+            mesh.shape[0] if len(mesh.shape) == 2 else 1)
+
+
+def fetch_for_checkpoint(state, mesh, meter, registry):
+    """A sharded chunk's checkpoint source: one synchronous collective
+    gather of the state onto every rank (``distributed.hostio.
+    fetch_tree``; process 0 then writes it).  Runs on the loop thread,
+    never on the background writer, whose jobs run at different times on
+    different processes."""
+    import time as _time
+
+    from ..distributed.hostio import fetch_tree
+
+    t0 = _time.perf_counter()
+    with meter.waiting():
+        full = fetch_tree(state, mesh)
+    if registry is not None:
+        registry.histogram("soup_distributed_gather_seconds",
+                           help="per-chunk state gather (checkpoint "
+                                "source) wall time",
+                           unit="seconds").observe(
+            _time.perf_counter() - t0)
+    return full
+
+
+def open_run(args, name: str, resume: Optional[str] = None,
+             dist=None) -> Experiment:
+    """This run's Experiment under the process-0 I/O contract: process 0
+    (or a single process) attaches to ``resume`` or makes a fresh one
+    under ``--root`` and, in a distributed run, broadcasts its directory;
+    every other process gets a ``distributed.hostio.WorkerLog`` on that
+    directory (its narration to stderr, its heartbeats to
+    ``events-p<i>.jsonl``)."""
+    active = dist is not None and dist.active
+    if not active or dist.primary:
+        exp = Experiment.attach(resume) if resume \
+            else Experiment(name, root=args.root, seed=args.seed).__enter__()
+        if active:
+            from ..distributed.hostio import broadcast_run_dir
+
+            broadcast_run_dir(exp.dir)
+        return exp
+    from ..distributed.hostio import WorkerLog, broadcast_run_dir
+
+    return WorkerLog(broadcast_run_dir(None), dist.process_id)
+
+
+def make_spans(args, exp, registry, writer, stage: str, dist=None):
     """The run's structured-span stream (``telemetry.tracing.SpanStream``,
-    trace id the run directory's basename), or ``None`` under
-    ``--no-spans`` (the bitwise A/B reference)."""
+    trace id the run directory's basename, rows tagged with the process),
+    installed as the ``distributed.hostio`` collective span sink; or
+    ``None`` under ``--no-spans`` (the bitwise A/B reference)."""
+    from ..distributed.hostio import set_span_sink
+
     if getattr(args, "no_spans", False):
+        set_span_sink(None)
         return None
     from ..telemetry.tracing import SpanStream
 
-    return SpanStream(exp, trace_id=os.path.basename(exp.dir), process=0,
-                      writer=writer, registry=registry)
+    active = dist is not None and dist.active
+    spans = SpanStream(exp, trace_id=os.path.basename(exp.dir),
+                       process=dist.process_id if active else 0,
+                       writer=writer, registry=registry)
+
+    def hostio_emit(name, dur_s, **labels):
+        spans.emit(name, spans.now() - dur_s, dur_s, stage=stage, **labels)
+
+    set_span_sink(hostio_emit)
+    return spans
 
 
 def emit_chunk_spans(spans, stage: str, gen: int, chunk: int,
@@ -455,10 +565,10 @@ def add_profile_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
-def make_profiler(args, exp, registry, stage: str):
-    """The run's profiling plane: the sampler and the anomaly capture
-    (handed to :func:`make_live_plane`).  ``(None, None)`` under
-    ``--no-profile``."""
+def make_profiler(args, exp, registry, stage: str, primary: bool = True):
+    """The run's profiling plane: the sampler (every process) and the
+    anomaly capture (process 0's; handed to :func:`make_live_plane`).
+    ``(None, None)`` under ``--no-profile``."""
     if getattr(args, "no_profile", False):
         return None, None
     from ..telemetry.profiler import AnomalyCapture, SamplingProfiler
@@ -466,20 +576,25 @@ def make_profiler(args, exp, registry, stage: str):
     profiler = SamplingProfiler(
         hz=getattr(args, "profile_hz", 50.0),
         ring_s=getattr(args, "profile_ring_s", 30.0)).start()
-    capture = AnomalyCapture(
-        exp.dir, profiler=profiler, registry=registry,
-        max_bundles=getattr(args, "anomaly_captures", 4),
-        ring_s=getattr(args, "profile_ring_s", 30.0))
+    capture = None
+    if primary:
+        capture = AnomalyCapture(
+            exp.dir, profiler=profiler, registry=registry,
+            max_bundles=getattr(args, "anomaly_captures", 4),
+            ring_s=getattr(args, "profile_ring_s", 30.0))
     exp.log(f"profiler: sampling {profiler.hz:g}Hz "
-            f"(ring {profiler.ring_s:g}s, anomaly captures "
-            f"≤{capture.max_bundles})")
+            f"(ring {profiler.ring_s:g}s"
+            + (f", anomaly captures ≤{capture.max_bundles}" if capture
+               else "") + ")")
     return profiler, capture
 
 
-def make_live_plane(args, exp, registry, stage: str, capture=None):
+def make_live_plane(args, exp, registry, stage: str, capture=None,
+                    dist=None):
     """The run's live telemetry plane (``telemetry.exporter.LivePlane``):
-    the history ring with ``metrics_history.jsonl``, the alert engine, and
-    the HTTP exporter when ``--metrics-port`` is set.  ``None`` under
+    the history ring with ``metrics_history.jsonl`` and the alert engine
+    (process 0's), and the HTTP exporter when ``--metrics-port`` is set
+    (process ``i`` of a distributed run binds PORT + i).  ``None`` under
     ``--no-export``.  An exporter that cannot bind is logged and the run
     goes on."""
     if getattr(args, "no_export", False):
@@ -489,21 +604,30 @@ def make_live_plane(args, exp, registry, stage: str, capture=None):
                                       healthz_metrics)
     from ..telemetry.timeseries import MetricHistory
 
+    active = dist is not None and dist.active
+    primary = dist.primary if active else True
     history = MetricHistory(
         registry, capacity=getattr(args, "history_ring", 512),
-        path=os.path.join(exp.dir, "metrics_history.jsonl"))
-    engine = AlertEngine(
-        default_run_rules(
-            nan_frac=getattr(args, "alert_nan_frac", 0.02),
-            straggler_skew=getattr(args, "alert_straggler_skew", 4.0)),
-        registry, history)
+        path=os.path.join(exp.dir, "metrics_history.jsonl")
+        if primary else None)
+    engine = None
+    if primary:
+        engine = AlertEngine(
+            default_run_rules(
+                nan_frac=getattr(args, "alert_nan_frac", 0.02),
+                straggler_skew=getattr(args, "alert_straggler_skew", 4.0)),
+            registry, history)
     exporter = None
     port = getattr(args, "metrics_port", 0) or 0
     if port:
+        port += dist.process_id if active else 0
+
         def healthz():
-            return {"ok": True, "stage": stage,
-                    "metrics": healthz_metrics(registry),
-                    "active_alerts": engine.active()}
+            out = {"ok": True, "stage": stage,
+                   "metrics": healthz_metrics(registry)}
+            if engine is not None:
+                out["active_alerts"] = engine.active()
+            return out
 
         try:
             exporter = MetricsExporter(registry, port=port, healthz=healthz)
@@ -513,13 +637,13 @@ def make_live_plane(args, exp, registry, stage: str, capture=None):
             exp.log(f"telemetry: exporter bind failed on :{port} "
                     f"({e}); continuing without the live endpoint")
     return LivePlane(history=history, engine=engine, exporter=exporter,
-                     capture=capture)
+                     capture=capture if engine is not None else None)
 
 
 def add_resilience_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The run supervisor's knobs (``srnn_tpu_torch.resilience``): bounded
-    retries with deterministic backoff and the chaos drills;
-    ``--max-devices`` is parsed and refused (:func:`add_mega_refusals`)."""
+    retries with deterministic backoff, the device budget of a sharded
+    run and the chaos drills."""
     p.add_argument("--max-restarts", type=int, default=3, metavar="N",
                    help="in-process recovery budget: a classified "
                         "device-loss / stall / I/O fault restarts the run "
@@ -536,11 +660,14 @@ def add_resilience_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--backoff-jitter", type=float, default=0.1, metavar="F",
                    help="jitter fraction on each backoff delay (0 disables)")
     p.add_argument("--max-devices", type=int, default=0, metavar="N",
-                   help=f"refused when > 0: a device budget for sharded "
-                        f"runs waits for {MULTI_GPU}")
+                   help="device budget of a --sharded run (0 = every rank "
+                        "of the run); one process owns one card, so a "
+                        "budget under the run's process count is refused: "
+                        "launch that many processes instead")
     p.add_argument("--chaos", default=None, metavar="SPEC",
                    help="deterministic fault injection for recovery drills: "
-                        "comma-separated device_loss@G, stall@G[:HOLD_S] "
+                        "comma-separated device_loss@G, host_loss@G[:H], "
+                        "coordinator_timeout@G, stall@G[:HOLD_S] "
                         "(needs --stall-timeout-s), writer@N, sigterm@G, "
                         "sigkill@G; every event fires once "
                         "(see resilience.chaos)")
@@ -562,17 +689,21 @@ def add_dynamics_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 def make_lineage(args, exp_dir: str, *, sizes, start_gen: int,
-                 resume: bool, device, type_names=None):
+                 resume: bool, device, type_names=None, mesh=None,
+                 primary: bool = True):
     """The lineage trio ``(state, writer, capacity)``, ``(None, None, 0)``
     without ``--lineage``.  On a resume the carry comes from the
     ``lineage_state.npz`` sidecar when its generation matches the
     checkpoint (the stream continues its epoch); otherwise a fresh carry
     opens a new epoch.  ``sizes`` is ``(n,)`` for the soup or the per-type
-    sizes (one pid space)."""
+    sizes (one pid space).  Under sharding (``mesh``) every rank builds
+    the whole carry and keeps its block; process 0 alone (``primary``)
+    gets the writer."""
     if not getattr(args, "lineage", False):
         return None, None, 0
     from ..telemetry.dynamics import (LineageWriter, load_lineage_state,
-                                      seed_lineage, seed_lineage_blocks)
+                                      place_lineage, seed_lineage,
+                                      seed_lineage_blocks)
 
     lin = load_lineage_state(exp_dir, start_gen, device) if resume else None
     restored = lin is not None
@@ -581,13 +712,18 @@ def make_lineage(args, exp_dir: str, *, sizes, start_gen: int,
                if len(sizes) == 1
                else seed_lineage_blocks(sizes, time=start_gen,
                                         device=device))
+    if mesh is not None:
+        lin = (place_lineage(mesh, lin) if hasattr(lin, "next_pid")
+               else tuple(place_lineage(mesh, lt) for lt in lin))
     meta = {"start_gen": start_gen, "sizes": list(sizes)}
     if type_names is not None:
         meta["type_names"] = list(type_names)
-    writer = LineageWriter(exp_dir, n=sum(sizes),
-                           capacity=args.lineage_edges,
-                           epsilon=args.epsilon, resume=resume,
-                           continue_epoch=restored, meta=meta)
+    writer = None
+    if primary:
+        writer = LineageWriter(exp_dir, n=sum(sizes),
+                               capacity=args.lineage_edges,
+                               epsilon=args.epsilon, resume=resume,
+                               continue_epoch=restored, meta=meta)
     return lin, writer, args.lineage_edges
 
 
@@ -788,7 +924,15 @@ def run_mega(args, ctx, mega):
     the loop reads nothing back from the card; the finisher resolves the
     counts and carries.  Every registry mutation of chunk k rides the
     writer ahead of chunk k's metrics flush and checkpoint.  SIGTERM stops
-    the loop at the next chunk boundary after the drain (``Preempted``)."""
+    the loop at the next chunk boundary after the drain (``Preempted``).
+
+    With ``--sharded`` the chunk runs the sharded soup
+    (``sharded_evolve`` / ``sharded_evolve_multi``, ``sharded_count``)
+    over every rank of the run (``init_distributed``, one process per
+    card); the checkpoint source (and the lineage carry to flush) is
+    gathered onto every rank on the loop thread
+    (:func:`fetch_for_checkpoint`), and process 0 alone writes the run's
+    artifacts (:func:`open_run`)."""
     import time as _time
 
     from ..experiment import CheckpointSnapshot
@@ -807,10 +951,18 @@ def run_mega(args, ctx, mega):
                                           update_registry)
     from ..utils.pipeline import submit_or_run
 
+    from ..distributed.hostio import fetch_tree, set_span_sink
+
     chaos = ctx.chaos if ctx is not None else None
     restarts = ctx.restarts if ctx is not None else 0
     stage = mega.stage
     dev = device()
+    # multi-process bring-up first (inactive, and free, for plain runs);
+    # process 0 owns every host write but the heartbeats
+    dist = init_distributed(args)
+    primary = dist.primary
+    if dist.active:
+        dev = dist.device
     # everything cheap is validated before the Experiment exists, so a bad
     # invocation never leaves a run directory without meta.json
     ckpt = None
@@ -821,11 +973,21 @@ def run_mega(args, ctx, mega):
         ckpt = resume_checkpoint(args.resume)
     mega.validate(args)
     validate_capture(args)
-    mega.configure(args)
+    validate_sharded(args)
+    mesh = None
+    if args.sharded:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = build_soup_mesh(args, dist, dev, (args.size,))
+    try:
+        mega.configure(args, mesh.size if mesh is not None else 1)
+        exp = open_run(args, mega.name, resume=args.resume, dist=dist)
+    except BaseException:
+        if mesh is not None:
+            mesh.close()
+        raise
     labels = mega.labels
     multi = mega.type_names is not None
-
-    exp = open_run(args, mega.name, resume=args.resume)
     stores = writer = live = prof = capture = spans = None
     with contextlib.ExitStack() as teardown:
         # the callbacks run bottom-up: an armed watchdog trace window, the
@@ -834,17 +996,26 @@ def run_mega(args, ctx, mega):
         # jobs, joins, re-raises a job failure), the live plane (after the
         # writer: queued sample jobs use it), the stores, the lineage
         # stream, and the Experiment exactly once with the real exception,
-        # so that meta.json records a crash
+        # so that meta.json records a crash; last of all the world of one
+        # a launcher-less sharded run formed
+        if mesh is not None:
+            teardown.callback(mesh.close)
         teardown.push(exp.__exit__)
         if args.resume:
-            state = mega.restore(ckpt)
+            # every rank restores the same files and keeps its block
+            state = mega.restore(ckpt, mesh)
             exp.log(f"resumed from {os.path.basename(ckpt)} "
                     f"at generation {int(state.time)}")
         else:
-            save_run_config(exp.dir, args, mega.config_fields,
-                            extra=mega.config_extra)
-            state = mega.seed(args.seed, dev)
-            exp.log(mega.header())
+            if primary:
+                save_run_config(exp.dir, args, mega.config_fields,
+                                extra=mega.config_extra)
+            state = mega.seed(args.seed, dev, mesh)
+            exp.log(mega.header()
+                    + (f" sharded over {mesh.size} devices"
+                       if mesh is not None else "")
+                    + (f" across {dist.num_processes} processes"
+                       if dist.active else ""))
         if ctx is not None:
             ctx.run_dir = exp.dir  # the supervisor resumes from here
         if restarts:
@@ -858,6 +1029,7 @@ def run_mega(args, ctx, mega):
 
         registry = MetricsRegistry()
         set_precision_gauges(registry, mega.cfg)
+        set_distributed_gauges(registry, dist, mesh)
         fused = mega.cfg.generation_impl == "fused"
         kernel_types = [fused and mega.fused_type(t) and dev.type == "cuda"
                         for t in range(len(labels))]
@@ -866,13 +1038,16 @@ def run_mega(args, ctx, mega):
                     + f", population_dtype={mega.cfg.population_dtype}")
         health_on = not args.no_health
         flightrec, watchdog = make_flightrec(args)
+        if not primary:
+            # triage bundles are run-directory artifacts: process 0's
+            watchdog = None
         record_recovery(registry, flightrec, ctx)
         lin, lin_writer, lincap = make_lineage(
             args, exp.dir, sizes=mega.sizes, start_gen=int(state.time),
             resume=bool(args.resume), device=dev,
-            type_names=mega.type_names)
+            type_names=mega.type_names, mesh=mesh, primary=primary)
         lineage_on = lin is not None
-        if lineage_on:
+        if lin_writer is not None:
             teardown.callback(lin_writer.close)
             exp.log(f"lineage: epoch {lin_writer.epoch}, "
                     f"{lincap} edge rows/window -> lineage.jsonl")
@@ -900,13 +1075,14 @@ def run_mega(args, ctx, mega):
                 recorder=flightrec, registry=registry,
                 thresholds={"stall_timeout_s": timeout_s}, generation=gen)
 
-        driver.on_stall = on_stall
-        spans = make_spans(args, exp, registry, writer, stage)
-        prof, capture = make_profiler(args, exp, registry, stage)
-        live = make_live_plane(args, exp, registry, stage, capture=capture)
-        # one process: the stage is the label (the JAX package's
-        # per-process ``stage@p<i>/<n>`` of stage_label waits for A.6)
-        hb = Heartbeat(exp, stage=stage,
+        driver.on_stall = on_stall if primary else None
+        spans = make_spans(args, exp, registry, writer, stage, dist)
+        # the collective span sink closes over this attempt's writer
+        teardown.callback(set_span_sink, None)
+        prof, capture = make_profiler(args, exp, registry, stage, primary)
+        live = make_live_plane(args, exp, registry, stage, capture=capture,
+                               dist=dist)
+        hb = Heartbeat(exp, stage=stage_label(stage, dist),
                        total_generations=args.generations,
                        registry=registry,
                        fsync_every=args.heartbeat_fsync_every,
@@ -915,7 +1091,7 @@ def run_mega(args, ctx, mega):
         if args.capture_every:
             stores = _open_stores(mega, args, exp, state, writer)
         with meter.waiting():
-            counts = mega.count(state).cpu().numpy()
+            counts = mega.count(state, mesh).cpu().numpy()
         t_last = _time.perf_counter()
 
         def class_gauges(counts, prev):
@@ -977,7 +1153,7 @@ def run_mega(args, ctx, mega):
                     for t, hsum in enumerate(hsums or ()):
                         submit_or_run(writer, update_health_gauges,
                                       registry, hsum, labels[t])
-                    if ldata is not None:
+                    if ldata is not None and lin_writer is not None:
                         kind, payload = ldata
                         if kind == "window":
                             flush_lineage_window(
@@ -995,14 +1171,21 @@ def run_mega(args, ctx, mega):
                         # this chunk's gauges and before its flush
                         live.sample(exp, writer, generation=gen)
                     if prof is not None:
-                        prof.flush(exp.dir, writer, registry)
-                    submit_or_run(writer, registry.flush_events, exp)
-                    submit_or_run(writer, registry.write_textfile,
-                                  os.path.join(exp.dir, "metrics.prom"))
-                    submit_or_run(writer, save_checkpoint_source,
-                                  os.path.join(exp.dir,
-                                               f"ckpt-gen{gen:08d}"),
-                                  ckpt_state)
+                        if primary:
+                            prof.flush(exp.dir, writer, registry)
+                        else:
+                            submit_or_run(writer, prof.update_gauges,
+                                          registry)
+                    # run-directory artifacts are process 0's: the other
+                    # processes contribute through the collectives
+                    if primary:
+                        submit_or_run(writer, registry.flush_events, exp)
+                        submit_or_run(writer, registry.write_textfile,
+                                      os.path.join(exp.dir, "metrics.prom"))
+                        submit_or_run(writer, save_checkpoint_source,
+                                      os.path.join(exp.dir,
+                                                   f"ckpt-gen{gen:08d}"),
+                                      ckpt_state)
                 row["pipeline"] = meter.chunk_done(dt)
                 if prof is not None:
                     row["utilization"] = update_utilization_gauges(
@@ -1051,7 +1234,7 @@ def run_mega(args, ctx, mega):
                 if lineage_on:
                     kw.update(lineage=True, lineage_state=lin,
                               lineage_capacity=lincap)
-                out = mega.evolve(state, chunk, **kw)
+                out = mega.evolve(state, chunk, mesh, **kw)
                 state, ms = out[0], out[1]
                 if not multi:
                     ms = (ms,)
@@ -1062,11 +1245,18 @@ def run_mega(args, ctx, mega):
                         hs = (hs,)
                 if lineage_on:
                     lt = rest.pop(0)
-                    lin, ldata = lt[0], ("window", lt)
+                    lin = lt[0]
+                    if mesh is not None:
+                        # the whole carry for the sidecar (a collective,
+                        # on the loop thread); the rank keeps its block
+                        lt = (fetch_tree(lt[0], mesh),) + tuple(lt[1:])
+                    ldata = ("window", lt)
             gen += chunk
             # both launched before the next chunk
-            counts_dev = mega.count(state)
-            ckpt_state = CheckpointSnapshot(state) if pipelined else state
+            counts_dev = mega.count(state, mesh)
+            source = state if mesh is None else fetch_for_checkpoint(
+                state, mesh, meter, registry)
+            ckpt_state = CheckpointSnapshot(source) if pipelined else source
             fin = finisher(gen, chunk, counts_dev, ckpt_state, ms, hs, ldata)
             if chaos is not None:
                 fin = chaos.wrap_finisher(fin, gen)

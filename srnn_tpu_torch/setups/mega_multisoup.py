@@ -15,8 +15,13 @@ split about a third per type (weightwise gets the remainder).
 Trajectory capture writes one store per type (``soup.t0.traj``,
 ``soup.t1.traj``, ...) through ``utils.evolve_multi_captured``.
 ``--train-impl`` / ``--apply-impl xla|pallas`` read as 'plain' | 'kernel'.
-``--sharded``, ``--max-devices`` and the ``--dist-*`` flags are refused
-(ROADMAP.md, A.6).
+``--sharded`` shards every type over the ranks of the run
+(``parallel.sharded_multisoup``; launch it as ``mega_soup``'s): each
+type's size is rounded to a multiple of the rank count, as in the JAX
+package (so a sharded run's population is the unsharded run's only where
+the sizes agree), and ``--size`` must divide by it and be at least three
+times it.  ``--capture-every`` with ``--sharded`` is refused, as in the
+JAX package.
 """
 
 import os
@@ -26,13 +31,16 @@ from ..multisoup import (MultiSoupConfig, _check_multi, count_multi,
                          evolve_multi, resolved_generation_impl,
                          resolved_train_impls, seed_multi)
 from ..ops.predicates import CLASS_NAMES
+from ..parallel import (make_sharded_multi_state, place_sharded_multi_state,
+                        sharded_count_multi, sharded_evolve_multi)
 from ..resilience import supervised_run
 from ..telemetry.soup_metrics import type_names
 from ..topology import Topology
 from ..utils import evolve_multi_captured
 from .common import (add_dynamics_args, add_flightrec_args,
-                     add_mega_refusals, add_pipeline_args, add_profile_args,
-                     add_resilience_args, add_telemetry_args, base_parser,
+                     add_pipeline_args, add_profile_args,
+                     add_resilience_args, add_sharding_args,
+                     add_telemetry_args, base_parser,
                      register, run_mega)
 from .mega_soup import IMPLS
 
@@ -77,7 +85,7 @@ def build_parser():
     add_flightrec_args(p)
     add_dynamics_args(p)
     add_resilience_args(p)
-    add_mega_refusals(p)
+    add_sharding_args(p)
     return p
 
 
@@ -88,10 +96,14 @@ _CONFIG_FIELDS = ("size", "attacking_rate", "learn_from_rate",
                   "population_dtype")
 
 
-def _make_config(args) -> MultiSoupConfig:
+def _make_config(args, n_dev: int = 1) -> MultiSoupConfig:
     """A third of ``--size`` each to the aggregating and recurrent types,
-    the rest to the weightwise one."""
+    the rest to the weightwise one; under sharding each third is rounded
+    down to a multiple of the ``n_dev`` ranks (the weightwise remainder
+    then divides too: ``--size`` is checked to)."""
     third = args.size // 3
+    if n_dev > 1:
+        third = (third // n_dev) * n_dev
     return MultiSoupConfig(
         topos=(Topology("weightwise", width=2, depth=2),
                Topology("aggregating", width=2, depth=2),
@@ -143,8 +155,17 @@ class _Multi:
             raise SystemExit("--generation-impl fused is the popmajor lane "
                              "megakernel; --layout rowmajor needs phases")
 
-    def configure(self, args) -> None:
-        self.cfg = _make_config(args)
+    def configure(self, args, n_dev: int = 1) -> None:
+        if args.sharded:
+            if args.size % n_dev:
+                raise SystemExit(
+                    f"--sharded needs --size divisible by the {n_dev} "
+                    f"devices (got {args.size})")
+            if args.size < 3 * n_dev:
+                raise SystemExit(
+                    f"--sharded needs --size >= 3x the {n_dev} devices so "
+                    "every type keeps at least one shard per device")
+        self.cfg = _make_config(args, n_dev)
         try:
             _check_multi(self.cfg)
         except ValueError as e:
@@ -154,16 +175,19 @@ class _Multi:
         self.labels = self.type_names = tuple(type_names(self.cfg))
         self.config_extra = {"type_names": [t.variant for t in self.topos]}
 
-    def restore(self, ckpt):
+    def restore(self, ckpt, mesh=None):
         state = restore_multi_checkpoint(ckpt)
         got = tuple(w.shape[0] for w in state.weights)
         if got != self.cfg.sizes:
             raise SystemExit(
                 f"checkpointed per-type sizes {got} do not match the "
                 f"configuration's {self.cfg.sizes}")
-        return state
+        return state if mesh is None \
+            else place_sharded_multi_state(mesh, state)
 
-    def seed(self, seed_, dev):
+    def seed(self, seed_, dev, mesh=None):
+        if mesh is not None:
+            return make_sharded_multi_state(self.cfg, mesh, seed_)
         return seed_multi(self.cfg, seed_, dev)
 
     def header(self) -> str:
@@ -181,7 +205,9 @@ class _Multi:
         return ",".join(f"{t.variant}={resolved_generation_impl(self.cfg, t)}"
                         for t in self.topos)
 
-    def count(self, state):
+    def count(self, state, mesh=None):
+        if mesh is not None:
+            return sharded_count_multi(self.cfg, mesh, state)
         return count_multi(self.cfg, state)
 
     def format_counts(self, counts) -> str:
@@ -190,7 +216,10 @@ class _Multi:
     def counts_doc(self, counts):
         return counts.tolist()
 
-    def evolve(self, state, generations, **kw):
+    def evolve(self, state, generations, mesh=None, **kw):
+        if mesh is not None:
+            return sharded_evolve_multi(self.cfg, mesh, state, generations,
+                                        **kw)
         return evolve_multi(self.cfg, state, generations, **kw)
 
     def capture(self, state, generations, stores, **kw):

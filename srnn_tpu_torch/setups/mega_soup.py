@@ -20,21 +20,34 @@ pipelined and a ``--no-pipeline`` run, any ``--checkpoint-every``, and
 runs with or without the host-side planes.  ``--train-impl xla|pallas``
 reads as the port's ``train_impl`` 'plain' | 'kernel'.  The soup seeds a
 generator on the run's device from ``--seed`` (not the JAX package's
-stream).  ``--sharded``, ``--max-devices`` and the ``--dist-*`` flags are
-refused (ROADMAP.md, A.6); the exit codes are the supervisor's.
+stream).  The exit codes are the supervisor's.
+
+``--sharded`` shards the particle axis over the ranks of the run, one per
+card (``parallel.sharded_soup``):
+
+    python -m srnn_tpu_torch.distributed.launch --processes N -- \
+        mega_soup --sharded --size 1000000
+
+Each rank seeds the whole population from the replicated ``--seed`` and
+keeps its block, and in the popmajor layout every checkpoint is bitwise
+the unsharded run's, whatever the number of processes (so a run may
+resume on another count that divides ``--size``).  ``--capture-every``
+with ``--sharded`` waits for the sharded capture (ROADMAP.md, A.6).
 """
 
 import os
 
 from ..experiment import counters_dict, format_counters, restore_checkpoint
+from ..parallel import (make_sharded_state, place_sharded_state,
+                        sharded_count, sharded_evolve)
 from ..resilience import supervised_run
 from ..soup import SoupConfig, _check_config, count, evolve, seed
 from ..topology import Topology
 from ..utils import evolve_captured
 from .common import (add_dynamics_args, add_flightrec_args,
-                     add_mega_refusals, add_pipeline_args, add_profile_args,
-                     add_resilience_args, add_telemetry_args, base_parser,
-                     register, run_mega)
+                     add_pipeline_args, add_profile_args,
+                     add_resilience_args, add_sharding_args,
+                     add_telemetry_args, base_parser, register, run_mega)
 
 #: the JAX package's spellings of the SGD / apply routes -> the port's
 IMPLS = {"xla": "plain", "pallas": "kernel"}
@@ -87,7 +100,7 @@ def build_parser():
     add_flightrec_args(p)
     add_dynamics_args(p)
     add_resilience_args(p)
-    add_mega_refusals(p)
+    add_sharding_args(p)
     return p
 
 
@@ -148,7 +161,7 @@ class _Soup:
             raise SystemExit("--generation-impl fused is the popmajor lane "
                              "megakernel; --layout rowmajor needs phases")
 
-    def configure(self, args) -> None:
+    def configure(self, args, n_dev: int = 1) -> None:
         self.cfg = _make_config(args)
         try:
             _check_config(self.cfg)
@@ -157,11 +170,22 @@ class _Soup:
         self.sizes = (self.cfg.size,)
         self.topos = (self.cfg.topo,)
 
-    def restore(self, ckpt):
-        return restore_checkpoint(ckpt)
+    def restore(self, ckpt, mesh=None):
+        state = restore_checkpoint(ckpt)
+        if mesh is None:
+            return state
+        try:
+            return place_sharded_state(mesh, state)
+        except ValueError as e:
+            raise SystemExit(f"mega_soup: {e}")
 
-    def seed(self, seed_, dev):
-        return seed(self.cfg, seed_, dev)
+    def seed(self, seed_, dev, mesh=None):
+        if mesh is None:
+            return seed(self.cfg, seed_, dev)
+        try:
+            return make_sharded_state(self.cfg, mesh, seed_)
+        except ValueError as e:
+            raise SystemExit(f"mega_soup: {e}")
 
     def header(self) -> str:
         cfg = self.cfg
@@ -176,7 +200,9 @@ class _Soup:
         return ("generation kernel" if dev.type == "cuda"
                 else "its plain version (CPU)")
 
-    def count(self, state):
+    def count(self, state, mesh=None):
+        if mesh is not None:
+            return sharded_count(self.cfg, mesh, state)[None]
         return count(self.cfg, state)[None]
 
     def format_counts(self, counts) -> str:
@@ -185,7 +211,9 @@ class _Soup:
     def counts_doc(self, counts):
         return counters_dict(counts[0])
 
-    def evolve(self, state, generations, **kw):
+    def evolve(self, state, generations, mesh=None, **kw):
+        if mesh is not None:
+            return sharded_evolve(self.cfg, mesh, state, generations, **kw)
         return evolve(self.cfg, state, generations, **kw)
 
     def capture(self, state, generations, stores, **kw):

@@ -556,29 +556,39 @@ def _compact_gated_lanes(wT: torch.Tensor, gate: torch.Tensor, cap: int,
 
 def _attack_popmajor_compact(topo: Topology, wT: torch.Tensor,
                              att_idx: torch.Tensor, has_attacker: torch.Tensor,
-                             cap: int) -> torch.Tensor:
+                             cap: int, source: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """The attack over the attacked victims' lanes only
     (``_attack_popmajor_compact``, ``soup.py:458-478`` of the JAX
     package): the transform of ``apply_popmajor`` on a block of ``cap``
-    lanes (K6 for a recurrent particle on its route)."""
+    lanes (K6 for a recurrent particle on its route).  The attackers'
+    columns come from ``source`` (default ``wT``) by index: under sharding
+    the victims are a rank's own lanes and ``source`` the gathered
+    population, ``att_idx`` global indices into it."""
     attacker = att_idx.clamp(min=0)
+    source = wT if source is None else source
 
     def block(cols):
-        return apply_popmajor(topo, wT[:, attacker[cols]], wT[:, cols])
+        return apply_popmajor(topo, source[:, attacker[cols]], wT[:, cols])
 
     return _compact_gated_lanes(wT, has_attacker, cap, block)
 
 
 def _learn_popmajor_compact(config, topo: Topology, wT: torch.Tensor,
                             learn_gate: torch.Tensor, learn_tgt: torch.Tensor,
-                            cap: int) -> torch.Tensor:
+                            cap: int, source: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """learn_from over the learners' lanes only
     (``_learn_popmajor_compact``, ``soup.py:481-503`` of the JAX package):
     the imitation chain on its route (K2, K4 or K5 on the card) over a
-    block of ``cap`` lanes toward the post-attack counterparts."""
+    block of ``cap`` lanes toward the post-attack counterparts, read from
+    ``source`` (default ``wT``; the gathered post-attack population under
+    sharding) at the global indices ``learn_tgt``."""
+    source = wT if source is None else source
+
     def block(cols):
         learned, _ = learn_epochs_popmajor(
-            topo, wT[:, cols], wT[:, learn_tgt[cols]],
+            topo, wT[:, cols], source[:, learn_tgt[cols]],
             config.learn_from_severity, config.lr, config.train_mode,
             layout=config.layout)
         return learned
@@ -587,22 +597,27 @@ def _learn_popmajor_compact(config, topo: Topology, wT: torch.Tensor,
 
 
 def _learn_train_respawn(config, topo: Topology, wT, fresh, learn_gate,
-                         learn_tgt, learn_cap: Optional[int] = None):
+                         learn_tgt, learn_cap: Optional[int] = None,
+                         source=None):
     """The phase chain after the attack (``soup.py:62-86``): learn_from
     toward the (post-attack) counterparts, train, the respawn predicates
     and the fresh select.  ``config`` is a ``SoupConfig`` or a mixed
     soup's config (the same dynamics fields); ``learn_cap``, where given,
-    compacts learn_from to a block of that many lanes.  Returns (wT, last
-    train loss, dead_div, dead_zero)."""
+    compacts learn_from to a block of that many lanes.  ``source`` is
+    where the counterparts are read (default ``wT``): a callable making
+    the gathered post-attack population of a sharded soup, called only
+    where learn_from runs.  Returns (wT, last train loss, dead_div,
+    dead_zero)."""
     n = wT.shape[1]
     dev = wT.device
     if config.learn_from_rate > 0 and config.learn_from_severity > 0:
+        src = wT if source is None else source(wT)
         if learn_cap is not None:
             wT = _learn_popmajor_compact(config, topo, wT, learn_gate,
-                                         learn_tgt, learn_cap)
+                                         learn_tgt, learn_cap, source=src)
         else:
             learned, _ = learn_epochs_popmajor(
-                topo, wT, wT[:, learn_tgt], config.learn_from_severity,
+                topo, wT, src[:, learn_tgt], config.learn_from_severity,
                 config.lr, config.train_mode, layout=config.layout)
             wT = torch.where(learn_gate[None, :], learned, wT)
     if config.train > 0:
@@ -619,18 +634,20 @@ def _learn_train_respawn(config, topo: Topology, wT, fresh, learn_gate,
     return wT, train_loss, dead_div, dead_zero
 
 
-def _record_lineage(lineage, gen, att_idx, learn_gate, learn_tgt, dead):
+def _record_lineage(lineage, gen, att_idx, learn_gate, learn_tgt, dead,
+                    mesh=None):
     """The lineage carry advanced by one generation's gates, read after
     its weights math (``dynamics.record_step``): ``lineage`` is (lin, win,
-    (caps, capacity)); returns (lin, win)."""
+    (caps, capacity)); returns (lin, win).  Under sharding (``mesh``) the
+    gates are the rank's lanes and the indices global."""
     from .telemetry.dynamics import lookup_pids, record_step
 
     lin, win, (caps, capacity) = lineage
     return record_step(
         lin, win, gen=gen, attacked=att_idx >= 0,
-        attacker_pid=lookup_pids(lin.pid, att_idx.clamp(min=0)),
+        attacker_pid=lookup_pids(lin.pid, att_idx.clamp(min=0), mesh),
         learn_gate=learn_gate, learn_tgt=learn_tgt, dead=dead, caps=caps,
-        capacity=capacity)
+        capacity=capacity, mesh=mesh)
 
 
 def _evolve_parallel_popmajor(config: SoupConfig, state: SoupState,

@@ -24,7 +24,10 @@ soup_metrics, flightrec and genealogy modules).
   * **The experiment service's** tail-kept trace exemplars
     (``exemplars``) and its alert rule tables (``alerts``).
 
-The sharded reductions and the fleet readers wait for ROADMAP.md A.6.
+A sharded run reduces its carries once per ``sharded_evolve`` call
+(``device.psum_soup_metrics`` / ``psum_health``, ``dynamics.
+psum_fixpoints``); the fleet readers of several processes' files wait for
+ROADMAP.md A.6.
 """
 
 from .device import (N_ACTIONS, N_HEALTH_BUCKETS, HealthStats, SoupMetrics,

@@ -22,11 +22,13 @@ of the health sketch is computed as the JAX package writes it (float32
 two libraries' ``log2`` round a norm just below a power of two to opposite
 sides of an integer.
 
-The ``psum_*`` reductions of the sharded scan wait for multi-GPU
-(ROADMAP.md, A.6).
+A sharded run (``parallel.sharded_soup``) folds each rank's lanes into
+its own carries and reduces them once per ``sharded_evolve`` call, at the
+shard boundary (:func:`psum_soup_metrics`, :func:`psum_health`, the JAX
+package's ``device.py:87`` / ``:219``).
 """
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -201,3 +203,42 @@ def probe_health(w: torch.Tensor, axis: int = -1,
     """One-shot health stats of a population already in hand, on its
     device."""
     return accumulate_health(zero_health(w.device), w, axis, epsilon)
+
+
+def psum_soup_metrics(m: SoupMetrics, mesh,
+                      loss_sum: Optional[torch.Tensor] = None) -> SoupMetrics:
+    """The global carry from every rank's (``psum_soup_metrics``,
+    ``device.py:87`` of the JAX package): the action histograms and loss
+    sums summed, ``generations`` as it is (every rank stepped alike).
+    ``loss_sum``, where given, replaces the summed one (the sharded soup
+    passes the loss sum in the single-device run's order)."""
+    acts = mesh.all_reduce(m.actions)
+    if loss_sum is None:
+        loss_sum = mesh.all_reduce(m.loss_sum)
+    return SoupMetrics(m.generations, acts, loss_sum)
+
+
+def psum_health(h: HealthStats, mesh,
+                per_generation: Optional[torch.Tensor] = None
+                ) -> HealthStats:
+    """The global carry from every rank's (``psum_health``,
+    ``device.py:219`` of the JAX package): counts and the sketch summed,
+    the norm extrema reduced by min / max, ``checks`` as it is.  The
+    peaks are the JAX package's shard-wise upper bound (the sum of the
+    ranks' peaks), unless ``per_generation`` holds the rank's (G, 2)
+    nonfinite and zero counts of each generation folded: then they are
+    the maxima over the generations of the global counts, the
+    single-device run's peaks."""
+    ints = mesh.all_reduce(torch.cat([
+        torch.stack([h.nonfinite, h.nonfinite_peak, h.zero, h.zero_peak]),
+        h.norm_hist]))
+    ext = mesh.all_reduce(torch.stack([-h.norm_min, h.norm_max]), "max")
+    nonf_peak, zero_peak = ints[1], ints[3]
+    if per_generation is not None:
+        peaks = mesh.all_reduce(per_generation).amax(0)
+        nonf_peak = torch.maximum(torch.zeros_like(peaks[0]), peaks[0])
+        zero_peak = torch.maximum(torch.zeros_like(peaks[1]), peaks[1])
+    return HealthStats(
+        checks=h.checks, nonfinite=ints[0], nonfinite_peak=nonf_peak,
+        zero=ints[2], zero_peak=zero_peak, norm_min=-ext[0],
+        norm_max=ext[1], norm_hist=ints[4:])

@@ -35,9 +35,15 @@ for the same gates; the census is exact for the same weights and
 The host half (:class:`LineageWriter`, :func:`update_dynamics_registry`,
 the ``lineage_state.npz`` sidecar) writes what the JAX package writes, so
 either package's ``genealogy`` and ``load_lineage_state`` read the
-other's files.  The sharded pieces (``lineage_specs``, ``window_specs``,
-``fixpoint_specs``, ``place_lineage``, ``psum_fixpoints`` and the ranks
-across shards) wait for multi-GPU (ROADMAP.md, A.6).
+other's files.
+
+Sharded runs (``parallel.sharded_soup``): :func:`record_step` and
+:func:`lookup_pids` take the mesh, so that pids minted on different ranks
+are globally unique and equal to the single-device run's;
+:func:`place_lineage` keeps a rank's block of a carry,
+:func:`gather_window` concatenates the per-rank windows (the JAX
+package's ``window_specs``) and :func:`psum_fixpoints` reduces the census
+once per ``sharded_evolve`` call.
 """
 
 import json
@@ -146,9 +152,27 @@ def edge_capacity(n: int, rate: float) -> int:
     return min(n, ((cap + 127) // 128) * 128)
 
 
-def lookup_pids(pid: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """pid of a particle index."""
-    return pid[idx]
+def lookup_pids(pid: torch.Tensor, idx: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """pid of a (global) particle index; under sharding (``mesh``, a
+    ``parallel.SoupMesh``) the pid table is gathered from every rank
+    first."""
+    table = pid if mesh is None else mesh.gather(pid)
+    return table[idx]
+
+
+def _rank_and_total(cnt: torch.Tensor, mesh):
+    """(mint base of this rank, global count) per phase from the local
+    counts ``cnt``: zeros and ``cnt`` on one device; under sharding the
+    counts of the ranks before this one and of all ranks (one gather), so
+    that a lane's global mint rank is its local rank plus the base -- the
+    JAX package's gathered-mask cumsum (``_rank_and_total``,
+    ``dynamics.py:182-198``), from counts instead of masks."""
+    if mesh is None:
+        return torch.zeros_like(cnt), cnt
+    counts = mesh.gather(cnt).view(mesh.size, -1)
+    return counts[:mesh.rank].sum(0, dtype=cnt.dtype), \
+        counts.sum(0, dtype=cnt.dtype)
 
 
 def mint(lin: LineageState, mask: torch.Tensor, parent_pid: torch.Tensor,
@@ -178,7 +202,7 @@ def record_step(lin: LineageState, win: LineageWindow, *,
                 gen: torch.Tensor, attacked: torch.Tensor,
                 attacker_pid: torch.Tensor, learn_gate: torch.Tensor,
                 learn_tgt: torch.Tensor, dead: torch.Tensor,
-                caps: Tuple[int, int, int], capacity: int
+                caps: Tuple[int, int, int], capacity: int, mesh=None
                 ) -> Tuple[LineageState, LineageWindow]:
     """One generation's lineage bookkeeping, fed the gates the generation
     computed: the ``attacked`` lanes with their winning ``attacker_pid``
@@ -196,7 +220,14 @@ def record_step(lin: LineageState, win: LineageWindow, *,
     gathered at once, and every row of the generation lands in one
     scatter; the phases append in order until the buffer is full (phase
     i's rows start after min(rows wanted by the phases before it, room)),
-    and a row past it goes to a spare row that is cut off."""
+    and a row past it goes to a spare row that is cut off.
+
+    Under sharding (``mesh``, a ``parallel.SoupMesh``; the masks are the
+    rank's own lanes, ``learn_tgt`` global indices) the pids are minted
+    from global ranks (this rank's base from the counts of the ranks
+    before it) and the teacher's pid is read from the gathered table, so
+    a lane gets the pid the single-device run gives it; the window is the
+    rank's own (its rows, counts and births), as in the JAX package."""
     phases = [i for i in range(3) if caps[i] > 0]
     if not phases:
         return lin, win
@@ -213,22 +244,24 @@ def record_step(lin: LineageState, win: LineageWindow, *,
     running = flat - torch.cat([flat.new_zeros(1), flat[:-1, -1]])[:, None]
     cnt = running[:, -1]
     rank = running - 1
+    base, total = _rank_and_total(cnt, mesh)
 
     old_pid = mid_pid = pid = lin.pid
     parent, next_pid = lin.parent, lin.next_pid
     neg1 = torch.full_like(old_pid, -1)
     cols = []
     if 0 in at:
-        mid_pid = pid = torch.where(attacked, next_pid + rank[at[0]], pid)
+        mid_pid = pid = torch.where(
+            attacked, next_pid + base[at[0]] + rank[at[0]], pid)
         parent = torch.where(attacked, attacker_pid, parent)
-        next_pid = next_pid + cnt[at[0]]
+        next_pid = next_pid + total[at[0]]
         cols += [attacker_pid, mid_pid, old_pid]
     if 1 in at:
-        cols += [mid_pid[learn_tgt], mid_pid, neg1]
+        cols += [lookup_pids(mid_pid, learn_tgt, mesh), mid_pid, neg1]
     if 2 in at:
-        pid = torch.where(dead, next_pid + rank[at[2]], pid)
+        pid = torch.where(dead, next_pid + base[at[2]] + rank[at[2]], pid)
         parent = torch.where(dead, neg1, parent)
-        next_pid = next_pid + cnt[at[2]]
+        next_pid = next_pid + total[at[2]]
         cols += [neg1, pid, mid_pid]
     minted = None
     if 0 in at:
@@ -316,6 +349,39 @@ def close_window(lin: LineageState, w: torch.Tensor, fw: torch.Tensor,
     transitions from the carried labels, and store the new labels."""
     basin, stats = fixpoint_stats(w, fw, axis, epsilon, lin.basin)
     return lin._replace(basin=basin), stats
+
+
+def psum_fixpoints(s: FixpointStats, mesh) -> FixpointStats:
+    """The global census from every rank's (``psum_fixpoints``,
+    ``dynamics.py:382`` of the JAX package): counts summed, maxima
+    maxed -- one reduction of the integers and one of the two maxima."""
+    ints = mesh.all_reduce(torch.cat([
+        s.census, s.transitions.reshape(-1), s.l2_hist, s.linf_hist]))
+    n, m = N_BASINS, (N_BASINS + 1) * N_BASINS
+    maxima = mesh.all_reduce(torch.stack([s.l2_max, s.linf_max]), "max")
+    return FixpointStats(
+        census=ints[:n],
+        transitions=ints[n:n + m].reshape(s.transitions.shape),
+        l2_hist=ints[n + m:n + m + N_HEALTH_BUCKETS],
+        linf_hist=ints[n + m + N_HEALTH_BUCKETS:], l2_max=maxima[0],
+        linf_max=maxima[1])
+
+
+def gather_window(win: LineageWindow, mesh) -> LineageWindow:
+    """Every rank's window side by side, in rank order (the JAX package's
+    per-shard ``window_specs``): ``window_record`` reads the shards'
+    rows by their own counts."""
+    return LineageWindow(*(mesh.gather(x) for x in win))
+
+
+def place_lineage(mesh, lin: LineageState) -> LineageState:
+    """This rank's block of a lineage carry every rank holds in full (the
+    per-particle fields; the mint counter whole)."""
+    from ..parallel.mesh import global_device_put
+
+    return LineageState(*(global_device_put(x, mesh, None if f == "next_pid"
+                                            else 0)
+                          for f, x in zip(LineageState._fields, lin)))
 
 
 # ---------------------------------------------------------------------------

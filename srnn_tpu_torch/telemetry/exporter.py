@@ -16,9 +16,10 @@ construction.  Endpoints (GET only):
 The accept loop runs on one registered thread; the per-request handler
 threads are the stdlib server's daemons, so a stalled scraper cannot hang
 ``close()``.  The whole plane is host-side: ``--no-export`` never builds
-it, and a run's results are bitwise the same either way.  The worker
-liveness of a multi-process run waits for multi-GPU runs (ROADMAP.md,
-A.6).
+it, and a run's results are bitwise the same either way.  A process of
+a distributed run binds PORT + its process id; the primary's worker
+liveness of a multi-process run is one of ROADMAP.md A.6's remaining
+items, the fleet readers.
 """
 
 import json

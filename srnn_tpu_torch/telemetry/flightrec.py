@@ -155,9 +155,9 @@ def record_recovery(registry, recorder: "FlightRecorder", ctx) -> None:
     ``attempt``, ``recoveries``).  Each attempt builds
     a fresh registry, so folding the cumulative history keeps the exported
     counters monotone across restarts.  No-op on the first attempt and for
-    unsupervised runs.  (The re-ramp and host-loss counters of the JAX
-    package's sharded runs wait for multi-GPU runs, ROADMAP.md A.6: a
-    recovery here never re-ramps.)"""
+    unsupervised runs.  (The re-ramp counters of the JAX package's
+    in-process re-ramp wait for that item, ROADMAP.md A.6: a lost host
+    here is re-ramped by the launcher, in a new process.)"""
     if ctx is None or not getattr(ctx, "restarts", 0):
         return
     registry.counter("soup_restarts_total",

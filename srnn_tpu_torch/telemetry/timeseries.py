@@ -13,9 +13,9 @@ it.
 Clocks: ring stamps are monotonic seconds since the history was made;
 each jsonl row also carries the wall stamp.  Lookups address metrics by
 their bare registry name and fold every label set of that name by sum.
-The fleet-wide reader of the JAX package (several processes' files) waits
-for multi-GPU runs (ROADMAP.md, A.6): :func:`load_history_rows` reads one
-process's file.
+The fleet-wide reader of the JAX package (several processes' files of a
+distributed run) is one of ROADMAP.md A.6's remaining items, the fleet
+readers: :func:`load_history_rows` reads one process's file.
 """
 
 import json

@@ -36,7 +36,8 @@ folds both (per type, ``type=<variant>``, for a mixed soup).  Pipelined,
 the carries are snapshotted like the frames and folded on the writer
 thread, so the loop reads nothing back; blocking, they are folded after
 each chunk.  The sharded capture (``open_process_shard``,
-``sharded_evolve_captured``) waits for multi-GPU (ROADMAP.md, A.6).
+``sharded_evolve_captured``, per-process ``.traj`` shards of a sharded run)
+is one of ROADMAP.md A.6's items still to come.
 """
 
 from typing import Optional

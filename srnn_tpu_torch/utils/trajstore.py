@@ -457,9 +457,10 @@ def read_sharded_store(base: str, start: int = 0,
     exist (single-process store).  Shards are concatenated in process
     order along the particle axis — processes own contiguous global row
     blocks (the JAX package's ``capture.sharded_evolve_captured`` layout;
-    the port's sharded capture waits for ROADMAP.md, A.6).  A run killed
-    mid-capture may leave shards at different lengths; only frames present
-    in EVERY shard are returned (the global frame is otherwise torn).
+    the port's sharded capture is still to come, ROADMAP.md A.6).  A run
+    killed mid-capture may leave shards at different lengths; only frames
+    present in EVERY shard are returned (the global frame is otherwise
+    torn).
 
     Only the requested [start, start+count) window is read from each
     shard — a mega-soup global frame is ~56 MB, so reading whole shards to

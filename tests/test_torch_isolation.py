@@ -70,7 +70,15 @@ for name in ("srnn_tpu_torch.multisoup", "srnn_tpu_torch.nets.cross",
              "srnn_tpu_torch.serve.journal", "srnn_tpu_torch.serve.pool",
              "srnn_tpu_torch.serve.scheduler",
              "srnn_tpu_torch.serve.server", "srnn_tpu_torch.serve.service",
-             "srnn_tpu_torch.serve.tenant"):
+             "srnn_tpu_torch.serve.tenant", "srnn_tpu_torch.parallel",
+             "srnn_tpu_torch.parallel.mesh",
+             "srnn_tpu_torch.parallel.sharded_soup",
+             "srnn_tpu_torch.parallel.sharded_multisoup",
+             "srnn_tpu_torch.parallel.multihost",
+             "srnn_tpu_torch.distributed",
+             "srnn_tpu_torch.distributed.bootstrap",
+             "srnn_tpu_torch.distributed.hostio",
+             "srnn_tpu_torch.distributed.launch"):
     assert name in names, name
 """
 
